@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py [--seed 0] [--batch 256] [--out_dir build/chip_smoke]
 
-Drives the port's main path, the flagship TTnet-Small (p = 64, --layers 1,
-224x224) served as its compiled truth tables over HTTP, and holds every
-CUDA kernel against its plain PyTorch version.  Phases, each printing one
-line of its numbers:
+Drives the port's main paths on the flagship TTnet-Small (p = 64,
+--layers 1, 224x224): served as its compiled truth tables over HTTP, and
+evaluated from uint8 shards (``--mode eval``, conv and ``--lut``, with the
+fused pointwise kernel on), and holds every CUDA kernel against its plain
+PyTorch version.  Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together),
            build the flagship from --seed with its BN running statistics
@@ -19,8 +20,26 @@ line of its numbers:
 4. serve:  ``python -m scale_imagenet_tpu_torch.main --mode serve --lut``
            in a thread, concurrent raw-f32 requests, each top-5 equal to a
            direct forward's; launch counts of this run;
-5. perf:   B=1 latency and B=256 throughput, conv and LUT, and each
-           B=256 forward's device time by kernel (``torch.profiler``).
+5. fused_kernels: the 6 fused pointwise launches of one B=256 conv forward
+           with ``config.performance.fused_pointwise_blocks`` on, captured
+           with their real inputs: kernel vs plain in f32 and bf16 (ReLU
+           within 1e-5 in f32 and one bf16 step in bf16; Heaviside flips in
+           at most 1e-4 of the outputs, each within 1e-4 of the threshold
+           in the plain version), flips against the exact-erf unfused
+           chain, times of the kernel, the plain version and the chain,
+           the bound;
+6. eval:   5,000 seeded uint8 images labelled by the unfused conv
+           forward's argmax (the classifier BN's statistics set from the
+           first batch, so that the labels spread over many classes),
+           written with ``write_shards`` under ``build/``, then
+           ``main --mode eval --shards_dir`` at B=256 four times: conv with
+           the switch off, conv with it on, ``--lut --lut_path F`` (writes
+           F) and again (loads F); top-1/5, loss, img/s, the device's idle
+           share and the launch counts of each run;
+7. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
+           switch off and on: with it on, the LUT forward's last float
+           fuse head runs through the fused kernel), and each B=256
+           forward's device time by kernel (``torch.profiler``).
 
 The line before the last is the ``kernels`` JSON; the last line is the
 ``{"ok": true, "device": ...}`` result.  Any failed check exits non-zero.
@@ -30,7 +49,10 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -40,12 +62,18 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # the data sheet gives no int32 rate; its non-tensor float32 rate is an
 # upper bound on the shift/mask/index ops, so the op time stays a least time
 OPS_PER_S = 67e12
+# f32 operations of one GELU in csrc/fused_block.cu (an FMA counts 2): the
+# scale by 1/sqrt2, |.|, min, a*a, one FMA for t, 16 Horner FMAs, a*acc,
+# copysign, 1+e, 0.5*v and the product
+GELU_OPS = 43
+EVAL_IMAGES = 5000
 
 
 def fail(msg: str) -> None:
@@ -164,12 +192,31 @@ def gather_case(kind, tab, idx, out_dtype, K):
             "bytes": nbytes, "max_abs_err": err}
 
 
+def device_spans(prof) -> list:
+    """``(start_ns, end_ns, name)`` of every device event of a profile.  A
+    device event can be reported more than once: keep each distinct one."""
+    from torch.autograd import DeviceType
+
+    return sorted({(e.start_ns(), e.end_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA})
+
+
+def busy_ns(spans: list) -> int:
+    """Device busy time: the union of the intervals."""
+    total, reach = 0, None
+    for start, end, _ in spans:
+        lo = start if reach is None else max(start, reach)
+        total += max(0, end - lo)
+        reach = end if reach is None else max(reach, end)
+    return total
+
+
 def profile_forward(name: str, fn, batch: int, out_dir: Path,
                     iters: int = 3) -> None:
     """Device time of ``iters`` forwards by kernel (``torch.profiler``):
     busy share of the window and the kernels that take the most time.
     Writes the full table to ``<out_dir>/profile_<name>.txt``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -183,24 +230,248 @@ def profile_forward(name: str, fn, batch: int, out_dir: Path,
         window_ms = (time.perf_counter() - t) * 1e3 / iters
     (out_dir / f"profile_{name}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
-    # a device event can be reported more than once: keep each distinct
-    # (name, start, end), and take busy time as the union of the intervals
-    spans = sorted({(e.start_ns(), e.end_ns(), e.name())
-                    for e in prof.profiler.kineto_results.events()
-                    if e.device_type() == DeviceType.CUDA})
+    spans = device_spans(prof)
     check(bool(spans), f"profile of the {name} forward shows no device time")
     by_kernel: dict = {}
-    busy_ns, reach = 0, None
     for start, end, kname in spans:
         by_kernel[kname] = by_kernel.get(kname, 0) + (end - start) / 1e6 / iters
-        lo = start if reach is None else max(start, reach)
-        busy_ns += max(0, end - lo)
-        reach = end if reach is None else max(reach, end)
-    busy = busy_ns / 1e6 / iters
+    busy = busy_ns(spans) / 1e6 / iters
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit(f"profile_{name}", batch=batch, window_ms_per_forward=window_ms,
          device_busy_ms_per_forward=busy, device_idle_share=1 - busy
          / window_ms, top_kernels_ms=[[k[:60], v] for k, v in top])
+
+
+@contextlib.contextmanager
+def fused_blocks(on: bool):
+    """``config.performance.fused_pointwise_blocks`` set for the duration."""
+    from scale_imagenet_tpu_torch import config
+
+    saved = config.performance.fused_pointwise_blocks
+    config.performance.fused_pointwise_blocks = on
+    try:
+        yield
+    finally:
+        config.performance.fused_pointwise_blocks = saved
+
+
+def fused_ops(e: int, g: int, ci: int, m: int, co: int) -> int:
+    """f32 operations of the fused kernel's own arithmetic (an FMA counts
+    2) for E pixels and G groups: per pixel-group and hidden unit j, ci
+    FMAs, the BN1 FMA, the GELU and co FMAs; per output, the BN2 FMA and
+    the activation."""
+    return e * g * (m * (2 * ci + 2 + GELU_OPS + 2 * co) + 3 * co)
+
+
+def fused_case(block, x, FB):
+    """Kernel vs plain (f32 and bf16) and vs the exact-erf unfused chain at
+    one captured launch of the fused pointwise block; times and bound."""
+    from scale_imagenet_tpu_torch.models.block_tt import block_tt
+
+    params = FB.block_tt_pointwise_params(block)
+    act = "relu" if block.cfg.last else "heaviside"
+    g, ci, m = params[0].shape
+    co = params[3].shape[2]
+    b, c, h, w = x.shape
+    where = f"G={g} ci={ci} co={co} E={b * h * w} {act}"
+
+    def rows(t):
+        return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+
+    row = {"G": g, "ci": ci, "m": m, "co": co, "E": b * h * w, "act": act}
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        got = rows(FB.fused_pointwise_nchw(xd, params, act))
+        want = FB.fused_pointwise_block_plain(rows(xd), *params, act=act)
+        torch.cuda.synchronize()
+        name = str(dt).replace("torch.", "")
+        check(got.dtype == dt, f"fused kernel stored {got.dtype} at {where}")
+        if act == "relu":
+            err = float((got.float() - want.float()).abs().max())
+            # f32: FMA contraction and summation order; bf16: one step
+            check(torch.allclose(got.float(), want.float(), rtol=(
+                0 if dt == torch.float32 else 2 ** -8), atol=1e-5),
+                f"fused ReLU != plain at {where} {name}: {err}")
+        else:
+            flips = got != want
+            err = float(flips.any())
+            share = float(flips.float().mean())
+            near = FB.fused_pointwise_preact_plain(rows(xd), *params)[flips]
+            row[f"flip_share_{name}"] = share
+            row[f"flips_max_abs_preact_{name}"] = float(
+                near.abs().max()) if near.numel() else 0.0
+            check(share <= 1e-4, f"fused Heaviside flips {share} at {where}")
+            check(bool((near.abs() < 1e-4).all()),
+                  f"a fused Heaviside flip away from the threshold at "
+                  f"{where} {name}")
+        row[f"max_abs_err_{name}"] = err
+        del got, want
+
+    xr = rows(x)
+
+    def run():
+        return FB.fused_pointwise_nchw(x, params, act)
+
+    def plain():
+        return FB.fused_pointwise_block_plain(xr, *params, act=act)
+
+    def chain():
+        with fused_blocks(False):
+            return block_tt(block, x)
+
+    out, exact = run(), chain()
+    row["vs_exact_chain"] = float(((out - exact).abs().max()) if act == "relu"
+                                  else (out != exact).float().mean())
+    del out, exact
+    nbytes = (x.numel() * x.element_size() + b * h * w * g * co * 4
+              + sum(t.numel() * 4 for t in params))
+    ops = fused_ops(b * h * w, g, ci, m, co)
+    row.update(ms=time_ms(run), plain_ms=time_ms(plain),
+               chain_ms=time_ms(chain), bytes=nbytes, ops=ops,
+               bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+               >= ops / OPS_PER_S else "operations")
+    return row
+
+
+def fused_kernels_phase(model, x, out_dir: Path) -> list:
+    """Capture the fused launches of one conv forward with the switch on
+    and hold each against its plain version."""
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.models import multihead
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply
+
+    captured = []
+    real = multihead.block_tt
+
+    def rec(block, h, *a, **k):
+        if block.cfg.k in (1, (1, 1)):
+            captured.append((block, h))
+        return real(block, h, *a, **k)
+
+    with mock.patch.object(multihead, "block_tt", rec), fused_blocks(True):
+        ttnet_imagenet_apply(model, x)
+    torch.cuda.synchronize()
+    check(len(captured) == 6, f"{len(captured)} fused launches a flagship "
+                              "conv forward, expected 6")
+    rows = []
+    for block, h in captured:
+        row = fused_case(block, h, FB)
+        rows.append(row)
+        emit("fused_kernels", kernel="fused_pointwise_block", **row)
+    (out_dir / "fused_cases.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
+def eval_phase(args, model, out_dir: Path) -> dict:
+    """``main --mode eval`` over self-labelled shards: conv (switch off,
+    on), LUT writing its archive, LUT loading it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, pad_batches, write_shards
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.layers.linear import linear
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply, ttnet_imagenet_features
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    B, n = args.batch, EVAL_IMAGES
+    # shards, weights and the archive (~1 GB) stay out of --out_dir, which
+    # holds only the small reports
+    work = Path("build") / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    imgs = np.random.default_rng(args.seed + 3).integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    # with the init's statistics, the classifier BN maps every image of a
+    # seeded random network to one class; set them from the first batch so
+    # that the argmax depends on the image
+    model = copy.deepcopy(model)
+    head = model.classifier
+    with fused_blocks(False):
+        z = linear(ttnet_imagenet_features(model, prepare(
+            torch.from_numpy(imgs[:B]).cuda())), head.lin1.weight)
+        head.BN2.running_mean.copy_(z.mean(0))
+        head.BN2.running_var.copy_(z.var(0))
+        labels = []
+        for batch, _ in pad_batches(((imgs[i:i + B], np.zeros(
+                min(B, n - i), np.int32)) for i in range(0, n, B)), B):
+            xb = prepare(torch.from_numpy(batch).cuda())
+            labels.append(ttnet_imagenet_apply(model, xb).argmax(1).cpu())
+    labels = torch.cat(labels)[:n].numpy().astype(np.int32)
+    write_shards(ArrayDataset(imgs, labels), str(work / "shards"))
+    ckpt = work / "weights.pth"
+    torch.save(model.state_dict(), ckpt)
+    lut_path = work / "luts.npz"
+    del imgs, model, z
+    emit("eval_setup", images=n, batch=B, classes_hit=int(
+        np.unique(labels).size), setup_s=time.perf_counter() - t0)
+
+    base = ["--mode", "eval", "--shards_dir", str(work / "shards"),
+            "--eval_batch_size", str(B), "--seed", str(args.seed),
+            "--ckpt", str(ckpt), "--root_dir", str(work / "logs")]
+    batches = -(-n // B)
+    real_evaluate = cli.evaluate
+    results = {}
+    for name, extra, fused in (
+            ("conv", [], False), ("conv_fused", [], True),
+            ("lut_write", ["--lut", "--lut_path", str(lut_path)], True),
+            ("lut_load", ["--lut", "--lut_path", str(lut_path)], True)):
+        stats = {}
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                res = real_evaluate(*a, **k)
+                torch.cuda.synchronize()
+                stats["wall_s"] = time.perf_counter() - t
+            stats["busy_s"] = busy_ns(device_spans(prof)) / 1e9
+            return res
+
+        K.reset_launches()
+        FB.reset_launches()
+        t = time.perf_counter()
+        with mock.patch.object(cli, "evaluate", timed), fused_blocks(fused):
+            top1, top5, loss = cli.main(base + extra)
+        torch.cuda.synchronize()
+        launches = {"fused_pointwise_block": FB.fused_pointwise_block.launches,
+                    "lut_gather_bits": K.lut_gather_bits.launches,
+                    "lut_gather_float": K.lut_gather_float.launches}
+        results[name] = {"top1": top1, "top5": top5, "loss": loss,
+                         "img_s": n / stats["wall_s"],
+                         "eval_s": stats["wall_s"],
+                         "device_idle_share": 1 - stats["busy_s"]
+                         / stats["wall_s"],
+                         "run_s": time.perf_counter() - t,
+                         "launches": launches}
+        emit("eval", run=name, fused=fused, **results[name])
+    want = {"conv": (0, 0), "conv_fused": (6 * batches, 0),
+            "lut_write": (batches, 8 * batches),
+            "lut_load": (batches, 8 * batches)}
+    for name, (fused_n, bits_n) in want.items():
+        got = results[name]["launches"]
+        check(got["fused_pointwise_block"] == fused_n
+              and got["lut_gather_bits"] == bits_n,
+              f"eval {name} launched {got}, expected {fused_n} fused and "
+              f"{bits_n} bit gathers")
+    check(results["conv"]["top1"] >= 99.9,
+          f"eval conv top-1 {results['conv']['top1']} < 99.9")
+    for name in ("conv_fused", "lut_write"):
+        check(results[name]["top1"] >= 99.0,
+              f"eval {name} top-1 {results[name]['top1']} < 99")
+    check(all(results["lut_load"][k] == results["lut_write"][k]
+              for k in ("top1", "top5", "loss")),
+          "eval from the loaded LUT archive differs from the run that "
+          "wrote it")
+    shutil.rmtree(work)
+    return results
 
 
 def main() -> int:
@@ -393,6 +664,13 @@ def run(args) -> int:
           f"serve ran {serve_launches} launches")
     del smodel, sluts
 
+    # ---------------------------------------------------- fused kernels
+    fused_rows = fused_kernels_phase(model, x, out_dir)
+    torch.cuda.synchronize()
+
+    # ------------------------------------------------------------- eval
+    evals = eval_phase(args, model, out_dir)
+
     # ------------------------------------------------------------- perf
     def wall_ms(fn, iters):
         fn()
@@ -410,13 +688,24 @@ def run(args) -> int:
         "conv_b256_ms": wall_ms(lambda: ttnet_imagenet_apply(model, x), 10),
         "lut_b256_ms": wall_ms(lambda: lut_ttnet_apply(luts, model, x), 10),
     }
-    perf["conv_img_s"] = B / perf["conv_b256_ms"] * 1e3
-    perf["lut_img_s"] = B / perf["lut_b256_ms"] * 1e3
+    with fused_blocks(True):
+        perf["conv_fused_b256_ms"] = wall_ms(
+            lambda: ttnet_imagenet_apply(model, x), 10)
+        perf["lut_fused_b256_ms"] = wall_ms(
+            lambda: lut_ttnet_apply(luts, model, x), 10)
+    for name in ("conv", "conv_fused", "lut", "lut_fused"):
+        perf[f"{name}_img_s"] = B / perf[f"{name}_b256_ms"] * 1e3
     emit("perf", card=card, batch=B, **perf)
     profile_forward("conv", lambda: ttnet_imagenet_apply(model, x), B,
                     out_dir)
+    with fused_blocks(True):
+        profile_forward("conv_fused", lambda: ttnet_imagenet_apply(model, x),
+                        B, out_dir)
     profile_forward("lut", lambda: lut_ttnet_apply(luts, model, x), B,
                     out_dir)
+    with fused_blocks(True):
+        profile_forward("lut_fused", lambda: lut_ttnet_apply(luts, model, x),
+                        B, out_dir)
 
     def entry(kind, replaces, launches):
         rows = cases[kind]
@@ -436,6 +725,20 @@ def run(args) -> int:
               serve_launches["lut_gather_bits"]),
         entry("float", "scale_imagenet_tpu/pallas/lut_gather.py:107",
               table_exact_launches["lut_gather_float"]),
+        {"name": "fused_pointwise_block", "route": "cuda",
+         "source": "scale_imagenet_tpu_torch/csrc/fused_block.cu",
+         "replaces": "scale_imagenet_tpu/pallas/fused_block.py:41, "
+                     "scale_imagenet_tpu/pallas/fused_block.py:191",
+         "launches": evals["conv_fused"]["launches"][
+             "fused_pointwise_block"],
+         "max_abs_err": max(r["max_abs_err_float32"] for r in fused_rows),
+         "ms": sum(r["ms"] for r in fused_rows),
+         "plain_ms": sum(r["plain_ms"] for r in fused_rows),
+         "bound_ms": sum(r["bound_ms"] for r in fused_rows),
+         "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                         for r in fused_rows) else "bytes",
+         "library_ms": None,
+         "chain_ms": sum(r["chain_ms"] for r in fused_rows)},
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ channel-major ``(channel, kh, kw)``; each pattern is tiled across the
 ``groupsici`` groups so one batched pass evaluates every filter of every
 group.  Patterns are evaluated UNPADDED (one valid conv position), so row r
 of a filter's table is exactly its response to window bits r.  Patterns
-are generated chunk by chunk on the block's device.  Minimisation and the
+are generated chunk by chunk on the block's device.  Tables are enumerated
+under ``exact_numerics()`` (``truth_table.py:89,107``): exact erf and no
+fused kernel, whatever ``config.performance`` says, so a table does not
+depend on the switch.  Minimisation and the
 artifact files come with the gate compiler (``ROADMAP.md``).
 """
 
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import exact_numerics
 from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair, block_tt
 
 MAX_BITS = 24
@@ -51,7 +55,9 @@ def block_truth_table(block: BlockTT, chunk: int = 8192) -> torch.Tensor:
         raise ValueError(f"n={n} bits: 2^n enumeration infeasible")
     w = block.conv1.weight
     outs = []
-    for lo in range(0, 2 ** n, chunk):
-        x = _patterns(cfg, lo, min(lo + chunk, 2 ** n), w.device, w.dtype)
-        outs.append(block_tt(block, x, pre_padded=True)[:, :, 0, 0])
+    with exact_numerics():
+        for lo in range(0, 2 ** n, chunk):
+            x = _patterns(cfg, lo, min(lo + chunk, 2 ** n), w.device,
+                          w.dtype)
+            outs.append(block_tt(block, x, pre_padded=True)[:, :, 0, 0])
     return torch.cat(outs)

@@ -1,3 +1,3 @@
-from .from_jax import state_dict_from_jax
+from .from_jax import jax_trees, state_dict_from_jax
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["jax_trees", "state_dict_from_jax"]

@@ -7,9 +7,14 @@ Eval forward, matching the reference Block_TT::
     -> Heaviside   (ReLU instead when ``last``)
 
 Every output filter sees ``n = k_h * k_w * (in / groupsici)`` input bits, so
-it compiles to a truth table (``compile/``).  The BinConv2d first conv, the
-input fault mask and the noisy Heaviside come with the families and the
-training that use them.
+it compiles to a truth table (``compile/``).  With
+``config.performance.fused_pointwise_blocks`` on, a k=1 stride-1 unpadded
+block runs as the fused pointwise kernel instead (``kernels/fused_block.py``;
+the gate of ``scale_imagenet_tpu/models/block_tt.py:94-100``; the GELU
+there is the polynomial erf).  The JAX gate also asks for a TPU backend; here the
+kernel's wrapper takes the CUDA kernel for a CUDA tensor and its plain
+version for a CPU one.  The BinConv2d first conv, the input fault mask and
+the noisy Heaviside come with the families and the training that use them.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..config import performance
+from ..kernels.fused_block import block_tt_pointwise_params, \
+    fused_pointwise_nchw
 from ..layers.conv import conv2d
 from ..layers.norm import batch_norm
 from ..layers.pool import constant_pad2d
@@ -74,6 +82,10 @@ def block_tt(block: BlockTT, x: torch.Tensor,
     """Eval forward on NCHW ``x``.  ``pre_padded`` skips the pad for callers
     that already padded (the truth-table enumerator)."""
     cfg = block.cfg
+    if (performance.fused_pointwise_blocks and _as_pair(cfg.k) == (1, 1)
+            and cfg.stride == 1 and cfg.padding == 0):
+        return fused_pointwise_nchw(x, block_tt_pointwise_params(block),
+                                    "relu" if cfg.last else "heaviside")
     if cfg.padding != 0 and not pre_padded:
         x = constant_pad2d(x, cfg.padding)
     out = conv2d(x, block.conv1.weight, stride=cfg.stride,

@@ -1,3 +1,4 @@
+from .evaluate import evaluate
 from .server import DynamicBatcher, make_forward, serve
 
-__all__ = ["DynamicBatcher", "make_forward", "serve"]
+__all__ = ["DynamicBatcher", "evaluate", "make_forward", "serve"]

@@ -1,0 +1,62 @@
+"""Evaluation loop (counterpart of ``scale_imagenet_tpu/runtime/evaluate.py``,
+the reference's ``test()``)."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..train.metrics import AverageMeter
+
+_KEYS = ("loss", "top1", "top5", "n")
+
+
+def evaluate(eval_step, loader, logger=None, epoch: int = 0,
+             log_interval: int = 40, verbose: bool = True):
+    """Run one evaluation epoch over ``loader`` (``(images, labels)``
+    batches on the step's device); returns ``(top1, top5, loss)``.
+
+    Per-batch metrics stay on the device until a log point or the end of
+    the epoch, and then come to the host in one copy: a ``.item()`` per
+    batch would make the host wait for the card every batch, so nothing
+    queued would overlap.  The drain at each log point is the loop's
+    back-pressure: it bounds the batches in flight.
+    """
+    batch_time = AverageMeter("Time", ":6.3f")
+    losses = AverageMeter("Loss", ":.4e")
+    top1 = AverageMeter("Acc@1", ":6.2f")
+    top5 = AverageMeter("Acc@5", ":6.2f")
+    pending = []        # device-side metric dicts not yet folded in
+
+    def drain():
+        if not pending:
+            return
+        rows = torch.stack([torch.stack([m[k].float() for k in _KEYS])
+                            for m in pending]).cpu().tolist()
+        for loss, t1, t5, n in rows:
+            n = int(n)
+            losses.update(loss, n)
+            top1.update(t1, n)
+            top5.update(t5, n)
+        pending.clear()
+
+    end = time.time()
+    for batch_idx, (images, labels) in enumerate(loader):
+        pending.append(eval_step(images, labels))
+        batch_time.update(time.time() - end)
+        end = time.time()
+        if batch_idx % log_interval == 0:
+            drain()
+            if verbose:
+                print(f"eval [{batch_idx}] loss {losses.avg:.3f} "
+                      f"acc1 {top1.avg:.3f}% acc5 {top5.avg:.3f}% "
+                      f"({batch_time.avg * 1000:.0f} ms/batch)")
+            if logger is not None:
+                step = epoch * 10**6 + batch_idx
+                logger.add_scalar("Loss/test", losses.avg, step)
+                logger.add_scalar("Accuracy/test", top1.avg, step)
+    drain()
+    if verbose:
+        print(f"Acc.. {top1.avg} {top5.avg}")
+    return top1.avg, top5.avg, losses.avg

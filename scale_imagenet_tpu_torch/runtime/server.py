@@ -8,16 +8,17 @@ requests are coalesced (up to ``batch_size``, waiting at most
 
 Endpoints:
   GET  /healthz  -> {"model", "device", "batch_size", "served", ...}
-  POST /predict  -> body = a raw float32 NHWC tensor of one image
-                    (application/octet-stream); the JSON answer carries
-                    the top-5 class indices, their probabilities and the
-                    latency.  Image uploads (``image/*``) answer 400: the
-                    PIL-exact eval transform arrives with the ``data/``
-                    slice (``ROADMAP.md``).
+  POST /predict  -> body = JPEG/PNG bytes (``image/*``, decoded with
+                    Pillow through the PIL-exact eval transform,
+                    ``data/transforms.py``) or a raw float32 NHWC tensor
+                    of one image (application/octet-stream); the JSON
+                    answer carries the top-5 class indices, their
+                    probabilities and the latency.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import queue
 import threading
@@ -26,6 +27,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from ..data.transforms import imagenet_eval_transform
 
 
 class DynamicBatcher:
@@ -152,6 +155,14 @@ def make_forward(apply, device: torch.device):
     return forward
 
 
+def _decode_image(body: bytes) -> np.ndarray:
+    """JPEG/PNG bytes -> the 224x224 HWC float32 eval input (every model
+    of the port is a 224x224 ImageNet model)."""
+    from PIL import Image
+
+    return imagenet_eval_transform(Image.open(io.BytesIO(body)))
+
+
 def serve(apply, name: str, input_shape, *, device: torch.device,
           host: str = "127.0.0.1", port: int = 8000, batch_size: int = 8,
           max_wait_ms: float = 2.0, ready_event=None, stop_event=None,
@@ -199,13 +210,11 @@ def serve(apply, name: str, input_shape, *, device: torch.device,
                 ctype = self.headers.get("Content-Type",
                                          "application/octet-stream")
                 if ctype.startswith("image/"):
-                    raise ValueError(
-                        "image uploads need the PIL-exact eval transform, "
-                        "which arrives with the data/ slice (ROADMAP.md); "
-                        "post a raw float32 NHWC tensor instead")
-                x = np.frombuffer(body, np.float32).reshape(input_shape)
+                    x = _decode_image(body)
+                else:
+                    x = np.frombuffer(body, np.float32).reshape(input_shape)
                 t0 = time.perf_counter()
-                probs = batcher.submit(np.ascontiguousarray(x))
+                probs = batcher.submit(np.ascontiguousarray(x, np.float32))
                 ms = (time.perf_counter() - t0) * 1e3
                 top5 = np.argsort(probs)[::-1][:5]
                 self._json(200, {

@@ -1,6 +1,7 @@
 """The port's entry point: ``--mode serve [--lut]`` on the CPU, the card by
 default, and the flags of later slices refused by name."""
 
+import io
 import json
 import threading
 import urllib.error
@@ -16,6 +17,7 @@ from _torch_port import images
 from scale_imagenet_tpu_torch import main as cli
 from scale_imagenet_tpu_torch.compile.lut_eval import compile_ttnet_lut, \
     lut_ttnet_apply
+from scale_imagenet_tpu_torch.data import imagenet_eval_transform
 from scale_imagenet_tpu_torch.device import resolve_device
 from scale_imagenet_tpu_torch.models import get_model
 
@@ -31,6 +33,17 @@ def _post(url, body, ctype="application/octet-stream"):
             return r.status, json.loads(r.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
+
+
+def _png(seed: int) -> bytes:
+    """A seeded 300x260 RGB PNG: the eval transform resizes and crops it."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (260, 300, 3), dtype=np.uint8)) \
+        .save(buf, format="PNG")
+    return buf.getvalue()
 
 
 @pytest.mark.parametrize("lut", [True, False])
@@ -61,7 +74,9 @@ def test_server_answers_concurrent_requests(lut):
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         bad_shape = _post(url + "/predict", xs[0, :10].tobytes())
-        image = _post(url + "/predict", b"\x89PNG", "image/png")
+        png = _png(12)
+        image = _post(url + "/predict", png, "image/png")
+        bad_image = _post(url + "/predict", png[:40], "image/png")
         unknown = _post(url + "/nope", b"")
     finally:
         stop.set()
@@ -69,20 +84,28 @@ def test_server_answers_concurrent_requests(lut):
     assert not th.is_alive()
     md = get_model("ttnet_imagenet_xsmall", nfilter=4, tfilter=4, layers=0)
     model = md.init(seed=3, device="cpu")
+    if lut:
+        luts = compile_ttnet_lut(model)
+
+        def forward(x):
+            return lut_ttnet_apply(luts, model, x)
+    else:
+        forward = model
+    from PIL import Image
+
+    decoded = imagenet_eval_transform(Image.open(io.BytesIO(png)))
     with torch.no_grad():
-        if lut:
-            logits = lut_ttnet_apply(compile_ttnet_lut(model), model,
-                                     torch.from_numpy(xs))
-        else:
-            logits = model(torch.from_numpy(xs))
+        logits = forward(torch.from_numpy(np.concatenate([xs, decoded[None]])))
     direct = torch.topk(torch.softmax(logits, -1), 5).indices.tolist()
     assert [a[0] for a in answers] == [200] * 6
-    assert [a[1]["top5"] for a in answers] == direct
+    assert [a[1]["top5"] for a in answers] == direct[:6]
     assert health["served"] == 6 and health["batch_size"] == 4
     assert health["model"].endswith("+lut") == lut
     assert health["device"] == "cpu"
     assert bad_shape[0] == 400 and "shape" in bad_shape[1]["error"]
-    assert image[0] == 400 and "ROADMAP" in image[1]["error"]
+    # an image upload goes through the PIL eval transform
+    assert image[0] == 200 and image[1]["top5"] == direct[6]
+    assert bad_image[0] == 400 and "error" in bad_image[1]
     assert unknown[0] == 404
 
 
@@ -97,7 +120,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("argv", [["--mode", "eval"], ["--mode", "train"],
+@pytest.mark.parametrize("argv", [["--mode", "eval", "--native_data"],
+                                  ["--mode", "train"],
                                   ["--mode", "serve", "--gates", "dnf"],
                                   ["--mode", "serve", "--fold_bn"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv):
