@@ -20,59 +20,37 @@ import torch
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 num_workers: int = 6, drop_last: bool = False, seed: int = 0,
+    def __init__(self, dataset, batch_size: int, num_workers: int = 6,
                  rank: int = 0, world: int = 1):
-        """``rank``/``world``: multi-process feeding (the reference's
-        DistributedSampler): every process draws the SAME seeded
-        permutation, then takes a contiguous ``ceil(len / world)`` slice.
-        With ``drop_last`` the global tail past min-rank coverage is dropped
-        (equal full batches everywhere); without it short ranks emit all-pad
-        filler batches (labels -1, masked from the metric sums) up to the
-        max rank count, so every image is scored in lockstep."""
+        """Sequential batches, the trailing short one included.
+
+        ``rank``/``world``: multi-process feeding (the reference's
+        DistributedSampler, unshuffled): each process takes a contiguous
+        ``ceil(len / world)`` slice, and short ranks emit all-pad filler
+        batches (labels -1, masked from the metric sums) up to the max rank
+        count, so every image is scored in lockstep."""
         self.dataset = dataset
         self.batch_size = batch_size
-        self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
-        self.drop_last = drop_last
-        self.seed = seed
         self.rank = rank
         self.world = world
-        self._epoch = 0
-
-    def set_epoch(self, epoch: int):
-        self._epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return (n // self.world) // self.batch_size
-        per = -(-n // self.world)
+        per = -(-len(self.dataset) // self.world)
         return -(-per // self.batch_size)
 
     def _filler_batches(self):
-        if self.drop_last or self.world <= 1:
-            return 0
         n = len(self.dataset)
         per = -(-n // self.world)
         mine = max(0, min(per, n - self.rank * per))
-        return -(-per // self.batch_size) - (-(-mine // self.batch_size)
-                                             if mine else 0)
+        return len(self) - -(-mine // self.batch_size)
 
     def __iter__(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            rng = np.random.default_rng(self.seed + self._epoch)
-            rng.shuffle(idx)
-        if self.world > 1:
-            per = (len(idx) // self.world if self.drop_last
-                   else -(-len(idx) // self.world))
-            idx = idx[self.rank * per:(self.rank + 1) * per]
+        per = -(-len(self.dataset) // self.world)
+        idx = np.arange(len(self.dataset))[self.rank * per:
+                                           (self.rank + 1) * per]
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
-        if self.drop_last and batches and \
-                len(batches[-1]) < self.batch_size:
-            batches.pop()
 
         images = None
         with ThreadPoolExecutor(self.num_workers) as pool:

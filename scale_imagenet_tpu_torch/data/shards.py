@@ -108,24 +108,15 @@ class ShardDataset:
         j = idx - self._offsets[s]
         return np.asarray(self._images[s][j]), int(self._labels[s][j])
 
-    def iter_batches(self, batch_size: int, drop_last: bool = False,
-                     rank: int = 0, world: int = 1, shuffle=None):
+    def iter_batches(self, batch_size: int, rank: int = 0, world: int = 1):
         """Yield ``(images u8 (B,H,W,C), labels i32 (B,))`` spanning shard
-        boundaries; the trailing short batch unless ``drop_last``.
+        boundaries, the trailing short batch included.
 
         ``rank``/``world``: each process serves the shards assigned
         round-robin to its rank, and every rank yields the same number of
-        batches (``rank_batches``): with ``drop_last`` the minimum count
-        of full batches; without it the maximum, short ranks padding their
-        tail and appending all-pad batches (labels -1).  ``shuffle``: an
-        integer seed that permutes the shard order and the rows within
-        each shard (vary it per epoch)."""
+        batches (``rank_batches``): short ranks pad their tail and append
+        all-pad batches (labels -1)."""
         mine = [s for s in range(len(self._paths)) if s % world == rank]
-        rng = None
-        if shuffle is not None:
-            rng = np.random.default_rng(shuffle)
-            mine = [mine[i] for i in rng.permutation(len(mine))]
-
         ahead = 2
 
         def shard_stream():
@@ -137,51 +128,28 @@ class ShardDataset:
                     if j + ahead < len(mine):
                         futs.append(pool.submit(
                             _load_npy_fast, self._paths[mine[j + ahead]]))
-                    lbl = self._labels[s]
-                    if rng is not None:
-                        perm = rng.permutation(len(cur))
-                        cur, lbl = cur[perm], lbl[perm]
-                    yield cur, lbl
+                    yield cur, self._labels[s]
 
-        if world > 1 and not drop_last:
-            target = self.rank_batches(batch_size, False, world)
-            count = 0
-            for img, lbl in pad_batches(
-                    self._slice_batches(shard_stream(), batch_size, False),
-                    batch_size):
-                count += 1
-                yield img, lbl
-            while count < target:
-                count += 1
-                yield filler_batch(batch_size, self.meta["shape"])
+        batches = self._slice_batches(shard_stream(), batch_size)
+        if world == 1:
+            yield from batches
             return
-        it = self._slice_batches(shard_stream(), batch_size,
-                                 drop_last or world > 1)
-        if world > 1:
-            cap = self.rank_batches(batch_size, drop_last, world)
-            for _, batch in zip(range(cap), it):
-                yield batch
-            it.close()
-        else:
-            yield from it
+        count = 0
+        for batch in pad_batches(batches, batch_size):
+            count += 1
+            yield batch
+        for _ in range(self.rank_batches(batch_size, world) - count):
+            yield filler_batch(batch_size, self.meta["shape"])
 
-    def rank_batches(self, batch_size: int, drop_last: bool,
-                     world: int) -> int:
+    def rank_batches(self, batch_size: int, world: int) -> int:
         """The per-rank batch count every rank computes from the shared
-        metadata: the min over ranks of full batches (``drop_last``), or
-        the max over ranks of ceil batches."""
-        counts = []
-        for r in range(world):
-            n = sum(len(self._images[s]) for s in range(len(self._paths))
-                    if s % world == r)
-            counts.append(n // batch_size if drop_last
-                          else -(-n // batch_size))
-        if not counts:
-            return 0
-        return min(counts) if drop_last else max(counts)
+        metadata: the max over ranks of ceil batches."""
+        return max((-(-sum(len(self._images[s])
+                           for s in range(r, len(self._paths), world))
+                      // batch_size) for r in range(world)), default=0)
 
     @staticmethod
-    def _slice_batches(shards, batch_size, drop_last):
+    def _slice_batches(shards, batch_size):
         def join(parts):
             return np.ascontiguousarray(
                 np.concatenate(parts) if len(parts) > 1 else parts[0])
@@ -198,31 +166,22 @@ class ShardDataset:
                 if have == batch_size:
                     yield join(img_parts), join(lbl_parts)
                     img_parts, lbl_parts, have = [], [], 0
-        if have and not drop_last:
+        if have:
             yield join(img_parts), join(lbl_parts)
 
 
-def shard_loader(root: str, batch_size: int, drop_last: bool = False,
-                 rank: int = 0, world: int = 1, shuffle: bool = False,
-                 seed: int = 0):
-    """Epoch iterable over a shard dir, usable where ``DataLoader`` is:
-    ``len()``, ``set_epoch`` and a fresh ``iter_batches`` per epoch."""
+def shard_loader(root: str, batch_size: int):
+    """An iterable over a shard dir, usable where ``DataLoader`` is:
+    ``dataset``, ``len()`` and a fresh ``iter_batches`` per pass."""
     ds = ShardDataset(root)
-    n_batches = ds.rank_batches(batch_size, drop_last, world)
 
     class _Iter:
         dataset = ds
-        _epoch = 0
-
-        def set_epoch(self, epoch: int):
-            self._epoch = epoch
 
         def __len__(self):
-            return n_batches
+            return ds.rank_batches(batch_size, 1)
 
         def __iter__(self):
-            return ds.iter_batches(
-                batch_size, drop_last, rank=rank, world=world,
-                shuffle=(seed + self._epoch) if shuffle else None)
+            return ds.iter_batches(batch_size)
 
     return _Iter()

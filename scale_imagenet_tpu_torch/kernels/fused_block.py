@@ -21,7 +21,9 @@ contract)::
     -> (N, G*co)
 
 ``fused_block_tt_pointwise(_v2)`` take and return NHWC; the model's
-``block_tt`` calls ``fused_pointwise_nchw`` on its NCHW activations.  All
+``block_tt`` calls ``fused_pointwise_nchw`` on its NCHW activations.  Both
+take the parameters a ``BlockTT`` folded once (``pointwise_params``), so a
+forward adds no launch around the kernel's.  All
 of them launch the one kernel, which reads and writes through strides, so
 no transpose surrounds it.  The TPU wrappers' ``_bundle_size`` and
 ``_block_diag`` (groups bundled block-diagonally to fill 128 lanes) are
@@ -70,20 +72,23 @@ def block_tt_pointwise_params(block) -> tuple:
     """Fold a k=1 ``BlockTT``'s weights and eval BNs into the kernel
     layout ``(w1 (G, ci, m), s1 (G, m), b1, w2 (G, m, co), s2 (G, co),
     b2)``, float32 (``fused_block.py:118``).  Grouped conv output channels
-    are group-major: channel ``g*m + j`` of conv1 is ``w1[g, :, j]``."""
+    are group-major: channel ``g*m + j`` of conv1 is ``w1[g, :, j]``.
+    ``w1`` is a ``(G, ci, m)`` view of a copy of conv1's ``(G, m, ci)``
+    weight, the layout the kernel reads, so a launch copies nothing; the
+    other five are contiguous."""
     cfg = block.cfg
     g = cfg.groupsici
     ci = cfg.in_planes // g
     m = cfg.t * cfg.in_planes // g
     co = cfg.out_planes // g
-    w1 = block.conv1.weight.reshape(g, m, ci).transpose(1, 2)
+    w1 = block.conv1.weight.detach().float().reshape(g, m, ci).clone()
     w2 = block.conv2.weight.reshape(g, co, m).transpose(1, 2)
     s1, b1 = bn_scale_bias(block.bn1)
     s2, b2 = bn_scale_bias(block.bn2)
-    f32 = [t.detach().float().contiguous() for t in
-           (w1, s1.reshape(g, m), b1.reshape(g, m), w2, s2.reshape(g, co),
-            b2.reshape(g, co))]
-    return tuple(f32)
+    rest = [t.detach().float().contiguous() for t in
+            (s1.reshape(g, m), b1.reshape(g, m), w2, s2.reshape(g, co),
+             b2.reshape(g, co))]
+    return (w1.transpose(1, 2), *rest)
 
 
 def _act(block) -> str:
@@ -176,11 +181,13 @@ def _launch(x4: torch.Tensor, params: tuple, act: str,
         raise ValueError(f"the fused kernel covers ci in {SUPPORTED_CI} and "
                          f"co in {SUPPORTED_CO}, not ci={ci} co={co}")
     w1, s1, b1, w2, s2, b2 = params
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in params):
-        raise TypeError("weights and affines must be contiguous float32 "
-                        "(block_tt_pointwise_params)")
-    w1t = w1.transpose(1, 2).contiguous()                  # (G, m, ci)
+    if any(t.dtype != torch.float32 for t in params) or \
+            not all(t.is_contiguous() for t in params[1:]):
+        raise TypeError("weights and affines must be float32, all but w1 "
+                        "contiguous (block_tt_pointwise_params)")
+    # the kernel reads W1 as (G, m, ci) rows: the model's folded w1 is a
+    # view of them (no copy here); another layout is copied
+    w1t = w1.transpose(1, 2).contiguous()
     b, _, h, w = x4.shape
     lib = _library()
     with torch.cuda.device(x4.device):
@@ -247,8 +254,7 @@ def fused_block_tt_pointwise(block, x: torch.Tensor) -> torch.Tensor:
     _check_pointwise(block.cfg)
     b, h, w, c = x.shape
     y = fused_pointwise_block(x.reshape(b * h * w, c),
-                              *block_tt_pointwise_params(block),
-                              act=_act(block))
+                              *block.pointwise_params(), act=_act(block))
     return y.reshape(b, h, w, block.cfg.out_planes)
 
 

@@ -82,8 +82,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--root_dir", type=str, default="./",
                    help="eval logs go to <root_dir>/logs/<log_name>/<date>")
     p.add_argument("--log_name", type=str, default="ttnet_imagenet_small")
-    p.add_argument("--data_dir", type=str,
-                   default="./../datasets/ILSVRC/Data/CLS-LOC/",
+    p.add_argument("--data_dir", type=str, default=None,
                    help="ImageFolder root; eval reads <data_dir>/val")
     p.add_argument("--shards_dir", type=str, default=None,
                    help="eval from a pre-decoded uint8 shard dir "
@@ -130,6 +129,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "crop comes with training (see ROADMAP.md)")
     if args.lut_path and not args.lut:
         raise ValueError("--lut_path is the archive of --lut; add --lut")
+    if args.write_shards and not args.data_dir:
+        raise ValueError("--write_shards decodes --data_dir/<shards_split>; "
+                         "give --data_dir")
+    if args.mode == "eval" and not (args.shards_dir or args.data_dir):
+        raise ValueError("--mode eval reads --shards_dir or --data_dir; "
+                         "give one")
     return args
 
 

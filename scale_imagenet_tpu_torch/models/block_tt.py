@@ -72,9 +72,26 @@ class BlockTT(nn.Module):
                                bias=False)
         self.bn2 = nn.BatchNorm2d(cfg.out_planes)
         self.act = Binarize01Act()
+        self._folded = None            # (key, params): pointwise_params
 
     def forward(self, x: torch.Tensor, pre_padded: bool = False):
         return block_tt(self, x, pre_padded)
+
+    def pointwise_params(self) -> tuple:
+        """``block_tt_pointwise_params`` folded once and kept: it is folded
+        again only when a weight or BN statistic is replaced (``.to``) or
+        written in place (``load_state_dict``), which the tensors' storage
+        and version counters show."""
+        tensors = (self.conv1.weight, self.conv2.weight, self.bn1.weight,
+                   self.bn1.bias, self.bn1.running_mean, self.bn1.running_var,
+                   self.bn2.weight, self.bn2.bias, self.bn2.running_mean,
+                   self.bn2.running_var)
+        # an inference tensor keeps no version counter
+        key = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                    for t in tensors)
+        if self._folded is None or self._folded[0] != key:
+            self._folded = (key, block_tt_pointwise_params(self))
+        return self._folded[1]
 
 
 def block_tt(block: BlockTT, x: torch.Tensor,
@@ -84,7 +101,7 @@ def block_tt(block: BlockTT, x: torch.Tensor,
     cfg = block.cfg
     if (performance.fused_pointwise_blocks and _as_pair(cfg.k) == (1, 1)
             and cfg.stride == 1 and cfg.padding == 0):
-        return fused_pointwise_nchw(x, block_tt_pointwise_params(block),
+        return fused_pointwise_nchw(x, block.pointwise_params(),
                                     "relu" if cfg.last else "heaviside")
     if cfg.padding != 0 and not pre_padded:
         x = constant_pad2d(x, cfg.padding)

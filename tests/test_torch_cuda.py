@@ -159,7 +159,7 @@ def test_fused_kernel_matches_plain_on_card(cuda, g, ci, m, co, n, dtype,
 
 def test_fused_kernel_reads_nchw_through_strides(cuda):
     """The NCHW entry (contiguous and channels-last) equals the row
-    contract on the same pixels."""
+    contract on the same pixels, and so does W1 in either layout."""
     x, *params = _fused_inputs(4, 16, 128, 16, 2 * 7 * 9, torch.float32, 5,
                                cuda)
     nchw = x.reshape(2, 7, 9, 64).permute(0, 3, 1, 2)
@@ -169,6 +169,11 @@ def test_fused_kernel_reads_nchw_through_strides(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(
             got.permute(0, 2, 3, 1).reshape(-1, 64), rows, rtol=0, atol=0)
+    # W1 as the model folds it: a (ci, m) view of (m, ci) rows
+    w1 = params[0].transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(
+        FB.fused_pointwise_block(x, w1, *params[1:], act="relu"), rows,
+        rtol=0, atol=0)
 
 
 def test_fused_wrapper_refuses_mixed_devices_and_shapes(cuda):

@@ -191,6 +191,36 @@ def test_gate_takes_the_plain_version_on_the_cpu(fused_on, monkeypatch):
     assert FB.fused_pointwise_block.launches == 0
 
 
+def test_gate_folds_the_params_once(fused_on, monkeypatch):
+    """The gate folds a block's BNs once and reuses the fold; weights or
+    BN statistics written in place (``load_state_dict``, an in-place op)
+    are folded again."""
+    block = _block(dict(in_planes=64, out_planes=32, k=1, padding=0,
+                        groupsici=4), seed=11)[3]
+    real = block_mod.block_tt_pointwise_params
+    folds = []
+    monkeypatch.setattr(block_mod, "block_tt_pointwise_params",
+                        lambda b: folds.append(b) or real(b))
+    x = torch.from_numpy(_bits((2, 3, 3, 64), 12)).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        first = block(x)
+        assert torch.equal(block(x), first) and len(folds) == 1
+        sd = block.state_dict()
+        sd["bn2.running_mean"] = sd["bn2.running_mean"] + 0.5
+        block.load_state_dict(sd)
+        block(x)
+        assert len(folds) == 2
+        block.bn1.running_var.mul_(2.0)
+        got = block(x)
+        assert len(folds) == 3
+    for a, b in zip(block.pointwise_params(), real(block)):
+        assert torch.equal(a, b)
+    # W1 is kept in the kernel's (G, m, ci) rows: a launch copies nothing
+    assert block.pointwise_params()[0].transpose(1, 2).is_contiguous()
+    assert torch.equal(got, FB.fused_pointwise_nchw(x, real(block),
+                                                    "heaviside"))
+
+
 def test_truth_tables_do_not_depend_on_the_switch(monkeypatch):
     _, _, _, block = _block(dict(in_planes=16, out_planes=16, k=1,
                                  padding=0, groupsici=2), seed=10)
