@@ -11,12 +11,17 @@ PyTorch version.  Phases, each printing one line of its numbers:
 1. setup:  build every CUDA source (one nvcc each, all started together),
            build the flagship from --seed with its BN running statistics
            perturbed, compile its truth tables;
-2. kernels: every gather launch of one B=256 LUT forward, captured with its
-           real inputs, through the kernel and the plain version: equal
-           bits (bf16 and f32), times, the library call, the bound;
+2. kernels: every LUT window launch of one B=256 table-exact LUT forward
+           (8 ``lut_window_bits``, 1 ``lut_window_float``), captured with
+           its real input bits, through the kernel and the plain version:
+           equal outputs with the bits in bf16 and in f32; times of the
+           kernel, the plain version, the chain the kernel replaces (the
+           index conv, then the library lookup) and the library lookup
+           alone (``torch.take``); the bound;
 3. model:  conv vs LUT forward at B=256: per-block bit mismatches, top-1
-           agreement (>= 99 %), kernel logits == plain-gather logits, the
-           table-exact variant (float kernel once a forward) within 1e-4;
+           agreement (>= 99 %), logits through the kernels == the plain
+           versions' (default and table-exact), the table-exact variant
+           (one float launch a forward) within 1e-4 of the default;
 4. serve:  ``python -m scale_imagenet_tpu_torch.main --mode serve --lut``
            in a thread, concurrent raw-f32 requests, each top-5 equal to a
            direct forward's; launch counts of this run;
@@ -39,9 +44,12 @@ PyTorch version.  Phases, each printing one line of its numbers:
 7. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
-           forward's device time by kernel (``torch.profiler``).
+           forward's device time by kernel (``torch.profiler``); a LUT
+           forward runs no convolution but the stem's and the last float
+           fuse head's.
 
-The line before the last is the ``kernels`` JSON; the last line is the
+The card's name and power limit come before the ``kernels`` JSON, which is
+the line before the last; the last line is the
 ``{"ok": true, "device": ...}`` result.  Any failed check exits non-zero.
 Imports nothing of JAX or of the JAX package.
 """
@@ -75,6 +83,8 @@ OPS_PER_S = 67e12
 # integer op) take no f32 instruction and are not counted
 GELU_OPS = 41
 EVAL_IMAGES = 5000
+# clock cycles the card spins ahead of a timed run (~1.2 ms at 1.7 GHz)
+HOST_LEAD_CYCLES = 2_000_000
 
 
 def fail(msg: str) -> None:
@@ -111,11 +121,15 @@ def _flush_l2() -> None:
 
 
 def time_ms(fn, iters: int = 10) -> float:
-    """Median device time of ``fn`` over ``iters`` cold-L2 runs."""
+    """Median device time of ``fn`` over ``iters`` cold-L2 runs.  The card
+    spins for about a millisecond before each start event, so the host has
+    enqueued ``fn``'s launches by the time it starts: the events time the
+    device's work, not the host's launch overhead."""
     fn()
     times = []
     for _ in range(iters):
         _flush_l2()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -146,51 +160,80 @@ def unpack_bits(words: torch.Tensor, dtype) -> torch.Tensor:
     return bits.reshape(-1).to(dtype)
 
 
-def gather_case(kind, tab, idx, out_dtype, K):
-    """Kernel vs plain at one captured launch: exactness, times, bound."""
-    g, f, entries = tab.shape
-    if kind == "bits":
-        entries *= 32
-        run = lambda: K.lut_gather_bits(tab, idx, out_dtype)  # noqa: E731
-        plain = lambda: K.lut_gather_bits_plain(tab, idx, out_dtype)  # noqa
-        for dt in (torch.bfloat16, torch.float32):
-            a, b = K.lut_gather_bits(tab, idx, dt), \
-                K.lut_gather_bits_plain(tab, idx, dt)
-            torch.cuda.synchronize()
-            check(torch.equal(a, b), f"lut_gather_bits != plain at "
-                                     f"G={g} F={f} E={idx.shape[0]} {dt}")
-        flat = unpack_bits(tab, out_dtype)
-        # touched table bytes: each distinct (group, word) for F filters
-        touched = torch.unique(
-            torch.arange(g, device=idx.device) * tab.shape[2]
-            + (idx >> 5)).numel() * f * 4
-    else:
-        run = lambda: K.lut_gather_float(tab, idx)  # noqa: E731
-        plain = lambda: K.lut_gather_float_plain(tab, idx)  # noqa: E731
-        a, b = run(), plain()
+def window_case(kind, x, tab, k, stride, padding, heads, K):
+    """Window kernel vs plain at one captured launch: exactness (bits in
+    bf16 and f32), times of the kernel, the plain version, the chain it
+    replaces (the index conv, then the library lookup) and the library
+    lookup alone; the bound."""
+    from scale_imagenet_tpu_torch.kernels.lut_gather import \
+        window_index_plain
+
+    bits = kind == "bits"
+    kernel = K.lut_window_bits if bits else K.lut_window_float
+    plain_fn = K.lut_window_bits_plain if bits else K.lut_window_float_plain
+    extra = (heads,) if bits else ()
+    g = tab.shape[0] // heads
+    b, c, h, w = x.shape
+    where = f"{kind} x={tuple(x.shape)} G={g} K={heads}"
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        a = kernel(xd, tab, k, stride, padding, *extra)
         torch.cuda.synchronize()
-        check(torch.equal(a, b), f"lut_gather_float != plain at G={g} F={f}")
-        flat = tab.reshape(-1)
-        touched = torch.unique(
-            torch.arange(g, device=idx.device) * entries
-            + idx).numel() * f * 4
+        check(torch.equal(a, plain_fn(xd, tab, k, stride, padding, *extra)),
+              f"lut_window_{kind} != plain at {where} {dt}")
+        del a
+
+    def run():
+        return kernel(x, tab, k, stride, padding, *extra)
+
+    def plain():
+        return plain_fn(x, tab, k, stride, padding, *extra)
+
+    def index():
+        return window_index_plain(x, g, k, stride, padding)
+
     out = run()
     err = float((out.float() - plain().float()).abs().max())
-    offs = (torch.arange(g * f, device=idx.device, dtype=torch.int64)
-            * entries).view(g, f)
-    pos = idx.to(torch.int64).unsqueeze(-1) + offs
-    lib_ms = time_ms(lambda: torch.take(flat, pos))
-    del pos, flat
-    nbytes = idx.numel() * 4 + out.numel() * out.element_size() + touched
-    ops = idx.numel() * (2 + 2 * f)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
-    return {"G": g, "F": f, "E": idx.shape[0], "entries": entries,
+    idx = index()
+    e = idx.shape[0]
+    if bits:
+        f, wd = tab.shape[1], tab.shape[2]
+        entries = 32 * wd
+        flat = unpack_bits(tab, x.dtype)
+        offs = torch.arange(heads * g * f, device=x.device,
+                            dtype=torch.int64).view(heads, g, f) * entries
+        pos = (idx.to(torch.int64).view(e, 1, g, 1) + offs).view(e, -1)
+        # touched words: each distinct (group, word) of every head, F filters
+        touched = torch.unique(torch.arange(g, device=x.device) * wd
+                               + (idx >> 5)).numel() * heads * f * 4
+    else:
+        entries, f = tab.shape[1], tab.shape[2]
+        flat = tab.reshape(-1)
+        rows = idx.to(torch.int64) + torch.arange(
+            g, device=x.device, dtype=torch.int64) * entries
+        pos = (rows.unsqueeze(-1) * f + torch.arange(
+            f, device=x.device)).view(e, -1)
+        touched = torch.unique(rows).numel() * f * 4
+    kh, kw = (k, k) if isinstance(k, int) else k
+    n = kh * kw * (c // g)
+    library_ms = time_ms(lambda: torch.take(flat, pos))
+    index_ms = time_ms(index)
+    del pos, flat, idx
+    nbytes = x.numel() * x.element_size() + out.numel() * \
+        out.element_size() + touched
+    ops = e * g * 2 * n + out.numel() * 2
+    return {"G": g, "F": f, "heads": heads, "n": n, "E": e, "x": [b, c, h, w],
+            "x_channels_last": bool(x.is_contiguous(
+                memory_format=torch.channels_last) and not x.is_contiguous()),
             "dtype": str(out.dtype).replace("torch.", ""),
             "ms": time_ms(run), "plain_ms": time_ms(plain),
-            "library_ms": lib_ms, "bound_ms": bound,
+            "index_ms": index_ms, "library_ms": library_ms,
+            "chain_ms": index_ms + library_ms, "bound_ms": max(
+                nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= ops / OPS_PER_S else "operations",
-            "bytes": nbytes, "max_abs_err": err}
+            "bytes": nbytes, "touched_table_bytes": touched, "ops": ops,
+            "max_abs_err": err}
 
 
 def device_spans(prof) -> list:
@@ -214,10 +257,12 @@ def busy_ns(spans: list) -> int:
 
 
 def profile_forward(name: str, fn, batch: int, out_dir: Path,
-                    iters: int = 3) -> None:
+                    iters: int = 3) -> int:
     """Device time of ``iters`` forwards by kernel (``torch.profiler``):
-    busy share of the window and the kernels that take the most time.
-    Writes the full table to ``<out_dir>/profile_<name>.txt``."""
+    busy share of the window, device kernels a forward and the kernels that
+    take the most time.
+    Writes the full table to ``<out_dir>/profile_<name>.txt``; returns the
+    convolutions a forward (``aten::convolution`` calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -229,8 +274,11 @@ def profile_forward(name: str, fn, batch: int, out_dir: Path,
             fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t) * 1e3 / iters
-    (out_dir / f"profile_{name}.txt").write_text(prof.key_averages().table(
+    averages = prof.key_averages()
+    (out_dir / f"profile_{name}.txt").write_text(averages.table(
         sort_by="self_device_time_total", row_limit=40))
+    convs = sum(e.count for e in averages
+                if e.key == "aten::convolution") // iters
     spans = device_spans(prof)
     check(bool(spans), f"profile of the {name} forward shows no device time")
     by_kernel: dict = {}
@@ -240,7 +288,10 @@ def profile_forward(name: str, fn, batch: int, out_dir: Path,
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit(f"profile_{name}", batch=batch, window_ms_per_forward=window_ms,
          device_busy_ms_per_forward=busy, device_idle_share=1 - busy
-         / window_ms, top_kernels_ms=[[k[:60], v] for k, v in top])
+         / window_ms, device_kernels_per_forward=len(spans) / iters,
+         convolutions_per_forward=convs,
+         top_kernels_ms=[[k[:60], v] for k, v in top])
+    return convs
 
 
 @contextlib.contextmanager
@@ -443,8 +494,8 @@ def eval_phase(args, model, out_dir: Path) -> dict:
             top1, top5, loss = cli.main(base + extra)
         torch.cuda.synchronize()
         launches = {"fused_pointwise_block": FB.fused_pointwise_block.launches,
-                    "lut_gather_bits": K.lut_gather_bits.launches,
-                    "lut_gather_float": K.lut_gather_float.launches}
+                    "lut_window_bits": K.lut_window_bits.launches,
+                    "lut_window_float": K.lut_window_float.launches}
         results[name] = {"top1": top1, "top5": top5, "loss": loss,
                          "img_s": n / stats["wall_s"],
                          "eval_s": stats["wall_s"],
@@ -459,9 +510,9 @@ def eval_phase(args, model, out_dir: Path) -> dict:
     for name, (fused_n, bits_n) in want.items():
         got = results[name]["launches"]
         check(got["fused_pointwise_block"] == fused_n
-              and got["lut_gather_bits"] == bits_n,
+              and got["lut_window_bits"] == bits_n,
               f"eval {name} launched {got}, expected {fused_n} fused and "
-              f"{bits_n} bit gathers")
+              f"{bits_n} lut_window_bits")
     check(results["conv"]["top1"] >= 99.9,
           f"eval conv top-1 {results['conv']['top1']} < 99.9")
     for name in ("conv_fused", "lut_write"):
@@ -537,28 +588,29 @@ def run(args) -> int:
 
     # ---------------------------------------------------------- kernels
     captured = []
-    real_bits, real_float = lut_eval.lut_gather_bits, lut_eval.lut_gather_float
+    real_bits = lut_eval.lut_window_bits
+    real_float = lut_eval.lut_window_float
 
-    def rec_bits(words, idx, out_dtype):
-        captured.append(("bits", words, idx, out_dtype))
-        return real_bits(words, idx, out_dtype)
+    def rec_bits(xb, words, k, stride, padding, heads=1):
+        captured.append(("bits", xb, words, k, stride, padding, heads))
+        return real_bits(xb, words, k, stride, padding, heads)
 
-    def rec_float(table, idx):
-        captured.append(("float", table, idx, torch.float32))
-        return real_float(table, idx)
+    def rec_float(xb, table, k, stride, padding):
+        captured.append(("float", xb, table, k, stride, padding, 1))
+        return real_float(xb, table, k, stride, padding)
 
-    with mock.patch.object(lut_eval, "lut_gather_bits", rec_bits), \
-            mock.patch.object(lut_eval, "lut_gather_float", rec_float):
+    with mock.patch.object(lut_eval, "lut_window_bits", rec_bits), \
+            mock.patch.object(lut_eval, "lut_window_float", rec_float):
         lut_ttnet_apply(luts, model, x, last_via_conv=False)
     check([c[0] for c in captured].count("bits") == 8,
-          "expected 8 bit-gather launches a forward")
+          "expected 8 lut_window_bits launches a forward")
     check([c[0] for c in captured].count("float") == 1,
-          "expected 1 float-gather launch in the table-exact forward")
+          "expected 1 lut_window_float launch in the table-exact forward")
     cases = {"bits": [], "float": []}
-    for kind, tab, idx, dt in captured:
-        row = gather_case(kind, tab, idx, dt, K)
+    for kind, *launch in captured:
+        row = window_case(kind, *launch, K)
         cases[kind].append(row)
-        emit("kernels", kernel=f"lut_gather_{kind}", **row)
+        emit("kernels", kernel=f"lut_window_{kind}", **row)
     (out_dir / "kernel_cases.json").write_text(json.dumps(cases, indent=1))
     del captured
     torch.cuda.synchronize()
@@ -568,17 +620,19 @@ def run(args) -> int:
     K.reset_launches()
     got = lut_ttnet_apply(luts, model, x)
     torch.cuda.synchronize()
-    check(K.lut_gather_bits.launches == 8,
-          f"{K.lut_gather_bits.launches} bit-gather launches, expected 8")
+    check(K.lut_window_bits.launches == 8,
+          f"{K.lut_window_bits.launches} lut_window_bits launches, "
+          "expected 8")
     check(ref.shape == (B, 1000) and bool(torch.isfinite(ref).all())
           and bool(torch.isfinite(got).all()), "non-finite or misshapen logits")
-    with mock.patch.object(lut_eval, "lut_gather_bits",
-                           K.lut_gather_bits_plain), \
-            mock.patch.object(lut_eval, "lut_gather_float",
-                              K.lut_gather_float_plain):
+    with mock.patch.object(lut_eval, "lut_window_bits",
+                           K.lut_window_bits_plain), \
+            mock.patch.object(lut_eval, "lut_window_float",
+                              K.lut_window_float_plain):
         got_plain = lut_ttnet_apply(luts, model, x)
+        got_tab_plain = lut_ttnet_apply(luts, model, x, last_via_conv=False)
     check(torch.equal(got, got_plain),
-          "LUT logits through the kernel differ from the plain gather's")
+          "LUT logits through the kernels differ from the plain versions'")
     # per-block agreement of the two chains, each fed by itself
     hc = stem(model, _nchw(x, model))
     hl = _bits(hc, None)
@@ -594,8 +648,11 @@ def run(args) -> int:
     K.reset_launches()
     got_tab = lut_ttnet_apply(luts, model, x, last_via_conv=False)
     torch.cuda.synchronize()
-    table_exact_launches = {"lut_gather_bits": K.lut_gather_bits.launches,
-                            "lut_gather_float": K.lut_gather_float.launches}
+    table_exact_launches = {"lut_window_bits": K.lut_window_bits.launches,
+                            "lut_window_float": K.lut_window_float.launches}
+    check(torch.equal(got_tab, got_tab_plain),
+          "table-exact logits through the kernels differ from the plain "
+          "versions'")
     tab_err = float((got_tab - got).abs().max())
     emit("model", batch=B, top1_agreement=top1,
          block_bit_mismatch_frac=mism[:-1], last_block_max_abs_diff=mism[-1],
@@ -603,8 +660,8 @@ def run(args) -> int:
          kernel_equals_plain=True, table_exact_max_abs_diff=tab_err,
          table_exact_launches=table_exact_launches)
     check(top1 >= 0.99, f"top-1 agreement conv vs LUT {top1} < 0.99")
-    check(table_exact_launches == {"lut_gather_bits": 8,
-                                   "lut_gather_float": 1},
+    check(table_exact_launches == {"lut_window_bits": 8,
+                                   "lut_window_float": 1},
           f"table-exact launches {table_exact_launches}")
     check(torch.allclose(got_tab, got, rtol=1e-4, atol=1e-4),
           f"table-exact logits differ from the default by {tab_err}")
@@ -643,8 +700,8 @@ def run(args) -> int:
     stop.set()
     th.join(60)
     check(not th.is_alive() and not server_err, f"server stop: {server_err}")
-    serve_launches = {"lut_gather_bits": K.lut_gather_bits.launches,
-                      "lut_gather_float": K.lut_gather_float.launches}
+    serve_launches = {"lut_window_bits": K.lut_window_bits.launches,
+                      "lut_window_float": K.lut_window_float.launches}
     # the direct forward: the same seed's model, unperturbed, B = 8 (the
     # server's padded shape)
     smodel = md.init(seed=args.seed, device=dev)
@@ -661,7 +718,7 @@ def run(args) -> int:
     check(health["served"] == 16, f"healthz served {health['served']}")
     check(agree == 16, f"top-5 of {16 - agree} answers differ from direct")
     # 8 launches a batch, the server's warm-up batch included
-    check(serve_launches["lut_gather_bits"] == 8 * (health["batches"] + 1),
+    check(serve_launches["lut_window_bits"] == 8 * (health["batches"] + 1),
           f"serve ran {serve_launches} launches")
     del smodel, sluts
 
@@ -702,15 +759,20 @@ def run(args) -> int:
     with fused_blocks(True):
         profile_forward("conv_fused", lambda: ttnet_imagenet_apply(model, x),
                         B, out_dir)
-    profile_forward("lut", lambda: lut_ttnet_apply(luts, model, x), B,
-                    out_dir)
+    convs = {"lut": profile_forward(
+        "lut", lambda: lut_ttnet_apply(luts, model, x), B, out_dir)}
     with fused_blocks(True):
-        profile_forward("lut_fused", lambda: lut_ttnet_apply(luts, model, x),
-                        B, out_dir)
+        convs["lut_fused"] = profile_forward(
+            "lut_fused", lambda: lut_ttnet_apply(luts, model, x), B, out_dir)
+    # no index conv: the stem's conv, and the last block's float fuse head
+    # (two convs) unless the fused kernel runs it
+    check(convs == {"lut": 3, "lut_fused": 1},
+          f"convolutions a LUT forward: {convs}, expected the stem's and "
+          "the float fuse head's only")
 
     def entry(kind, replaces, launches):
         rows = cases[kind]
-        return {"name": f"lut_gather_{kind}", "route": "cuda",
+        return {"name": f"lut_window_{kind}", "route": "cuda",
                 "source": "scale_imagenet_tpu_torch/csrc/lut_gather.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -719,13 +781,14 @@ def run(args) -> int:
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                            for r in rows) else "operations",
-                "library_ms": sum(r["library_ms"] for r in rows)}
+                "library_ms": sum(r["library_ms"] for r in rows),
+                "chain_ms": sum(r["chain_ms"] for r in rows)}
 
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("bits", "scale_imagenet_tpu/pallas/lut_gather.py:84",
-              serve_launches["lut_gather_bits"]),
+              serve_launches["lut_window_bits"]),
         entry("float", "scale_imagenet_tpu/pallas/lut_gather.py:107",
-              table_exact_launches["lut_gather_float"]),
+              table_exact_launches["lut_window_float"]),
         {"name": "fused_pointwise_block", "route": "cuda",
          "source": "scale_imagenet_tpu_torch/csrc/fused_block.cu",
          "replaces": "scale_imagenet_tpu/pallas/fused_block.py:41, "
@@ -740,8 +803,9 @@ def run(args) -> int:
                                          for r in fused_rows) else "bytes",
          "library_ms": None,
          "chain_ms": sum(r["chain_ms"] for r in fused_rows)},
-    ]}), flush=True)
+    ]
     print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

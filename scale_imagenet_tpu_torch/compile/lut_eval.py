@@ -4,15 +4,18 @@
 Every Block_TT output filter is an exact function of its n window bits, so
 inference reduces to::
 
-    index = window bits dotted with powers of two     (one small conv)
-    out   = table[filter, index]                      (one gather kernel)
+    index = window bits read as an n-bit number      } one window-gather
+    out   = table[filter, index]                     } kernel a block
 
-bit-exact with the float block by construction.  The gathers run through
-``kernels/lut_gather.py`` (the CUDA kernels on the card, their plain
-versions on the CPU).  The routing mirrors the TPU path:
+bit-exact with the float block by construction.  The JAX package computes
+the index with a small conv and gathers in a second kernel; here both run
+in one launch of ``kernels/lut_gather.py`` (the CUDA kernels on the card,
+their plain versions, which still take the index-conv route, on the CPU).
+The routing mirrors the TPU path:
 
 * config-identical heads (the flagship's heads 1+2 in every block) share
-  one gather launch on G-concatenated tables (``_merged_heads_apply``);
+  one index and one launch on G-concatenated tables, concatenated once
+  when the block's LUTs are built (``MultiHeadLUT.merged``);
 * the last block's float (ReLU) fuse head runs as the float conv by default
   (``last_via_conv=True``), or as its float table (the table-exact variant);
 * bits flow between blocks in bf16 on the card and in f32 on the CPU
@@ -24,11 +27,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
-from ..kernels.lut_gather import lut_gather_bits, lut_gather_float, \
-    pack_bit_table, pack_float_table
-from ..layers.pool import avg_pool, constant_pad2d, flatten
+from ..kernels.lut_gather import lut_window_bits, lut_window_float, \
+    pack_bit_table, pack_float_table, window_out_size
+from ..layers.pool import avg_pool, flatten
 from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair, block_tt
 from ..models.classifier import classifier_scale
 from ..models.multihead import MultiHeadBlock, MultiHeadConfig, \
@@ -37,24 +39,11 @@ from ..models.ttnet_imagenet import TTnetImageNet, _nchw, stem
 from .truth_table import block_truth_table
 
 
-def _index_weights(cfg: BlockTTConfig, device="cpu") -> torch.Tensor:
-    """Grouped-conv weights computing the pattern index: bit j (MSB-first,
-    channel-major (c, a, b)) has weight 2^(n-1-j).  OIHW ``(G, ci, kh, kw)``
-    float32."""
-    kh, kw = _as_pair(cfg.k)
-    ci = cfg.in_planes // cfg.groupsici
-    n = kh * kw * ci
-    powers = 2.0 ** torch.arange(n - 1, -1, -1, dtype=torch.float64)
-    w = powers.reshape(1, ci, kh, kw).expand(cfg.groupsici, ci, kh, kw)
-    return w.to(device=device, dtype=torch.float32).contiguous()
-
-
 @dataclasses.dataclass
 class BlockLUT:
     cfg: BlockTTConfig
-    # (G, F, W) int32 bit words, or (G, F, 2^n) float32 for a last block
+    # (G, F, W) int32 bit words, or (G, 2^n, F) float32 for a last block
     packed: torch.Tensor
-    index_w: torch.Tensor          # (G, ci, kh, kw) float32
     nonconstant: int               # filters whose table is not constant
 
 
@@ -64,43 +53,64 @@ def compile_block_tt_lut(block: BlockTT) -> BlockLUT:
     nonconstant = int((table != table[:1]).any(0).sum())
     pack = pack_float_table if cfg.last else pack_bit_table
     return BlockLUT(cfg=cfg, packed=pack(table, cfg.groupsici),
-                    index_w=_index_weights(cfg, table.device),
                     nonconstant=nonconstant)
 
 
-def _index(lut: BlockLUT, x_padded: torch.Tensor):
-    """Pattern index of every window: ``(E, G)`` int32 (NHWC order) and
-    the output ``(B, H, W)``.  The conv runs in float32 whatever the bit
-    dtype: a bf16 conv would return bf16, which rounds integers above 256;
-    float32 holds the index exactly up to 2^24."""
-    cfg = lut.cfg
-    idx = F.conv2d(x_padded.float(), lut.index_w, stride=cfg.stride,
-                   groups=cfg.groupsici)                 # (B, G, H, W)
-    b, g, h, w = idx.shape
-    # round, not truncate: exact sums are integers either way
-    idx = idx.round().to(torch.int32).permute(0, 2, 3, 1).reshape(-1, g)
-    return idx.contiguous(), (b, h, w)
-
-
-def _nchw_out(out: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+def _nchw_out(out: torch.Tensor, cfg: BlockTTConfig,
+              x: torch.Tensor) -> torch.Tensor:
     """``(E, C)`` gather output -> NCHW view (channels-last memory)."""
-    return out.view(b, h, w, out.shape[1]).permute(0, 3, 1, 2)
-
-
-def _pad(lut: BlockLUT, x_bits: torch.Tensor) -> torch.Tensor:
-    p = lut.cfg.padding
-    return constant_pad2d(x_bits, p) if p else x_bits
+    h, w = window_out_size(x.shape[2], x.shape[3], cfg.k, cfg.stride,
+                           cfg.padding)
+    return out.view(x.shape[0], h, w, out.shape[1]).permute(0, 3, 1, 2)
 
 
 def lut_block_tt_apply(lut: BlockLUT, x_bits: torch.Tensor) -> torch.Tensor:
     """``x_bits``: NCHW {0,1}; returns the block output (bits in the bit
     dtype, or float32 values for a last/ReLU block)."""
-    idx, shape = _index(lut, _pad(lut, x_bits))
-    if lut.cfg.last:
-        out = lut_gather_float(lut.packed, idx)
-    else:
-        out = lut_gather_bits(lut.packed, idx, x_bits.dtype)
-    return _nchw_out(out, *shape)
+    c = lut.cfg
+    gather = lut_window_float if c.last else lut_window_bits
+    return _nchw_out(gather(x_bits, lut.packed, c.k, c.stride, c.padding),
+                     c, x_bits)
+
+
+def _merge_sig(b: BlockLUT):
+    """Heads with equal signatures index the same windows and pack to
+    same-shaped bit tables, so one launch serves them all."""
+    if b.cfg.last:
+        return None
+    c = b.cfg
+    return (_as_pair(c.k), c.stride, c.padding, c.groupsici, c.out_planes,
+            c.in_planes, tuple(b.packed.shape))
+
+
+def _merge_plan(heads: dict) -> list:
+    """``[(head ids, words or None)]``: heads with one signature share a
+    launch on their words concatenated along G (head-major); each merged
+    head's ``packed`` becomes a view of them, so nothing is held twice."""
+    groups: dict = {}
+    for i in sorted(heads):
+        groups.setdefault(_merge_sig(heads[i]), []).append(i)
+    plan = []
+    for sig, ids in groups.items():
+        if sig is None or len(ids) == 1:
+            plan += [((i,), None) for i in ids]
+            continue
+        words = torch.cat([heads[i].packed for i in ids])
+        for i, part in zip(ids, words.split(heads[ids[0]].packed.shape[0])):
+            heads[i].packed = part
+        plan.append((tuple(ids), words))
+    return plan
+
+
+def _merged_heads_apply(heads: list[BlockLUT], words: torch.Tensor,
+                        x_bits: torch.Tensor) -> list[torch.Tensor]:
+    """One launch for k config-identical heads: one index a window, the
+    heads' tables concatenated along G; the merged output channels are
+    head-major, i.e. ``cat([out_1, .., out_k], channels)``."""
+    c = heads[0].cfg
+    out = lut_window_bits(x_bits, words, c.k, c.stride, c.padding,
+                          heads=len(heads))
+    return list(torch.split(_nchw_out(out, c, x_bits), c.out_planes, dim=1))
 
 
 @dataclasses.dataclass
@@ -108,6 +118,11 @@ class MultiHeadLUT:
     cfg: MultiHeadConfig
     heads: dict                 # head index -> BlockLUT
     convf: BlockLUT
+    # which heads share a launch, and their concatenated words: built once
+    merged: list = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.merged = _merge_plan(self.heads)
 
 
 def compile_multihead_lut(block: MultiHeadBlock) -> MultiHeadLUT:
@@ -118,29 +133,6 @@ def compile_multihead_lut(block: MultiHeadBlock) -> MultiHeadLUT:
         convf=compile_block_tt_lut(block.Block_convf))
 
 
-def _merge_sig(b: BlockLUT):
-    """Heads with equal signatures index the same windows and pack to
-    same-shaped bit tables, so one gather launch serves them all."""
-    if b.cfg.last:
-        return None
-    c = b.cfg
-    return (_as_pair(c.k), c.stride, c.padding, c.groupsici, c.out_planes,
-            c.in_planes, tuple(b.packed.shape))
-
-
-def _merged_heads_apply(heads: list[BlockLUT],
-                        x_bits: torch.Tensor) -> list[torch.Tensor]:
-    """One gather launch for k config-identical heads: their ``(E, G)``
-    indices and ``(G, F, W)`` tables concatenate along G; the merged output
-    channels are head-major, i.e. ``cat([out_1, .., out_k], channels)``."""
-    x = _pad(heads[0], x_bits)
-    parts = [_index(h, x) for h in heads]
-    idx = torch.cat([p[0] for p in parts], dim=1)
-    words = torch.cat([h.packed for h in heads])
-    out = _nchw_out(lut_gather_bits(words, idx, x_bits.dtype), *parts[0][1])
-    return list(torch.split(out, heads[0].cfg.out_planes, dim=1))
-
-
 def lut_multihead_apply(lut: MultiHeadLUT, x_bits: torch.Tensor,
                         convf_float: BlockTT | None = None) -> torch.Tensor:
     """Mirror of ``multihead_block`` with every Block_TT as a LUT.
@@ -148,17 +140,13 @@ def lut_multihead_apply(lut: MultiHeadLUT, x_bits: torch.Tensor,
     ``convf_float``: the block's float fuse head.  When given and the fuse
     head is a last/ReLU block, it runs as the float conv it is (same
     function as its float table, conv speed)."""
-    groups: dict = {}
-    for i in sorted(lut.heads):
-        groups.setdefault(_merge_sig(lut.heads[i]), []).append(i)
     outs = {}
-    for sig, ids in groups.items():
-        if sig is not None and len(ids) > 1:
-            outs.update(zip(ids, _merged_heads_apply(
-                [lut.heads[i] for i in ids], x_bits)))
+    for ids, words in lut.merged:
+        if words is None:
+            outs[ids[0]] = lut_block_tt_apply(lut.heads[ids[0]], x_bits)
         else:
-            for i in ids:
-                outs[i] = lut_block_tt_apply(lut.heads[i], x_bits)
+            outs.update(zip(ids, _merged_heads_apply(
+                [lut.heads[i] for i in ids], words, x_bits)))
     # heaviside(avgpool2(bits) - 0.5) == [mean of the 4 bits >= 0.5]
     cat = reconcile_heads(outs, lut.cfg, x_bits,
                           lambda pooled: (pooled >= 0.5).to(x_bits.dtype))

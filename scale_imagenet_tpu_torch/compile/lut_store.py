@@ -13,7 +13,9 @@ written by either package loads in the other:
     b{i}_convf_packed     words, or float32 rows; written where the JAX
                           compiler writes it, ignored on load
 
-The port packs its own layout from ``*_table`` at load.  The digest is the
+The port packs its own layout from ``*_table`` at load (float tables
+filter-minor ``(G, 2^n, F)``), and ``MultiHeadLUT`` concatenates the merged
+heads' words once, as compile does.  The digest is the
 JAX package's ``params_digest`` of the same weights: the port rebuilds
 the JAX-layout ``(params, state)`` tree (``convert.jax_trees``) and hashes
 it in JAX's sorted-key order with JAX's ``keystr`` path text, so a stale
@@ -32,7 +34,7 @@ import torch
 
 from ..convert.from_jax import jax_trees
 from ..kernels.lut_gather import pack_bit_table, pack_float_table
-from .lut_eval import BlockLUT, MultiHeadLUT, _index_weights
+from .lut_eval import BlockLUT, MultiHeadLUT
 
 #: bump when the compiler or the packing changes so that saved archives
 #: are no longer equivalent (the JAX package's constant)
@@ -76,10 +78,10 @@ def model_digest(model) -> str:
 
 def _table(lut: BlockLUT) -> torch.Tensor:
     """The ``(out_planes, 2^n)`` table back from the packed layout."""
-    g, f, w = lut.packed.shape
     entries = 2 ** lut.cfg.n_bits
-    if lut.cfg.last:
-        return lut.packed[:, :, :entries].reshape(g * f, entries)
+    if lut.cfg.last:                                         # (G, V, F)
+        return lut.packed.permute(0, 2, 1).reshape(-1, entries)
+    g, f, w = lut.packed.shape
     shifts = torch.arange(32, dtype=torch.int32, device=lut.packed.device)
     bits = (lut.packed.unsqueeze(-1) >> shifts) & 1          # (G, F, W, 32)
     return bits.reshape(g * f, 32 * w)[:, :entries].float()
@@ -88,7 +90,8 @@ def _table(lut: BlockLUT) -> torch.Tensor:
 def _jax_packed(lut: BlockLUT, table: np.ndarray):
     """The JAX kernel layout ``(G, F, S, 128)``, or None where the JAX
     compiler writes none."""
-    g, f, _ = lut.packed.shape
+    g = lut.packed.shape[0]
+    f = table.shape[0] // g
     entries = table.shape[1]
     if lut.cfg.last:
         if entries * 4 > _JAX_MAX_FLOAT_TABLE_BYTES:
@@ -133,7 +136,6 @@ def _block_lut(table: np.ndarray, cfg, device) -> BlockLUT:
     nonconstant = int((t != t[:1]).any(0).sum())
     pack = pack_float_table if cfg.last else pack_bit_table
     return BlockLUT(cfg=cfg, packed=pack(t, cfg.groupsici),
-                    index_w=_index_weights(cfg, device),
                     nonconstant=nonconstant)
 
 

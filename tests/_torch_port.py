@@ -61,6 +61,30 @@ def jax_and_port(name: str, dtype, seed: int = 0, **kw):
     return jm, params, state, md, model
 
 
+def block_from_jax(kw: dict, seed: int, dtype=np.float64):
+    """One JAX ``init_block_tt`` (BN statistics perturbed) and the port's
+    ``BlockTT`` holding the same weights through ``convert/from_jax.py``:
+    ``(params, state, block)``, numpy trees and the module in ``dtype``."""
+    from scale_imagenet_tpu.models.block_tt import BlockTTConfig as JCfg, \
+        init_block_tt
+    from scale_imagenet_tpu_torch.convert.from_jax import _bn, _conv
+    from scale_imagenet_tpu_torch.models.block_tt import BlockTT, \
+        BlockTTConfig
+
+    p, s = init_block_tt(jax.random.PRNGKey(seed), JCfg(**kw))
+    p = tree_np(p, dtype)
+    s = perturb_state(tree_np(s, dtype), seed, scale=0.2)
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    block = BlockTT(BlockTTConfig(**kw)).to(tdtype).eval()
+    sd = {"conv1.weight": _conv(p["conv1"]["weight"]),
+          "conv2.weight": _conv(p["conv2"]["weight"]),
+          "act.grad_scale": torch.tensor(1.0)}
+    _bn(sd, "bn1", p["bn1"], s["bn1"])
+    _bn(sd, "bn2", p["bn2"], s["bn2"])
+    block.load_state_dict(sd, strict=True)
+    return p, s, block
+
+
 def images(shape, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).uniform(size=shape)
 

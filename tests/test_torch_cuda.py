@@ -6,7 +6,8 @@ repo's ``conftest.py`` (which configures JAX) left out:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Bits and gathered floats are exact: kernel and plain version must be equal.
+Bits and gathered floats are exact: the window kernels and their plain
+versions (which compute the index with a conv) must be equal.
 The fused pointwise block sums in another order than the plain version
 and contracts multiply-adds: ReLU outputs agree to 1e-5 (f32), and a
 Heaviside bit may flip only where the plain pre-activation is within 1e-4
@@ -47,67 +48,160 @@ def cuda():
     return torch.device("cuda")
 
 
-# (G, F, E) of the flagship's eight bit-gather launches at B = 256, and a
-# ragged shape whose F takes the kernel's scalar store path
-FLAGSHIP_BITS = [(128, 1, 215296), (4, 16, 802816), (16, 8, 215296),
-                 (256, 1, 57600), (8, 16, 215296), (32, 8, 57600),
-                 (512, 1, 16384), (16, 16, 57600), (3, 5, 1001)]
+def _bits(shape, channels_last, dtype, seed, device):
+    """Seeded {0,1} bits (B, C, H, W), NCHW-contiguous or channels-last."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.rand(shape, generator=gen) < 0.5).to(dtype)
+    if channels_last:
+        x = x.to(memory_format=torch.channels_last)
+    return x.to(device)
 
 
-@pytest.mark.parametrize("g,f,e", FLAGSHIP_BITS)
-def test_bit_kernel_matches_plain_on_card(cuda, g, f, e):
-    gen = torch.Generator().manual_seed(g * f)
-    table = torch.randint(0, 2, (2 ** 16, g * f), generator=gen).float()
-    words = K.pack_bit_table(table, g).to(cuda)
-    idx = torch.randint(0, 2 ** 16, (e, g), generator=gen,
-                        dtype=torch.int32).to(cuda)
-    before = K.lut_gather_bits.launches
+def _words(n, tables, f, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randint(0, 2, (2 ** n, tables * f), generator=gen).float()
+    return K.pack_bit_table(table, tables).to(device)
+
+
+# the flagship's eight bit launches at B = 256, as (B, C, H, W) of the
+# input, k, stride, padding, G, F, heads, channels-last input
+FLAGSHIP_BITS = [
+    ((256, 64, 56, 56), 4, 2, 2, 64, 1, 2, False),     # block 0 heads 1+2
+    ((256, 64, 56, 56), 1, 1, 0, 4, 16, 1, False),     # block 0 head 3
+    ((256, 256, 29, 29), 1, 1, 0, 16, 8, 1, False),    # block 0 fuse
+    ((256, 128, 29, 29), 4, 2, 2, 128, 1, 2, True),    # block 1 heads 1+2
+    ((256, 128, 29, 29), 1, 1, 0, 8, 16, 1, True),     # block 1 head 3
+    ((256, 512, 15, 15), 1, 1, 0, 32, 8, 1, False),    # block 1 fuse
+    ((256, 256, 15, 15), 4, 2, 2, 256, 1, 2, True),    # block 2 heads 1+2
+    ((256, 256, 15, 15), 1, 1, 0, 16, 16, 1, True),    # block 2 head 3
+]
+# padded borders, odd H/W, n = 4, 8, 9, 16, 18 (tables beyond the
+# shared-memory budget) and 24, F with and without 16-byte stores
+SMALL_BITS = [
+    ((2, 6, 7, 9), (2, 2), 1, 1, 6, 1, 1, False),      # n = 4
+    ((3, 8, 13, 11), 2, 2, 1, 4, 3, 2, True),          # n = 8
+    ((2, 4, 9, 7), 3, 1, 1, 4, 16, 1, False),          # n = 9
+    ((2, 3, 11, 13), 4, 2, 2, 3, 1, 2, True),          # n = 16
+    ((2, 32, 5, 7), 1, 1, 0, 2, 8, 2, False),          # n = 16
+    ((1, 4, 6, 5), 3, 1, 1, 2, 8, 1, True),            # n = 18
+    ((1, 6, 5, 6), 2, 2, 0, 1, 1, 1, False),           # n = 24
+    # channels-last with whole 16-byte channel vectors a position
+    ((2, 16, 5, 7), (1, 2), 1, 0, 2, 4, 1, True),      # n = 16
+    ((1, 48, 3, 5), 1, 1, 0, 2, 1, 1, True),           # n = 24
+    # one-channel groups read 8 (bf16) or 4 (f32) to a vector
+    ((2, 16, 9, 7), 4, 2, 2, 16, 1, 2, True),          # n = 16
+    # NCHW bits whose rows are whole 16-byte vectors
+    ((2, 16, 13, 24), 4, 2, 2, 16, 1, 2, False),       # n = 16
+    ((3, 32, 5, 16), 1, 1, 0, 2, 16, 1, False),        # n = 16
+    ((2, 8, 7, 8), 3, 1, 1, 4, 2, 1, False),           # n = 18
+]
+
+
+def _bits_case(cuda, shape, k, stride, padding, g, f, heads, cl, seed):
+    kh, kw = k if isinstance(k, tuple) else (k, k)
+    n = kh * kw * shape[1] // g
+    words = _words(n, heads * g, f, seed, cuda)
+    before = K.lut_window_bits.launches
     for dt in (torch.bfloat16, torch.float32):
-        got = K.lut_gather_bits(words, idx, dt)
+        x = _bits(shape, cl, dt, seed + 1, cuda)
+        got = K.lut_window_bits(x, words, k, stride, padding, heads)
         torch.cuda.synchronize()
-        assert torch.equal(got, K.lut_gather_bits_plain(words, idx, dt))
-    assert K.lut_gather_bits.launches == before + 2
+        want = K.lut_window_bits_plain(x, words, k, stride, padding, heads)
+        assert got.dtype == dt and got.shape == want.shape
+        assert torch.equal(got, want)
+        # the layout is read through strides: the other one agrees too
+        other = x.contiguous() if cl else x.to(
+            memory_format=torch.channels_last)
+        assert torch.equal(
+            K.lut_window_bits(other, words, k, stride, padding, heads), got)
+    assert K.lut_window_bits.launches == before + 4
 
 
-@pytest.mark.parametrize("n,g,f,e", [(16, 64, 16, 16384), (4, 3, 5, 77),
-                                     (20, 2, 4, 5000)])
-def test_float_kernel_matches_plain_on_card(cuda, n, g, f, e):
+@pytest.mark.parametrize("case", FLAGSHIP_BITS + SMALL_BITS,
+                         ids=lambda c: f"{c[0]}-k{c[1]}s{c[2]}p{c[3]}"
+                                       f"G{c[4]}F{c[5]}K{c[6]}")
+def test_bit_kernel_matches_plain_on_card(cuda, case):
+    _bits_case(cuda, *case, seed=sum(case[0]))
+
+
+# the flagship's table-exact float launch (block 2's fuse head), and small
+# ones with odd sizes, padding and F without 16-byte stores
+FLOAT_CASES = [
+    ((256, 1024, 8, 8), 1, 1, 0, 64, 16, False),
+    ((2, 6, 7, 9), 2, 2, 1, 3, 5, True),
+    ((3, 8, 9, 5), 3, 1, 1, 4, 4, False),
+    ((2, 8, 5, 7), 1, 1, 1, 4, 4, False),              # pointwise, padded
+]
+
+
+@pytest.mark.parametrize("case", FLOAT_CASES, ids=lambda c: str(c[0]))
+def test_float_kernel_matches_plain_on_card(cuda, case):
+    shape, k, stride, padding, g, f, cl = case
+    n = k * k * shape[1] // g
     gen = torch.Generator().manual_seed(n)
-    table = torch.randn((g, f, 2 ** n), generator=gen).to(cuda)
-    idx = torch.randint(0, 2 ** n, (e, g), generator=gen,
-                        dtype=torch.int32).to(cuda)
-    before = K.lut_gather_float.launches
-    got = K.lut_gather_float(table, idx)
-    torch.cuda.synchronize()
-    assert torch.equal(got, K.lut_gather_float_plain(table, idx))
-    assert K.lut_gather_float.launches == before + 1
+    table = K.pack_float_table(torch.randn((2 ** n, g * f), generator=gen),
+                               g).to(cuda)
+    before = K.lut_window_float.launches
+    for dt in (torch.bfloat16, torch.float32):
+        x = _bits(shape, cl, dt, n + 1, cuda)
+        got = K.lut_window_float(x, table, k, stride, padding)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert torch.equal(got, K.lut_window_float_plain(x, table, k, stride,
+                                                         padding))
+    assert K.lut_window_float.launches == before + 2
 
 
 def test_wrapper_refuses_mixed_devices(cuda):
-    words = K.pack_bit_table(torch.ones((64, 4)), 2)
-    idx = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    """Mixed devices, wrong dtypes, and a window or table that does not
+    fit are refused before any launch."""
+    x = _bits((1, 4, 5, 5), False, torch.bfloat16, 0, cuda)
+    words = _words(4, 4, 2, 0, "cpu")
+    before = K.lut_window_bits.launches
     with pytest.raises(ValueError, match="cpu"):
-        K.lut_gather_bits(words, idx)
+        K.lut_window_bits(x, words, 2, 1, 0)
+    words = words.to(cuda)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        K.lut_window_bits(x.to(torch.uint8), words, 2, 1, 0)
+    with pytest.raises(TypeError, match="int32"):
+        K.lut_window_bits(x, words.float(), 2, 1, 0)
+    with pytest.raises(ValueError, match="bits"):
+        K.lut_window_bits(_bits((1, 28, 5, 5), False, torch.bfloat16, 0,
+                                cuda), words, 2, 1, 0)
+    with pytest.raises(ValueError, match="entries"):
+        K.lut_window_bits(x, words, 4, 1, 2)
+    with pytest.raises(ValueError, match="fits"):
+        K.lut_window_bits(x, words, 2, 1, -3)
+    table = K.pack_float_table(torch.randn((16, 8)), 4).to(cuda)
+    with pytest.raises(ValueError, match="entries"):
+        K.lut_window_float(x, table, 1, 1, 0)
+    with pytest.raises(ValueError, match="cpu"):
+        K.lut_window_float(x, table.cpu(), 2, 1, 0)
+    assert K.lut_window_bits.launches == before
 
 
 def test_flagship_lut_forward_through_the_kernel(cuda, monkeypatch):
-    """The flagship served as tables on the card: 8 bit-gather launches a
-    forward, logits equal to the plain gather's, top-1 equal to the conv
-    forward's."""
+    """The flagship served as tables on the card: 8 bit launches a forward,
+    1 float launch in the table-exact one, logits equal to the plain
+    versions', top-1 equal to the conv forward's."""
     model = get_model("ttnet_imagenet_small").init(seed=0, device=cuda)
     luts = lut_eval.compile_ttnet_lut(model)
     x = torch.rand((4, 224, 224, 3), generator=torch.Generator()
                    .manual_seed(1)).to(cuda)
     K.reset_launches()
     got = lut_eval.lut_ttnet_apply(luts, model, x)
+    got_tab = lut_eval.lut_ttnet_apply(luts, model, x, last_via_conv=False)
     torch.cuda.synchronize()
-    assert K.lut_gather_bits.launches == 8
+    assert (K.lut_window_bits.launches, K.lut_window_float.launches) == \
+        (16, 1)
     ref = ttnet_imagenet_apply(model, x)
     assert torch.equal(got.argmax(1), ref.argmax(1))
-    monkeypatch.setattr(lut_eval, "lut_gather_bits", K.lut_gather_bits_plain)
-    monkeypatch.setattr(lut_eval, "lut_gather_float",
-                        K.lut_gather_float_plain)
+    monkeypatch.setattr(lut_eval, "lut_window_bits", K.lut_window_bits_plain)
+    monkeypatch.setattr(lut_eval, "lut_window_float",
+                        K.lut_window_float_plain)
     assert torch.equal(lut_eval.lut_ttnet_apply(luts, model, x), got)
+    assert torch.equal(lut_eval.lut_ttnet_apply(
+        luts, model, x, last_via_conv=False), got_tab)
 
 
 # ---------------------------------------------------- fused pointwise block

@@ -12,21 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import images, jax_and_port, perturb_state, tree_np, \
+from _torch_port import block_from_jax, images, jax_and_port, \
     x64  # noqa: F401
 
 from scale_imagenet_tpu.compile import lut_eval as jlut
 from scale_imagenet_tpu.compile.truth_table import enumerate_patterns as \
     jenumerate
 from scale_imagenet_tpu.models.block_tt import BlockTTConfig as JBlockCfg, \
-    block_tt as jblock_tt, init_block_tt
+    block_tt as jblock_tt
 from scale_imagenet_tpu_torch.compile import lut_eval
 from scale_imagenet_tpu_torch.compile.truth_table import block_truth_table, \
     enumerate_patterns
-from scale_imagenet_tpu_torch.convert.from_jax import _bn, _conv
 from scale_imagenet_tpu_torch.kernels import lut_gather as K
 from scale_imagenet_tpu_torch.models import get_model
-from scale_imagenet_tpu_torch.models.block_tt import BlockTT, BlockTTConfig
+from scale_imagenet_tpu_torch.models.block_tt import BlockTTConfig
 from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
     ttnet_imagenet_apply
 
@@ -43,17 +42,7 @@ TABLE_CFGS = [
 
 
 def _block(kw, seed):
-    p, s = init_block_tt(jax.random.PRNGKey(seed), JBlockCfg(**kw))
-    p = tree_np(p, np.float64)
-    s = perturb_state(tree_np(s, np.float64), seed, scale=0.2)
-    block = BlockTT(BlockTTConfig(**kw)).double().eval()
-    sd = {"conv1.weight": _conv(p["conv1"]["weight"]),
-          "conv2.weight": _conv(p["conv2"]["weight"]),
-          "act.grad_scale": torch.tensor(1.0)}
-    _bn(sd, "bn1", p["bn1"], s["bn1"])
-    _bn(sd, "bn2", p["bn2"], s["bn2"])
-    block.load_state_dict(sd, strict=True)
-    return p, s, block
+    return block_from_jax(kw, seed, np.float64)
 
 
 @pytest.mark.parametrize("i", range(len(TABLE_CFGS)))
@@ -75,8 +64,10 @@ def test_truth_table_matches_jax(x64, i):
     else:
         np.testing.assert_array_equal(got, ref)
         assert 0 < got.mean() < 1                   # a non-trivial table
+    kh, kw_ = (kw["k"], kw["k"]) if isinstance(kw["k"], int) else kw["k"]
+    g = kw["groupsici"]
     np.testing.assert_array_equal(
-        lut_eval._index_weights(block.cfg).numpy(),
+        K.index_weights(kh, kw_, kw["in_planes"] // g, g).numpy(),
         np.transpose(np.asarray(jlut._index_weights(jcfg)), (3, 2, 0, 1)))
 
 
@@ -163,32 +154,50 @@ def test_lut_forward_matches_jax_lut():
             np.testing.assert_array_equal(
                 h.packed.numpy(),
                 np.asarray(jl.heads[i].packed).reshape(h.packed.shape))
-        assert tl.convf.cfg.last or np.array_equal(
-            tl.convf.packed.numpy(),
-            np.asarray(jl.convf.packed).reshape(tl.convf.packed.shape))
+        if tl.convf.cfg.last:        # (G, 2^n, F) of the JAX table
+            np.testing.assert_allclose(
+                tl.convf.packed.numpy(),
+                K.pack_float_table(np.array(jl.convf.table).T,
+                                   tl.convf.cfg.groupsici).numpy(),
+                rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(
+                tl.convf.packed.numpy(),
+                np.asarray(jl.convf.packed).reshape(tl.convf.packed.shape))
     x = images((2, 224, 224, 3), 6).astype(np.float32)
     ref = jlut.lut_ttnet_apply(jluts, jp, js, jm.config, jnp.asarray(x))
     got = lut_eval.lut_ttnet_apply(luts, model, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
-    assert K.lut_gather_bits.launches == 0          # CPU: no kernel
+    assert K.lut_window_bits.launches == 0          # CPU: no kernel
 
 
 def test_merged_heads_use_one_gather(compiled, monkeypatch):
-    """Heads 1+2 share one gather call; per block: merged heads, head 3,
-    the fuse head (the last block's runs as the float conv)."""
+    """Heads 1+2 share one window launch on words concatenated once, when
+    the LUTs are built; per block: merged heads, head 3, the fuse head (the
+    last block's runs as the float conv)."""
     model, luts = compiled("ttnet_imagenet_small")
     calls = []
-    real = lut_eval.lut_gather_bits
+    real = lut_eval.lut_window_bits
 
-    def rec(words, idx, out_dtype):
-        calls.append(tuple(words.shape))
-        return real(words, idx, out_dtype)
+    def rec(x, words, k, stride, padding, heads=1):
+        calls.append((words, heads))
+        return real(x, words, k, stride, padding, heads)
 
-    monkeypatch.setattr(lut_eval, "lut_gather_bits", rec)
-    lut_eval.lut_ttnet_apply(luts, model, torch.from_numpy(
-        images((1, 224, 224, 3), 8).astype(np.float32)))
-    assert len(calls) == 3 + 2                  # 3 + 3 + 2 at --layers 1
+    monkeypatch.setattr(lut_eval, "lut_window_bits", rec)
+    x = torch.from_numpy(images((1, 224, 224, 3), 8).astype(np.float32))
+    lut_eval.lut_ttnet_apply(luts, model, x)
+    first = [w for w, _ in calls]
+    lut_eval.lut_ttnet_apply(luts, model, x)
+    assert len(calls) == 2 * (3 + 2)            # 3 + 3 + 2 at --layers 1
     p = 16
-    assert calls[0] == (2 * p, 1, 2048)         # heads 1+2, G-concatenated
+    words, heads = calls[0]
+    assert heads == 2 and tuple(words.shape) == (2 * p, 1, 2048)
+    # the merged words are the block's, built once: the same tensor on
+    # every forward, and each head's table a view of it
+    assert words is luts[0].merged[0][1] and words is calls[5][0]
+    assert all(a is b for a, (b, _) in zip(first, calls[5:]))
+    h1, h2 = luts[0].heads[1].packed, luts[0].heads[2].packed
+    assert h1.data_ptr() == words.data_ptr()
+    assert h2.data_ptr() == words[p:].data_ptr()
     assert all(lut.heads[1].nonconstant > 0 for lut in luts)

@@ -1,8 +1,12 @@
-"""The port's LUT gathers against the JAX Pallas kernel (interpret mode).
+"""The port's table packing and index-array gathers against the JAX Pallas
+kernel (interpret mode), and the window wrappers on the CPU.
 
 Packing and gather outputs are integers and bits: they must be equal.  The
-CUDA kernels are held against their plain versions in
-``tests/test_torch_cuda.py``, which skips where there is no card.
+index-array gathers are the second half of the window kernels' plain
+versions (``tests/test_torch_lut_window.py`` holds those against the JAX
+LUT forward); the CUDA window kernels are held against their plain
+versions in ``tests/test_torch_cuda.py``, which skips where there is no
+card.
 """
 
 import jax.numpy as jnp
@@ -43,8 +47,9 @@ def test_pack_float_table_layout():
         np.float32)
     got = K.pack_float_table(torch.from_numpy(table), 2)
     ref = jpack_float(table, 2)                       # (G, F, S, 128) padded
-    np.testing.assert_array_equal(got.numpy(),
-                                  ref.reshape(2, 3, -1)[:, :, :2 ** 5])
+    # filter-minor: (G, 2^n, F), the JAX layout's rows transposed
+    np.testing.assert_array_equal(
+        got.numpy(), ref.reshape(2, 3, -1)[:, :, :2 ** 5].transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("n,g,f", CASES)
@@ -93,32 +98,52 @@ def test_merged_heads_gather_matches_pallas():
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
-    words = K.pack_bit_table(_bit_table(6, 8, 0), 4)
-    idx = torch.from_numpy(_idx(6, (50, 4), 1))
+    """On the CPU each window wrapper is its plain version, which is the
+    index conv followed by the index-array gather; no launch is counted."""
+    words = K.pack_bit_table(_bit_table(6, 8, 0), 4)    # 4 groups, n = 6
+    x = torch.from_numpy(_idx(1, (2, 8, 5, 7), 1).astype(np.float32))
     table = K.pack_float_table(np.ones((64, 8), np.float32), 4)
-    before = (K.lut_gather_bits.launches, K.lut_gather_float.launches)
-    assert torch.equal(K.lut_gather_bits(words, idx, torch.bfloat16),
-                       K.lut_gather_bits_plain(words, idx, torch.bfloat16))
-    assert torch.equal(K.lut_gather_float(table, idx),
+    before = (K.lut_window_bits.launches, K.lut_window_float.launches)
+    xb = x.to(torch.bfloat16)
+    got = K.lut_window_bits(xb, words, (3, 1), 2, 1)    # ci = 2: n = 6
+    assert torch.equal(got, K.lut_window_bits_plain(xb, words, (3, 1), 2,
+                                                    1))
+    idx = K.window_index_plain(x, 4, (3, 1), 2, 1)
+    assert torch.equal(got, K.lut_gather_bits_plain(words, idx,
+                                                    torch.bfloat16))
+    assert torch.equal(K.lut_window_float(x, table, (3, 1), 2, 1),
                        K.lut_gather_float_plain(table, idx))
     # the counts are kernel launches: the plain version is not one
-    assert (K.lut_gather_bits.launches, K.lut_gather_float.launches) == before
+    assert (K.lut_window_bits.launches, K.lut_window_float.launches) == \
+        before
 
 
 def test_wrapper_checks():
     words = K.pack_bit_table(_bit_table(6, 8, 0), 4)
-    idx = torch.from_numpy(_idx(6, (50, 4), 1))
+    x = torch.zeros((2, 8, 5, 7))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        K.lut_window_bits(x.long(), words, (3, 1))
     with pytest.raises(TypeError, match="int32"):
-        K.lut_gather_bits(words, idx.long())
-    with pytest.raises(TypeError):
-        K.lut_gather_bits(words.float(), idx)
-    with pytest.raises(ValueError, match="groups"):
-        K.lut_gather_bits(words, idx[:, :3].contiguous())
+        K.lut_window_bits(x, words.float(), (3, 1))
+    with pytest.raises(ValueError, match="channels"):
+        K.lut_window_bits(x[:, :6], words, (3, 1))
+    with pytest.raises(ValueError, match="heads"):
+        K.lut_window_bits(x, words, (3, 1), heads=3)
     with pytest.raises(ValueError, match="contiguous"):
-        K.lut_gather_bits(words, torch.from_numpy(_idx(6, (4, 50), 1)).T)
+        K.lut_window_bits(x, words.transpose(1, 2), (3, 1))
+    with pytest.raises(ValueError, match="bits"):           # n = 25
+        K.lut_window_bits(torch.zeros((1, 100, 3, 3)), words, 1)
+    with pytest.raises(ValueError, match="entries"):        # n = 13
+        K.lut_window_bits(torch.zeros((1, 52, 3, 3)), words, 1)
+    with pytest.raises(ValueError, match="fits"):
+        K.lut_window_bits(x, words, (3, 1), 1, -2)
+    with pytest.raises(ValueError, match="entries"):
+        K.lut_window_float(x, K.pack_float_table(
+            np.ones((32, 8), np.float32), 4), (3, 1))
+    # the index-array contract keeps its own checks
+    idx = torch.from_numpy(_idx(6, (50, 4), 1))
     with pytest.raises(IndexError):
-        K.lut_gather_bits(words, idx + 32 * words.shape[2])
+        K.lut_gather_bits_plain(words, idx + 32 * words.shape[2])
     with pytest.raises(IndexError):
-        K.lut_gather_float(K.pack_float_table(np.ones((64, 8), np.float32),
-                                              4), idx + 64)
-
+        K.lut_gather_float_plain(K.pack_float_table(
+            np.ones((64, 8), np.float32), 4), idx + 64)
