@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--seed 0] [--batch 256] [--out_dir build/chip_smoke]
 
 Drives the port's main paths on the flagship TTnet-Small (p = 64,
---layers 1, 224x224): served as its compiled truth tables over HTTP, and
+--layers 1, 224x224): served as its compiled truth tables over HTTP,
 evaluated from uint8 shards (``--mode eval``, conv and ``--lut``, with the
-fused pointwise kernel on), and holds every CUDA kernel against its plain
-PyTorch version.  Phases, each printing one line of its numbers:
+fused pointwise kernel on) and trained from uint8 pre-crop shards
+(``--mode train``), and holds every CUDA kernel against its plain PyTorch
+version.  Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together),
            build the flagship from --seed with its BN running statistics
@@ -41,7 +42,20 @@ PyTorch version.  Phases, each printing one line of its numbers:
            the switch off, conv with it on, ``--lut --lut_path F`` (writes
            F) and again (loads F); top-1/5, loss, img/s, the device's idle
            share and the launch counts of each run;
-7. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
+7. train:  (a) one f32 step of the flagship at B=256, no augmentation, on
+           the card (the fused switch on: training must not launch it) and
+           on the CPU from the same weights and batch: relative loss gap
+           <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
+           (b) ten steps on one fixed batch lower the loss, and one f32
+           step's and one recipe step's device time by kernel; (c) ``main
+           --mode train`` from 2,560 seeded 256x256 pre-crop shards with the
+           eval phase's shards as validation, one epoch of 10 steps, f32 and
+           ``--amp --remat --grad_accum 2 --ema 0.999 --label_smooth 0.1``:
+           train img/s over steps 2-10, the device's idle share, peak device
+           memory, first and last loss, validation top-1, no launch of the
+           port's kernels; (d) a resume from the recipe run's ``last``
+           checkpoint continues at step 11 with a finite loss;
+8. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -59,6 +73,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -83,6 +98,12 @@ OPS_PER_S = 67e12
 # integer op) take no f32 instruction and are not counted
 GELU_OPS = 41
 EVAL_IMAGES = 5000
+TRAIN_IMAGES = 2560                # 10 steps of B = 256 an epoch
+# one f32 step of the flagship, card against CPU (PERF.md states these):
+# relative loss gap, cosine of the parameter updates, flipped Heavisides
+TRAIN_LOSS_GAP = 1e-3
+TRAIN_UPDATE_COSINE = 0.99
+TRAIN_FLIP_SHARE = 1e-3
 # clock cycles the card spins ahead of a timed run (~1.2 ms at 1.7 GHz)
 HOST_LEAD_CYCLES = 2_000_000
 
@@ -258,9 +279,9 @@ def busy_ns(spans: list) -> int:
 
 def profile_forward(name: str, fn, batch: int, out_dir: Path,
                     iters: int = 3) -> int:
-    """Device time of ``iters`` forwards by kernel (``torch.profiler``):
-    busy share of the window, device kernels a forward and the kernels that
-    take the most time.
+    """Device time of ``iters`` calls of ``fn`` (a forward, or a train
+    step) by kernel (``torch.profiler``): busy share of the window, device
+    kernels a call and the kernels that take the most time.
     Writes the full table to ``<out_dir>/profile_<name>.txt``; returns the
     convolutions a forward (``aten::convolution`` calls)."""
     from torch.profiler import ProfilerActivity, profile
@@ -522,8 +543,257 @@ def eval_phase(args, model, out_dir: Path) -> dict:
               for k in ("top1", "top5", "loss")),
           "eval from the loaded LUT archive differs from the run that "
           "wrote it")
-    shutil.rmtree(work)
+    # the shards stay: the train phase validates on them
+    ckpt.unlink()
+    lut_path.unlink()
     return results
+
+
+@contextlib.contextmanager
+def heaviside_outputs(sink: list):
+    """Every Heaviside output of the forwards run inside, appended to
+    ``sink`` as a bool tensor on its device (the stem's, each Block_TT's and
+    each pooled head 4's)."""
+    from scale_imagenet_tpu_torch.models import block_tt, ttnet_imagenet
+    from scale_imagenet_tpu_torch.ops import binarize
+
+    real = binarize.heaviside01
+
+    def rec(x, *a, **k):
+        out = real(x, *a, **k)
+        sink.append(out.detach() > 0)
+        return out
+
+    with mock.patch.object(binarize, "heaviside01", rec), \
+            mock.patch.object(block_tt, "heaviside01", rec), \
+            mock.patch.object(ttnet_imagenet, "heaviside01", rec):
+        yield
+
+
+def one_train_step(model, x, y, sink: list) -> float:
+    """One plain f32 step (SGD, lr 0.1) of ``model`` in place, recording
+    its Heaviside outputs into ``sink``; returns the loss."""
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    opt, _ = make_optimizer(0.1)
+    ts = TrainState(model, opt.init(dict(model.named_parameters())))
+    step = make_train_step(model, opt)
+    with heaviside_outputs(sink):
+        _, metrics = step(ts, x, y)
+    return float(metrics["loss"])
+
+
+def step_parity(model, B: int, seed: int) -> dict:
+    """12(a): one f32 step of the seeded flagship without augmentation on
+    the card, with the fused switch on (training must not take the eval
+    kernel), and on the CPU (the plain path), from the same weights and
+    batch: the relative loss gap, the cosine between the two parameter
+    updates and the share of Heaviside outputs that flipped."""
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    x = torch.randn((B, 224, 224, 3), generator=gen)
+    y = torch.randint(0, 1000, (B,), generator=gen)
+    cpu_model = copy.deepcopy(model).cpu()
+    start = [p.detach().cpu().clone() for p in model.parameters()]
+    card_bits, cpu_bits = [], []
+    FB.reset_launches()
+    with fused_blocks(True):
+        card_loss = one_train_step(model, x.cuda(), y.cuda(), card_bits)
+    torch.cuda.synchronize()
+    fused_launches = FB.fused_pointwise_block.launches
+    card_bits = [b.cpu() for b in card_bits]
+    t = time.perf_counter()
+    cpu_loss = one_train_step(cpu_model, x, y, cpu_bits)
+    cpu_s = time.perf_counter() - t
+    du = torch.cat([(p.detach().cpu() - s).double().ravel()
+                    for p, s in zip(model.parameters(), start)])
+    dv = torch.cat([(p.detach() - s).double().ravel()
+                    for p, s in zip(cpu_model.parameters(), start)])
+    check(len(card_bits) == len(cpu_bits) and all(
+        a.shape == b.shape for a, b in zip(card_bits, cpu_bits)),
+        "the card and CPU steps ran different Heavisides")
+    flips = sum(int((a != b).sum()) for a, b in zip(card_bits, cpu_bits))
+    outputs = sum(a.numel() for a in card_bits)
+    return {"batch": B, "card_loss": card_loss, "cpu_loss": cpu_loss,
+            "rel_loss_gap": abs(card_loss - cpu_loss) / abs(cpu_loss),
+            "update_cosine": float(du @ dv / (du.norm() * dv.norm())),
+            "heaviside_outputs": outputs, "heaviside_flipped": flips,
+            "flip_share": flips / outputs, "heavisides": len(card_bits),
+            "fused_launches_in_training": fused_launches, "cpu_step_s": cpu_s}
+
+
+class StepTimer:
+    """Wraps a train step: keeps every step's loss (a device scalar, read
+    after the run), and times steps 2..``steps`` from a synchronised start
+    to a synchronised end, with the card's kernels profiled over the same
+    window (device idle share)."""
+
+    def __init__(self, steps: int):
+        self.steps, self.calls, self.losses = steps, 0, []
+        self.prof = None
+        self.t0 = self.t1 = None
+        self.busy_s = None
+
+    def wrap(self, step):
+        from torch.profiler import ProfilerActivity, profile
+
+        def timed(ts, images, labels, generator=None):
+            i = self.calls
+            self.calls += 1
+            if i == 1:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            ts, metrics = step(ts, images, labels, generator)
+            self.losses.append(metrics["loss"])
+            if i == self.steps - 1:
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+                self.prof.__exit__(None, None, None)
+                self.busy_s = busy_ns(device_spans(self.prof)) / 1e9
+                self.prof = None
+            return ts, metrics
+        return timed
+
+
+def train_phase(args, model, out_dir: Path) -> dict:
+    """12(a)-(d): the step against the CPU, an overfit check on one batch,
+    ``main --mode train`` from seeded 256x256 pre-crop shards (f32, then
+    the README's recipe), and a resume from the recipe's ``last``
+    checkpoint."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, write_shards
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step, params_ema
+
+    B = args.batch
+    # (a) one step, card against CPU
+    parity = step_parity(copy.deepcopy(model), B, args.seed)
+    emit("train_step_parity", **parity)
+    check(parity["rel_loss_gap"] <= TRAIN_LOSS_GAP,
+          f"card/CPU loss gap {parity['rel_loss_gap']} > {TRAIN_LOSS_GAP}")
+    check(parity["update_cosine"] >= TRAIN_UPDATE_COSINE,
+          f"card/CPU update cosine {parity['update_cosine']} < "
+          f"{TRAIN_UPDATE_COSINE}")
+    check(parity["flip_share"] <= TRAIN_FLIP_SHARE,
+          f"card/CPU Heaviside flip share {parity['flip_share']} > "
+          f"{TRAIN_FLIP_SHARE}")
+    check(parity["fused_launches_in_training"] == 0,
+          "a training forward launched the eval-only fused kernel")
+
+    # (b) ten steps on one fixed batch lower the loss
+    net = copy.deepcopy(model)
+    opt, _ = make_optimizer(0.1)
+    ts = TrainState(net, opt.init(dict(net.named_parameters())))
+    step = make_train_step(net, opt)
+    gen = torch.Generator().manual_seed(args.seed + 6)
+    x = torch.randn((B, 224, 224, 3), generator=gen).cuda()
+    y = torch.randint(0, 1000, (B,), generator=gen).cuda()
+    losses = []
+    for _ in range(10):
+        ts, metrics = step(ts, x, y)
+        losses.append(metrics["loss"])
+    losses = [float(v) for v in losses]
+    emit("train_overfit", batch=B, steps=10, losses=losses)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"ten steps on one batch did not lower the loss: {losses}")
+    # where a step's device time goes: the f32 step, and the recipe's (bf16,
+    # remat, two microbatches, the full augmentation from uint8 pre-crops)
+    profile_forward("train_step_f32", lambda: step(ts, x, y), B, out_dir,
+                    iters=2)
+    net.cfg = dataclasses.replace(net.cfg, remat=True)
+    opt = dataclasses.replace(opt, ema=params_ema(0.999))
+    ts = TrainState(net, opt.init(dict(net.named_parameters())))
+    step = make_train_step(net, opt, amp=True, accum=2, label_smooth=0.1,
+                           normalize=(IMAGENET_MEAN, IMAGENET_STD),
+                           augment="full")
+    x = torch.randint(0, 256, (B, 256, 256, 3), dtype=torch.uint8,
+                      generator=gen).cuda()
+    aug_gen = torch.Generator(x.device).manual_seed(args.seed)
+    profile_forward("train_step_recipe", lambda: step(ts, x, y, aug_gen), B,
+                    out_dir, iters=2)
+    del net, ts, step, x, y, opt
+
+    # (c) main --mode train from pre-crop shards, twice
+    work = Path("build") / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(args.seed + 7)
+    write_shards(ArrayDataset(
+        rng.integers(0, 256, (TRAIN_IMAGES, 256, 256, 3), dtype=np.uint8),
+        rng.integers(0, 1000, TRAIN_IMAGES).astype(np.int32)),
+        str(work / "shards"), shard_size=B)
+    steps = TRAIN_IMAGES // B
+    base = ["--mode", "train", "--shards_dir", str(work / "shards"),
+            "--eval_shards_dir", str(Path("build") / "chip_smoke_eval" /
+                                     "shards"),
+            "--train_batch_size", str(B), "--eval_batch_size", str(B),
+            "--seed", str(args.seed), "--root_dir", str(work / "run")]
+    recipe = ["--amp", "--remat", "--grad_accum", "2", "--ema", "0.999",
+              "--label_smooth", "0.1"]
+    runs = {}
+    real_make = cli.make_train_step
+    for name, extra in (("f32", []), ("recipe", recipe)):
+        timer = StepTimer(steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        K.reset_launches()
+        FB.reset_launches()
+        t = time.perf_counter()
+        with mock.patch.object(
+                cli, "make_train_step",
+                lambda *a, **k: timer.wrap(real_make(*a, **k))):
+            summary = cli.main(base + extra + ["--max_epochs", "1"])
+        torch.cuda.synchronize()
+        run_losses = [float(v) for v in timer.losses]
+        wall = timer.t1 - timer.t0
+        val = summary["val"][0]
+        runs[name] = {
+            "steps": timer.calls, "timed_steps": steps - 1,
+            "train_img_s": (steps - 1) * B / wall,
+            "device_idle_share": 1 - timer.busy_s / wall,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "resident_before_gb": resident / 1e9,
+            "first_loss": run_losses[0], "last_loss": run_losses[-1],
+            "val_top1": val["top1"], "val_ema_top1": val.get("ema_top1"),
+            "run_s": time.perf_counter() - t,
+            "launches": {"fused_pointwise_block":
+                         FB.fused_pointwise_block.launches,
+                         "lut_window_bits": K.lut_window_bits.launches},
+            "ckpt_dir": summary["ckpt_dir"]}
+        emit("train", run=name, flags=" ".join(extra), batch=B,
+             images=TRAIN_IMAGES, **runs[name])
+        check(timer.calls == steps and summary["step"] == steps,
+              f"train {name}: {timer.calls} steps, expected {steps}")
+        check(all(np.isfinite(run_losses)) and 0 <= val["top1"] <= 100,
+              f"train {name}: losses {run_losses}, val {val}")
+        # training and its validation (the fused switch off) run no kernel
+        # of the port
+        check(not any(runs[name]["launches"].values()),
+              f"train {name} launched {runs[name]['launches']}")
+
+    # (d) resume the recipe run from its last checkpoint
+    last = str(Path(runs["recipe"]["ckpt_dir"]) / "last")
+    resumed = cli.main(base + recipe + ["--max_epochs", "2", "--ckpt", last,
+                                        "--log_interval", "1"])
+    first_step, first_loss, _ = resumed["train"][0]
+    emit("train_resume", start_step=resumed["start_step"],
+         first_step=first_step, first_loss=first_loss,
+         step=resumed["step"])
+    check(resumed["start_step"] == steps and first_step == steps + 1
+          and np.isfinite(first_loss) and resumed["step"] == 2 * steps,
+          f"resume from {last}: {resumed}")
+    shutil.rmtree(work)
+    shutil.rmtree(Path("build") / "chip_smoke_eval")
+    return {"parity": parity, "overfit": losses, "runs": runs}
 
 
 def main() -> int:
@@ -728,6 +998,10 @@ def run(args) -> int:
 
     # ------------------------------------------------------------- eval
     evals = eval_phase(args, model, out_dir)
+
+    # ------------------------------------------------------------ train
+    with torch.enable_grad():
+        train_phase(args, model, out_dir)
 
     # ------------------------------------------------------------- perf
     def wall_ms(fn, iters):

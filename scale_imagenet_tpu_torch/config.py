@@ -1,15 +1,28 @@
-"""Performance switches (counterpart of ``scale_imagenet_tpu/config.py:38-100``).
+"""Numerics and performance switches (counterpart of
+``scale_imagenet_tpu/config.py:14-100``).
 
-One process-wide ``performance`` object, as in the JAX package.  The port
-has the switch of the paths it carries so far; ``fast_gelu``,
-``merge_heads12`` and ``gates_device_budget`` come with the paths that
-read them (``ROADMAP.md``).
+One process-wide ``numerics`` and one ``performance`` object, as in the JAX
+package.  The port has the fields of the paths it carries so far; the other
+numerics fields, ``fast_gelu``, ``merge_heads12`` and
+``gates_device_budget`` come with the paths that read them
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+
+
+@dataclasses.dataclass
+class NumericsConfig:
+    # scale of the tanh' straight-through surrogate of the Heaviside
+    # backward; ``None`` selects the hardtanh mask surrogate instead
+    # (the reference's ``g_bingrad_soft_tanh_scale``)
+    bingrad_soft_tanh_scale: float | None = 1.0
+
+
+numerics = NumericsConfig()
 
 
 @dataclasses.dataclass

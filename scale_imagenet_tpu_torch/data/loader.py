@@ -20,37 +20,59 @@ import torch
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int, num_workers: int = 6,
-                 rank: int = 0, world: int = 1):
-        """Sequential batches, the trailing short one included.
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: int = 6, drop_last: bool = False,
+                 seed: int = 0, rank: int = 0, world: int = 1):
+        """Batches in order, or shuffled by ``np.random.default_rng(seed +
+        epoch)`` (``set_epoch``), as the JAX package's loader draws them.
 
+        ``drop_last`` drops the trailing short batch (training).
         ``rank``/``world``: multi-process feeding (the reference's
-        DistributedSampler, unshuffled): each process takes a contiguous
-        ``ceil(len / world)`` slice, and short ranks emit all-pad filler
+        DistributedSampler): every process draws the same permutation and
+        takes a contiguous slice of it.  With ``drop_last`` the slice is
+        ``len // world`` and the tail past it is dropped; without it the
+        slice is ``ceil(len / world)`` and short ranks emit all-pad filler
         batches (labels -1, masked from the metric sums) up to the max rank
         count, so every image is scored in lockstep."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.seed = seed
         self.rank = rank
         self.world = world
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
 
     def __len__(self):
+        if self.drop_last:
+            return (len(self.dataset) // self.world) // self.batch_size
         per = -(-len(self.dataset) // self.world)
         return -(-per // self.batch_size)
 
     def _filler_batches(self):
+        if self.drop_last:
+            return 0
         n = len(self.dataset)
         per = -(-n // self.world)
         mine = max(0, min(per, n - self.rank * per))
         return len(self) - -(-mine // self.batch_size)
 
     def __iter__(self):
-        per = -(-len(self.dataset) // self.world)
-        idx = np.arange(len(self.dataset))[self.rank * per:
-                                           (self.rank + 1) * per]
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        per = (len(idx) // self.world if self.drop_last
+               else -(-len(idx) // self.world))
+        idx = idx[self.rank * per:(self.rank + 1) * per]
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last and batches and \
+                len(batches[-1]) < self.batch_size:
+            batches.pop()
 
         images = None
         with ThreadPoolExecutor(self.num_workers) as pool:

@@ -1,7 +1,8 @@
 """Pre-decoded uint8 shards (counterpart of ``scale_imagenet_tpu/data/shards.py``).
 
-Decode once, Resize(256) + CenterCrop(224) kept as HWC uint8, into ``.npy``
-shards; serve epochs from the page cache and normalize on the device
+Decode once into HWC uint8 ``.npy`` shards (the eval crop, Resize(256) +
+CenterCrop(224), or the train pre-crop, Resize(256) + CenterCrop(256)); serve
+epochs from the page cache and normalize, or augment, on the device
 (``train/steps.py``).  The layout on disk is the JAX package's, so shards
 written by either package load in the other:
 
@@ -108,15 +109,29 @@ class ShardDataset:
         j = idx - self._offsets[s]
         return np.asarray(self._images[s][j]), int(self._labels[s][j])
 
-    def iter_batches(self, batch_size: int, rank: int = 0, world: int = 1):
+    def iter_batches(self, batch_size: int, rank: int = 0, world: int = 1,
+                     drop_last: bool = False, shuffle: int | None = None):
         """Yield ``(images u8 (B,H,W,C), labels i32 (B,))`` spanning shard
-        boundaries, the trailing short batch included.
+        boundaries, the trailing short batch unless ``drop_last``.
+
+        ``shuffle``: an integer seed for the training order, drawn as the
+        JAX package draws it: ``np.random.default_rng(shuffle)`` permutes
+        the shard order, then the rows of each shard as it is read (vary
+        the seed per epoch).
 
         ``rank``/``world``: each process serves the shards assigned
         round-robin to its rank, and every rank yields the same number of
         batches (``rank_batches``): short ranks pad their tail and append
-        all-pad batches (labels -1)."""
+        all-pad batches (labels -1).  Multi-process training (``drop_last``
+        across ranks) comes with a later slice (``ROADMAP.md``)."""
+        if world > 1 and drop_last:
+            raise ValueError("drop_last across ranks is multi-process "
+                             "training, not ported yet (see ROADMAP.md)")
         mine = [s for s in range(len(self._paths)) if s % world == rank]
+        rng = None
+        if shuffle is not None:
+            rng = np.random.default_rng(shuffle)
+            mine = [mine[i] for i in rng.permutation(len(mine))]
         ahead = 2
 
         def shard_stream():
@@ -128,9 +143,13 @@ class ShardDataset:
                     if j + ahead < len(mine):
                         futs.append(pool.submit(
                             _load_npy_fast, self._paths[mine[j + ahead]]))
-                    yield cur, self._labels[s]
+                    lbl = self._labels[s]
+                    if rng is not None:
+                        perm = rng.permutation(len(cur))
+                        cur, lbl = cur[perm], lbl[perm]
+                    yield cur, lbl
 
-        batches = self._slice_batches(shard_stream(), batch_size)
+        batches = self._slice_batches(shard_stream(), batch_size, drop_last)
         if world == 1:
             yield from batches
             return
@@ -141,15 +160,20 @@ class ShardDataset:
         for _ in range(self.rank_batches(batch_size, world) - count):
             yield filler_batch(batch_size, self.meta["shape"])
 
-    def rank_batches(self, batch_size: int, world: int) -> int:
+    def rank_batches(self, batch_size: int, world: int,
+                     drop_last: bool = False) -> int:
         """The per-rank batch count every rank computes from the shared
-        metadata: the max over ranks of ceil batches."""
-        return max((-(-sum(len(self._images[s])
-                           for s in range(r, len(self._paths), world))
-                      // batch_size) for r in range(world)), default=0)
+        metadata: the most ceil count of any rank (short ranks emit filler
+        batches); with ``drop_last`` the full-batch count (one rank)."""
+        counts = [sum(len(self._images[s])
+                      for s in range(r, len(self._paths), world))
+                  for r in range(world)]
+        if drop_last:
+            return min((n // batch_size for n in counts), default=0)
+        return max((-(-n // batch_size) for n in counts), default=0)
 
     @staticmethod
-    def _slice_batches(shards, batch_size):
+    def _slice_batches(shards, batch_size, drop_last):
         def join(parts):
             return np.ascontiguousarray(
                 np.concatenate(parts) if len(parts) > 1 else parts[0])
@@ -166,22 +190,31 @@ class ShardDataset:
                 if have == batch_size:
                     yield join(img_parts), join(lbl_parts)
                     img_parts, lbl_parts, have = [], [], 0
-        if have:
+        if have and not drop_last:
             yield join(img_parts), join(lbl_parts)
 
 
-def shard_loader(root: str, batch_size: int):
+def shard_loader(root: str, batch_size: int, drop_last: bool = False,
+                 shuffle: bool = False, seed: int = 0):
     """An iterable over a shard dir, usable where ``DataLoader`` is:
-    ``dataset``, ``len()`` and a fresh ``iter_batches`` per pass."""
+    ``dataset``, ``len()``, ``set_epoch`` and a fresh ``iter_batches`` per
+    pass; ``shuffle`` draws each epoch's order from ``seed + epoch``."""
     ds = ShardDataset(root)
+    n_batches = ds.rank_batches(batch_size, 1, drop_last)
 
     class _Iter:
         dataset = ds
+        _epoch = 0
+
+        def set_epoch(self, epoch: int):
+            self._epoch = epoch
 
         def __len__(self):
-            return ds.rank_batches(batch_size, 1)
+            return n_batches
 
         def __iter__(self):
-            return ds.iter_batches(batch_size)
+            return ds.iter_batches(
+                batch_size, drop_last=drop_last,
+                shuffle=(seed + self._epoch) if shuffle else None)
 
     return _Iter()

@@ -1,13 +1,19 @@
-"""ImageNet eval transforms with torchvision-matching numerics, PIL-backed
+"""ImageNet transforms with torchvision-matching numerics, PIL-backed
 (counterpart of ``scale_imagenet_tpu/data/transforms.py``).
 
-Resize(256) + CenterCrop(224) (+ Normalize), HWC layout as in the JAX
-package.  Pillow is imported inside the functions that use it, so the
-package imports where Pillow is absent (the shard path needs numpy only).
-The train transforms come with training (``ROADMAP.md``).
+Eval: Resize(256) + CenterCrop(224) (+ Normalize).  Train:
+RandomResizedCrop(224) + HFlip + ColorJitter(0.5, 0.5, 0.3) + Normalize,
+drawn from an explicit ``random.Random``, and the 256x256 pre-crop that
+train shards store for the on-device augmentation (``train/augment.py``).
+HWC layout as in the JAX package.  Pillow is imported inside the functions
+that use it, so the package imports where Pillow is absent (the shard path
+needs numpy only).
 """
 
 from __future__ import annotations
+
+import math
+import random
 
 import numpy as np
 
@@ -61,3 +67,58 @@ def imagenet_eval_transform(img) -> np.ndarray:
     """Resize(256) -> CenterCrop(224) -> Normalize; HWC float32."""
     return _normalize(_to_float_chw_last(imagenet_eval_crop_u8(img)),
                       IMAGENET_MEAN, IMAGENET_STD)
+
+
+def imagenet_train_crop_u8(img) -> np.ndarray:
+    """Resize(256) -> CenterCrop(256) as HWC uint8: the pre-crop that train
+    shards store (``--write_shards --shards_split train``), so that the
+    RandomResizedCrop + flip + ColorJitter run on the device
+    (``train/augment.py``)."""
+    img = img.convert("RGB")
+    img = _center_crop(_resize_shorter(img, 256), 256)
+    return np.asarray(img, dtype=np.uint8)
+
+
+def _random_resized_crop(img, size: int, rng: random.Random,
+                         scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3)):
+    """torchvision RandomResizedCrop: 10 attempts, then the center crop."""
+    from PIL import Image
+
+    w, h = img.size
+    area = w * h
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+        aspect = math.exp(rng.uniform(*log_ratio))
+        cw = int(round(math.sqrt(target_area * aspect)))
+        ch = int(round(math.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            left = rng.randint(0, w - cw)
+            top = rng.randint(0, h - ch)
+            return img.crop((left, top, left + cw, top + ch)).resize(
+                (size, size), Image.BILINEAR)
+    s = min(w, h)
+    return _center_crop(img, s).resize((size, size), Image.BILINEAR)
+
+
+def imagenet_train_transform(img, rng: random.Random | None = None) \
+        -> np.ndarray:
+    """RandomResizedCrop(224) -> HFlip -> ColorJitter(0.5, 0.5, 0.3) in a
+    random order -> Normalize; HWC float32.  ``rng`` draws every choice
+    (the ``random`` module's own generator when ``None``, as in the JAX
+    package); the same state gives the JAX package's output exactly."""
+    from PIL import Image, ImageEnhance
+
+    rng = rng or random
+    img = img.convert("RGB")
+    img = _random_resized_crop(img, 224, rng)
+    if rng.random() < 0.5:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    jitters = ((0.5, ImageEnhance.Brightness), (0.5, ImageEnhance.Contrast),
+               (0.3, ImageEnhance.Color))
+    order = list(range(3))
+    rng.shuffle(order)
+    for i in order:
+        mag, enhancer = jitters[i]
+        img = enhancer(img).enhance(rng.uniform(max(0.0, 1 - mag), 1 + mag))
+    return _normalize(_to_float_chw_last(img), IMAGENET_MEAN, IMAGENET_STD)

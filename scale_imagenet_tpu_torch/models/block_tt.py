@@ -1,6 +1,7 @@
 """The TTnet cell (counterpart of ``scale_imagenet_tpu/models/block_tt.py``).
 
-Eval forward, matching the reference Block_TT::
+Forward (eval, or training with a ``stats`` sink), matching the reference
+Block_TT::
 
     constant-pad -> grouped conv (in -> t*in, kernel k, ``groupsici`` groups)
     -> BN -> GELU (exact erf) -> grouped 1x1 conv (t*in -> out) -> BN
@@ -13,8 +14,10 @@ block runs as the fused pointwise kernel instead (``kernels/fused_block.py``;
 the gate of ``scale_imagenet_tpu/models/block_tt.py:94-100``; the GELU
 there is the polynomial erf).  The JAX gate also asks for a TPU backend; here the
 kernel's wrapper takes the CUDA kernel for a CUDA tensor and its plain
-version for a CPU one.  The BinConv2d first conv, the input fault mask and
-the noisy Heaviside come with the families and the training that use them.
+version for a CPU one.  As there, the gate never fires in training, which
+keeps the exact erf and the batch statistics.  The BinConv2d first conv,
+the input fault mask and the noisy Heaviside come with the families that
+use them.
 """
 
 from __future__ import annotations
@@ -74,8 +77,9 @@ class BlockTT(nn.Module):
         self.act = Binarize01Act()
         self._folded = None            # (key, params): pointwise_params
 
-    def forward(self, x: torch.Tensor, pre_padded: bool = False):
-        return block_tt(self, x, pre_padded)
+    def forward(self, x: torch.Tensor, pre_padded: bool = False,
+                stats: dict | None = None):
+        return block_tt(self, x, pre_padded, stats)
 
     def pointwise_params(self) -> tuple:
         """``block_tt_pointwise_params`` folded once and kept: it is folded
@@ -94,22 +98,25 @@ class BlockTT(nn.Module):
         return self._folded[1]
 
 
-def block_tt(block: BlockTT, x: torch.Tensor,
-             pre_padded: bool = False) -> torch.Tensor:
-    """Eval forward on NCHW ``x``.  ``pre_padded`` skips the pad for callers
-    that already padded (the truth-table enumerator)."""
+def block_tt(block: BlockTT, x: torch.Tensor, pre_padded: bool = False,
+             stats: dict | None = None) -> torch.Tensor:
+    """Forward on NCHW ``x``: eval, or training when ``stats`` is given (a
+    dict that receives each BN's new running statistics,
+    ``layers/norm.py``).  ``pre_padded`` skips the pad for callers that
+    already padded (the truth-table enumerator)."""
     cfg = block.cfg
-    if (performance.fused_pointwise_blocks and _as_pair(cfg.k) == (1, 1)
-            and cfg.stride == 1 and cfg.padding == 0):
+    if (stats is None and performance.fused_pointwise_blocks
+            and _as_pair(cfg.k) == (1, 1) and cfg.stride == 1
+            and cfg.padding == 0):
         return fused_pointwise_nchw(x, block.pointwise_params(),
                                     "relu" if cfg.last else "heaviside")
     if cfg.padding != 0 and not pre_padded:
         x = constant_pad2d(x, cfg.padding)
     out = conv2d(x, block.conv1.weight, stride=cfg.stride,
                  groups=cfg.groupsici)
-    out = gelu(batch_norm(block.bn1, out))
+    out = gelu(batch_norm(block.bn1, out, stats))
     out = conv2d(out, block.conv2.weight, groups=cfg.groupsici)
-    out = batch_norm(block.bn2, out)
+    out = batch_norm(block.bn2, out, stats)
     return torch.relu(out) if cfg.last else heaviside01(out)
 
 

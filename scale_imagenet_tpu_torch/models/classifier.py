@@ -22,10 +22,13 @@ class ClassifierScale(nn.Module):
         self.BN2 = nn.BatchNorm1d(inter)
         self.lin2 = nn.Linear(inter, out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return classifier_scale(self, x)
+    def forward(self, x: torch.Tensor,
+                stats: dict | None = None) -> torch.Tensor:
+        return classifier_scale(self, x, stats)
 
 
-def classifier_scale(head: ClassifierScale, x: torch.Tensor) -> torch.Tensor:
-    y = batch_norm(head.BN2, linear(x, head.lin1.weight))
+def classifier_scale(head: ClassifierScale, x: torch.Tensor,
+                     stats: dict | None = None) -> torch.Tensor:
+    """Eval, or training when ``stats`` is given (``layers/norm.py``)."""
+    y = batch_norm(head.BN2, linear(x, head.lin1.weight), stats)
     return linear(polynome_act(y), head.lin2.weight, head.lin2.bias)

@@ -116,8 +116,9 @@ class MultiHeadBlock(nn.Module):
     def head(self, i: int) -> BlockTT:
         return getattr(self, f"Block_conv{i}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return multihead_block(self, x)
+    def forward(self, x: torch.Tensor,
+                stats: dict | None = None) -> torch.Tensor:
+        return multihead_block(self, x, stats)
 
 
 def channel_interleave(x: torch.Tensor, cpt: int) -> torch.Tensor:
@@ -148,13 +149,15 @@ def reconcile_heads(outs: dict, cfg: MultiHeadConfig, x: torch.Tensor,
     return torch.cat([outs[i][:, :, :th, :tw] for i in sorted(outs)], dim=1)
 
 
-def multihead_block(block: MultiHeadBlock, x: torch.Tensor) -> torch.Tensor:
+def multihead_block(block: MultiHeadBlock, x: torch.Tensor,
+                    stats: dict | None = None) -> torch.Tensor:
+    """Eval, or training when ``stats`` is given (``block_tt``)."""
     cfg = block.cfg
-    outs = {i: block_tt(block.head(i), x) for i in (1, 2, 3)}
+    outs = {i: block_tt(block.head(i), x, stats=stats) for i in (1, 2, 3)}
     cat = reconcile_heads(outs, cfg, x,
                           lambda pooled: binarize01_act(pooled - 0.5))
     cat = channel_interleave(cat, cfg.cpt)
-    return block_tt(block.Block_convf, cat)
+    return block_tt(block.Block_convf, cat, stats=stats)
 
 
 def multihead_out_size(cfg: MultiHeadConfig, h: int, w: int):

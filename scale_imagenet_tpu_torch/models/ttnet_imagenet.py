@@ -7,17 +7,24 @@ Sequential, so an exported reference ``.pth`` loads with ``strict=True``.
 The s2d stem (default) evaluates the first two layers as one conv.
 
 Public functions take NHWC images ``(B, H, W, 3)`` and return ``(B,
-classes)`` logits; the VGG-stem and ``v2`` variants come later
-(``ROADMAP.md``).
+classes)`` logits.  Each runs in eval mode, or in training mode when given
+a ``stats`` dict, which then receives every BN's new running statistics
+(``layers/norm.py``; ``train/steps.py`` writes them).  With
+``cfg.remat`` the training forward runs each multi-head block under
+``torch.utils.checkpoint``, as ``jax.checkpoint`` does at
+``scale_imagenet_tpu/models/ttnet_imagenet.py:167-182``.  The VGG-stem and
+``v2`` variants come later (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import exact_float32, resolve_device
 from ..kernels.stem import space_to_depth_stem
@@ -64,6 +71,10 @@ class TTnetImageNetConfig:
     # "s2d": avgpool+conv7 folded into one space-to-depth conv (exact up to
     # float summation order); "reference": the literal op order
     stem_impl: str = "s2d"
+    # recompute each multi-head block's activations in the training
+    # backward instead of keeping them (device memory for operations; the
+    # values are the same)
+    remat: bool = False
 
     @property
     def p(self) -> int:
@@ -132,8 +143,9 @@ class TTnetImageNet(nn.Module):
     def classifier(self) -> ClassifierScale:
         return self.features[-1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ttnet_imagenet_apply(self, x)
+    def forward(self, x: torch.Tensor,
+                stats: dict | None = None) -> torch.Tensor:
+        return ttnet_imagenet_apply(self, x, stats)
 
 
 @torch.no_grad()
@@ -170,27 +182,52 @@ def _nchw(x: torch.Tensor, model: TTnetImageNet) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).to(model.stem_conv.weight.dtype)
 
 
-def stem(model: TTnetImageNet, x: torch.Tensor) -> torch.Tensor:
+def stem(model: TTnetImageNet, x: torch.Tensor,
+         stats: dict | None = None) -> torch.Tensor:
     """Stem on NCHW images -> {0,1} bits (NCHW)."""
     if model.cfg.stem_impl == "s2d":
         h = space_to_depth_stem(x, model.stem_conv.weight)
     else:
         h = conv2d(avg_pool(x, 2), model.stem_conv.weight, stride=2,
                    padding=3)
-    return heaviside01(batch_norm(model.stem_bn, h))
+    return heaviside01(batch_norm(model.stem_bn, h, stats))
 
 
-def ttnet_imagenet_features(model: TTnetImageNet,
-                            x: torch.Tensor) -> torch.Tensor:
+def _remat_block(block: MultiHeadBlock, h: torch.Tensor,
+                 stats: dict) -> torch.Tensor:
+    """One training block under ``torch.utils.checkpoint``.  The backward
+    runs the block again; that second forward writes its statistics into a
+    throwaway dict, so every BN's running statistics are taken from the
+    first forward alone and updated once.  The block's tensors are inputs
+    of the checkpointed function, so the second forward sees the ones the
+    first saw (the bf16 copies of ``--amp``'s ``functional_call`` are gone
+    by the time the backward runs)."""
+    values = dict(itertools.chain(block.named_parameters(),
+                                  block.named_buffers()))
+    sinks = [stats]
+
+    def run(x, *tensors):
+        return torch.func.functional_call(
+            block, dict(zip(values, tensors)),
+            (x, sinks.pop() if sinks else {}))
+    return checkpoint(run, h, *values.values(), use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def ttnet_imagenet_features(model: TTnetImageNet, x: torch.Tensor,
+                            stats: dict | None = None) -> torch.Tensor:
     """Everything before the classifier; ``x`` is NHWC."""
-    h = stem(model, _nchw(x, model))
+    h = stem(model, _nchw(x, model), stats)
+    remat = (model.cfg.remat and stats is not None
+             and torch.is_grad_enabled())
     for block in model.blocks:
-        h = block(h)
+        h = _remat_block(block, h, stats) if remat else block(h, stats)
     return flatten(avg_pool(h, 2))
 
 
-def ttnet_imagenet_apply(model: TTnetImageNet, x: torch.Tensor) \
-        -> torch.Tensor:
-    """Full eval forward: NHWC images -> logits."""
+def ttnet_imagenet_apply(model: TTnetImageNet, x: torch.Tensor,
+                         stats: dict | None = None) -> torch.Tensor:
+    """Full forward: NHWC images -> logits; eval, or training when
+    ``stats`` is given."""
     return classifier_scale(model.classifier,
-                            ttnet_imagenet_features(model, x))
+                            ttnet_imagenet_features(model, x, stats), stats)

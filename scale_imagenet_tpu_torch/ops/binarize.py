@@ -1,8 +1,16 @@
-"""Heaviside {0,1} activation (counterpart of ``scale_imagenet_tpu/ops/binarize.py``).
+"""Heaviside {0,1} activation with its straight-through backward
+(counterpart of ``scale_imagenet_tpu/ops/binarize.py:27-63``).
 
-Eval semantics only: ``(x >= 0)`` in {0, 1}, the deterministic ``T == 0``
-form every shipped ImageNet model uses.  The noisy dead-zone (T != 0) and
-the straight-through backward arrive with training (``ROADMAP.md``).
+Forward: ``(x >= 0)`` in {0, 1}, in ``x``'s dtype: the deterministic
+``T == 0`` form every shipped ImageNet model uses.  Backward: the
+surrogate ``g * (1 - tanh(x * s)^2)`` with ``s =
+numerics.bingrad_soft_tanh_scale`` (times the models' ``grad_scale`` of 1,
+as in the JAX package), or the hardtanh mask ``g * (|x| <= 1)`` when that
+scale is ``None``; the surrogate is computed in ``x``'s dtype (bf16
+under ``--amp``).  Where no gradient is wanted (eval, serving, the
+truth-table compiler) the forward runs as one comparison, outside autograd.
+The noisy dead-zone (T != 0) comes with the families that use it
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -10,25 +18,52 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..config import numerics
+
+
+class _Heaviside01(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: float | None) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.scale = scale
+        return (x >= 0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        if ctx.scale is None:
+            return (x.abs() <= 1).to(g.dtype) * g, None
+        t = torch.tanh(x * ctx.scale)
+        return ((1.0 - t * t) * g).to(g.dtype), None
+
 
 def heaviside01(x: torch.Tensor) -> torch.Tensor:
-    """``(x >= 0)`` in {0, 1}, in ``x``'s dtype."""
-    return (x >= 0).to(x.dtype)
+    """``(x >= 0)`` in {0, 1}, in ``x``'s dtype, with the straight-through
+    backward when ``x`` carries a gradient."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return (x >= 0).to(x.dtype)
+    s = numerics.bingrad_soft_tanh_scale
+    if s is not None:
+        # rounded to x's dtype first, as the JAX package's
+        # ``jnp.asarray(grad_scale * s, x.dtype)``
+        s = float(torch.tensor(s, dtype=x.dtype))
+    return _Heaviside01.apply(x, s)
 
 
 def binarize01_act(x: torch.Tensor, T: float = 0.0) -> torch.Tensor:
     """The user-facing activation at ``T == 0`` (deterministic Heaviside)."""
     if T != 0.0:
         raise NotImplementedError(
-            "the noisy dead-zone Heaviside (T != 0) comes with training; "
-            "see ROADMAP.md queue A")
+            "the noisy dead-zone Heaviside (T != 0) comes with the families "
+            "that use it; see ROADMAP.md queue A")
     return heaviside01(x)
 
 
 class Binarize01Act(nn.Module):
-    """Module form with the reference's training-only ``grad_scale`` buffer
-    (the straight-through surrogate's scale), so reference state dicts load
-    with ``strict=True``.  Inference never reads it."""
+    """Module form with the reference's ``grad_scale`` buffer, so reference
+    state dicts load with ``strict=True``.  The forward functions use the
+    JAX package's default scale of 1, as its models do, and never read the
+    buffer."""
 
     def __init__(self):
         super().__init__()

@@ -1,8 +1,12 @@
 """GELU: the exact (erf) form and the polynomial ``fast_gelu`` (counterpart
 of ``scale_imagenet_tpu/ops/gelu.py:27-69``).
 
-The unfused eval path uses exact erf everywhere: it is the reference's
-``F.gelu`` and the truth-table compiler's semantics.  ``fast_erf`` is the
+The unfused path uses exact erf everywhere: it is the reference's
+``F.gelu`` and the truth-table compiler's semantics.  In bf16 (the
+``--amp`` training forward) it is ``jax.nn.gelu``'s own op sequence,
+``0.5 * x * erfc(-x * sqrt(1/2))``, each op rounding to bf16 as the JAX
+program does; a one-rounding ``F.gelu`` moves some outputs by a bf16 step,
+and the Heavisides downstream turn those steps into flipped bits.  ``fast_erf`` is the
 plain version of the erf inside the fused pointwise kernel
 (``csrc/fused_block.cu``), which must match it:
 
@@ -30,9 +34,13 @@ _POLY = (
     -9.2150733462e-04, 4.2988495543e-04,
 )
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+# sqrt(1/2) rounded to bf16, as ``np.sqrt(0.5).astype(x.dtype)``
+_SQRT_HALF_BF16 = float(torch.tensor(math.sqrt(0.5), dtype=torch.bfloat16))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF_BF16)
     return F.gelu(x, approximate="none")
 
 

@@ -1,10 +1,14 @@
-"""Eval steps, losses and metrics (the eval subset of the JAX ``train/``;
-training comes with a later slice, ``ROADMAP.md``)."""
+"""Train and eval steps, losses, metrics, the optimizer and the on-device
+augmentation (counterpart of the JAX ``train/``, its single-device part;
+the robust, mesh and tensor-parallel steps: ``ROADMAP.md``)."""
 
 from .losses import accuracy_topk, cross_entropy, masked_metric_sums
 from .metrics import AverageMeter, MetricsLogger
-from .steps import make_eval_step, make_input_pipeline
+from .optim import SGD, get_ema, make_optimizer, params_ema
+from .steps import TrainState, make_eval_step, make_input_pipeline, \
+    make_train_step
 
 __all__ = ["accuracy_topk", "cross_entropy", "masked_metric_sums",
-           "AverageMeter", "MetricsLogger", "make_eval_step",
-           "make_input_pipeline"]
+           "AverageMeter", "MetricsLogger", "SGD", "get_ema",
+           "make_optimizer", "params_ema", "TrainState", "make_eval_step",
+           "make_input_pipeline", "make_train_step"]

@@ -1,4 +1,4 @@
-"""Losses and metrics of the eval harness (counterpart of
+"""Losses and metrics (counterpart of
 ``scale_imagenet_tpu/train/losses.py``)."""
 
 from __future__ import annotations

@@ -41,16 +41,19 @@ def perturb_state(state, seed: int, scale: float = 0.05):
     return jax.tree_util.tree_map_with_path(f, state)
 
 
-def jax_and_port(name: str, dtype, seed: int = 0, **kw):
+def jax_and_port(name: str, dtype, seed: int = 0, jit: bool = False, **kw):
     """One JAX init feeding both sides: ``(jax_model, params, state,
     port_model_def, port_model)`` with params/state as numpy trees in
-    ``dtype`` and the port model on the CPU holding the same values."""
+    ``dtype`` and the port model on the CPU holding the same values.
+    ``jit`` compiles the init as one program (the same values; faster than
+    the op-by-op init for a small model)."""
     from scale_imagenet_tpu.models import get_model as jget
     from scale_imagenet_tpu_torch.convert import state_dict_from_jax
     from scale_imagenet_tpu_torch.models import get_model
 
     jm = jget(name, **kw)
-    params, state = jm.init(jax.random.PRNGKey(seed))
+    init = jax.jit(jm.init) if jit else jm.init
+    params, state = init(jax.random.PRNGKey(seed))
     params = tree_np(params, dtype)
     state = perturb_state(tree_np(state, dtype), seed + 100)
     md = get_model(name, **kw)
@@ -92,3 +95,37 @@ def images(shape, seed: int) -> np.ndarray:
 def nchw(x: torch.Tensor) -> np.ndarray:
     """Port NCHW tensor -> numpy NHWC (the JAX layout)."""
     return x.permute(0, 2, 3, 1).detach().numpy()
+
+
+# the train-step parity tests compare values, not speed: a lower XLA
+# optimisation level shortens the compile, which is most of their time
+_FAST_COMPILE = {"xla_backend_optimization_level": 1,
+                 "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_train_steps(jm, tx, params, state, batches, compile_options=None,
+                    **kw):
+    """Run the JAX package's ``make_train_step(jm, tx, **kw)`` (compiled
+    once, with ``compile_options`` added to XLA's) over ``batches``
+    (``(images, labels)`` numpy pairs) from ``(params, state)``.  Returns
+    ``(params, state, metrics, ema)``: numpy trees, one ``{"loss", "top1",
+    "top5"}`` dict of floats a step, and the EMA params tree (None without
+    ``params_ema`` in ``tx``)."""
+    import jax.numpy as jnp
+
+    from scale_imagenet_tpu.train import TrainState, make_train_step
+    from scale_imagenet_tpu.train.optim import get_ema
+
+    p = jax.tree.map(jnp.array, params)
+    ts = TrainState(p, jax.tree.map(jnp.array, state), tx.init(p),
+                    jnp.zeros((), jnp.int32))
+    step = make_train_step(jm, tx, **kw)
+    compiled = step.lower(ts, *batches[0], None).compile(
+        {**_FAST_COMPILE, **(compile_options or {})})
+    metrics = []
+    for x, y in batches:
+        ts, m = compiled(ts, x, y, None)
+        metrics.append({k: float(v) for k, v in m.items()})
+    ema = get_ema(ts.opt_state)
+    return (tree_np(ts.params), tree_np(ts.model_state), metrics,
+            None if ema is None else tree_np(ema))

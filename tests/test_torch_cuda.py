@@ -295,3 +295,58 @@ def test_flagship_conv_forward_through_the_fused_kernel(cuda):
     torch.cuda.synchronize()
     assert FB.fused_pointwise_block.launches == 6
     assert torch.equal(got.argmax(1), ref.argmax(1))
+
+
+def test_flagship_train_step_on_card_matches_cpu(cuda):
+    """One f32 train step of the flagship (B = 32, no augmentation) on the
+    card, with the fused switch on, and on the CPU from the same weights
+    and batch: no fused launch (training keeps the unfused chain), the
+    relative loss gap <= 1e-3, the cosine of the two parameter updates >=
+    0.99 and at most 1e-3 of the Heaviside outputs flipped (the limits of
+    ``chip_smoke.py``'s train phase)."""
+    import copy
+    from unittest import mock
+
+    from scale_imagenet_tpu_torch.models import block_tt, ttnet_imagenet
+    from scale_imagenet_tpu_torch.ops import binarize
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    model = get_model("ttnet_imagenet_small").init(seed=0, device=cuda)
+    cpu_model = copy.deepcopy(model).cpu()
+    start = [p.detach().cpu().clone() for p in model.parameters()]
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((32, 224, 224, 3), generator=gen)
+    y = torch.randint(0, 1000, (32,), generator=gen)
+    real = binarize.heaviside01
+
+    def step(net, xb, yb):
+        bits = []
+
+        def rec(t, *a, **k):
+            out = real(t, *a, **k)
+            bits.append((out.detach() > 0).cpu())
+            return out
+
+        opt, _ = make_optimizer(0.1)
+        ts = TrainState(net, opt.init(dict(net.named_parameters())))
+        with mock.patch.object(binarize, "heaviside01", rec), \
+                mock.patch.object(block_tt, "heaviside01", rec), \
+                mock.patch.object(ttnet_imagenet, "heaviside01", rec):
+            _, metrics = make_train_step(net, opt)(ts, xb, yb)
+        return float(metrics["loss"]), bits
+
+    FB.reset_launches()
+    with fused_on():
+        card_loss, card_bits = step(model, x.to(cuda), y.to(cuda))
+    assert FB.fused_pointwise_block.launches == 0
+    cpu_loss, cpu_bits = step(cpu_model, x, y)
+    assert abs(card_loss - cpu_loss) <= 1e-3 * abs(cpu_loss)
+    du = torch.cat([(p.detach().cpu() - s).double().ravel()
+                    for p, s in zip(model.parameters(), start)])
+    dv = torch.cat([(p.detach() - s).double().ravel()
+                    for p, s in zip(cpu_model.parameters(), start)])
+    assert float(du @ dv / (du.norm() * dv.norm())) >= 0.99
+    assert [b.shape for b in card_bits] == [b.shape for b in cpu_bits]
+    flips = sum(int((a != b).sum()) for a, b in zip(card_bits, cpu_bits))
+    assert flips <= 1e-3 * sum(b.numel() for b in cpu_bits)

@@ -259,7 +259,7 @@ def test_main_eval_image_folder_and_write_shards(tmp_path):
     (["--bias_decay", "1e-3"], "robust TRAINING"),
     (["--tp"], "ROADMAP.md"),
     (["--lut_path", "x.npz"], "add --lut"),
-    (["--write_shards", "d", "--shards_split", "train"], "ROADMAP.md"),
+    (["--native_data"], "ROADMAP.md"),
     ([], "--shards_dir or --data_dir"),
     (["--write_shards", "d"], "--write_shards decodes --data_dir")])
 def test_eval_refuses_flags_it_does_not_carry(argv, match):

@@ -59,3 +59,7 @@ def test_every_module_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert len(mods) > 20
+    # the training slice's modules are among them
+    assert {"scale_imagenet_tpu_torch.train.augment",
+            "scale_imagenet_tpu_torch.train.optim",
+            "scale_imagenet_tpu_torch.runtime.checkpoint"} <= set(mods)

@@ -121,7 +121,7 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--mode", "eval", "--native_data"],
-                                  ["--mode", "train"],
+                                  ["--mode", "compile"],
                                   ["--mode", "serve", "--gates", "dnf"],
                                   ["--mode", "serve", "--fold_bn"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv):
