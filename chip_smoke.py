@@ -5,9 +5,11 @@
 Drives the port's main paths on the flagship TTnet-Small (p = 64,
 --layers 1, 224x224): served as its compiled truth tables over HTTP,
 evaluated from uint8 shards (``--mode eval``, conv and ``--lut``, with the
-fused pointwise kernel on) and trained from uint8 pre-crop shards
-(``--mode train``), and holds every CUDA kernel against its plain PyTorch
-version.  Phases, each printing one line of its numbers:
+fused pointwise kernel on), compiled to gate circuits and evaluated as them
+(``--mode compile``, ``--mode eval --gates dnf|cnf``) and trained from
+uint8 pre-crop shards (``--mode train``), and holds every CUDA kernel
+against its plain PyTorch version.  Phases, each printing one line of its
+numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together),
            build the flagship from --seed with its BN running statistics
@@ -42,7 +44,26 @@ version.  Phases, each printing one line of its numbers:
            the switch off, conv with it on, ``--lut --lut_path F`` (writes
            F) and again (loads F); top-1/5, loss, img/s, the device's idle
            share and the launch counts of each run;
-7. train:  (a) one f32 step of the flagship at B=256, no augmentation, on
+7. gates:  (a) the flagship's covers compiled once in-process (seconds,
+           threads, total and per-head gates, cube counts, the padded bytes
+           of the JAX budget rule and the path the default budget picks);
+           (b) each of the 11 ``gate_cubes`` launches of one B=256 forward,
+           DNF and CNF, captured with its real planes: equal to the plain
+           version bit for bit, times of both, the bound; (c) B=256: every
+           block's gate bits equal the LUT forward's, top-1 agreement 100 %,
+           the largest logit difference, the forward's device time by
+           kernel; (d) the host evaluator
+           (``gates_device_budget = 0``) on 8 images equals the device path;
+           (e) ``evaluate`` over the eval phase's 5,000 shard images through
+           the function ``main --mode eval --gates`` uses, DNF and CNF: img/s,
+           idle share, top-1 >= 99 %; (f) ``export_model_verilog`` of the
+           same covers, its total equal to ``total_gates``; (g) ``main --mode
+           compile --verilog`` in a subprocess from the same weights, its
+           ``total_gates`` equal to the in-process total on the boolean
+           heads and its Verilog total equal to it (each filter minimized
+           once: the Verilog reuses the artifacts' covers).  Artifacts go
+           under ``build/``;
+8. train:  (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -55,7 +76,7 @@ version.  Phases, each printing one line of its numbers:
            memory, first and last loss, validation top-1, no launch of the
            port's kernels; (d) a resume from the recipe run's ``last``
            checkpoint continues at step 11 with a finite loss;
-8. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
+9. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -89,6 +110,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+# int32 logic on the CUDA cores: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz
+# (the H100 SXM's boost clock; the data sheet gives no int32 rate)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # the data sheet gives no int32 rate; its non-tensor float32 rate is an
 # upper bound on the shift/mask/index ops, so the op time stays a least time
 OPS_PER_S = 67e12
@@ -543,10 +567,279 @@ def eval_phase(args, model, out_dir: Path) -> dict:
               for k in ("top1", "top5", "loss")),
           "eval from the loaded LUT archive differs from the run that "
           "wrote it")
-    # the shards stay: the train phase validates on them
-    ckpt.unlink()
+    # the shards and the weights stay: the gates phase scores them, the
+    # train phase validates on the shards
     lut_path.unlink()
     return results
+
+
+def cube_ops(cubes: torch.Tensor, offsets: torch.Tensor, n: int,
+             words: int) -> int:
+    """int32 logic operations of one ``gate_cubes`` launch on this run's
+    covers: per word, one for each fixed literal of a cube (``mism |
+    (plane ^ value)``, one three-input LOP3) and one for each cube
+    (``out | ~mism``, one LOP3)."""
+    fixed = (~cubes[:, 1]) & ((1 << n) - 1)
+    lits = sum(int(((fixed >> p) & 1).sum()) for p in range(n))
+    return (lits + cubes.shape[0]) * words
+
+
+def gate_case(planes, cubes, offsets, filters, invert, GC) -> dict:
+    """``gate_cubes`` vs its plain version at one captured launch: equal
+    words, the times of both, the bound."""
+    g, n, w = planes.shape
+    got = GC.gate_cubes(planes, cubes, offsets, filters, invert)
+    want = GC.gate_cubes_plain(planes, cubes, offsets, filters, invert)
+    torch.cuda.synchronize()
+    where = f"G={g} F={filters} n={n} W={w} invert={invert}"
+    check(torch.equal(got, want), f"gate_cubes != plain at {where}")
+    err = float((got.long() - want.long()).abs().max())
+    del got, want
+    nbytes = (planes.numel() + cubes.numel() + g * filters * w) * 4 \
+        + offsets.numel() * 8
+    ops = cube_ops(cubes, offsets, n, w)
+    counts = offsets[1:] - offsets[:-1]
+    return {"G": g, "F": filters, "n": n, "W": w, "invert": invert,
+            "cubes": int(cubes.shape[0]), "max_cubes": int(counts.max()),
+            "ms": time_ms(lambda: GC.gate_cubes(planes, cubes, offsets,
+                                                filters, invert)),
+            "plain_ms": time_ms(lambda: GC.gate_cubes_plain(
+                planes, cubes, offsets, filters, invert), iters=3),
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / INT32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / INT32_OPS_PER_S else "operations",
+            "max_abs_err": err}
+
+
+def gates_phase(args, md, model, luts, x, out_dir: Path) -> dict:
+    """(a)-(g) of the gates phase (module docstring)."""
+    import os
+
+    from scale_imagenet_tpu_torch import config
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.compile import gate_device as GD
+    from scale_imagenet_tpu_torch.compile.gate_net import \
+        compile_ttnet_gates, gate_ttnet_apply, total_gates
+    from scale_imagenet_tpu_torch.compile.lut_eval import _bits, \
+        lut_multihead_apply, lut_ttnet_apply
+    from scale_imagenet_tpu_torch.compile.verilog import \
+        export_model_verilog
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, stem
+
+    B = args.batch
+    work = Path("build") / "chip_smoke_gates"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    eval_dir = Path("build") / "chip_smoke_eval"
+
+    # (a) one full minimization, in this process
+    threads = len(os.sched_getaffinity(0))
+    t = time.perf_counter()
+    gnets = compile_ttnet_gates(model)
+    compile_s = time.perf_counter() - t
+    total = total_gates(gnets)
+    heads = {}
+    for i, mg in enumerate(gnets):
+        for name, bg in [(f"block{i}_conv{h}", mg.heads[h])
+                         for h in sorted(mg.heads)] + (
+                [(f"block{i}_convf", mg.convf)] if mg.convf else []):
+            heads[name] = {
+                "filters": bg.cfg.out_planes, "groups": bg.cfg.groupsici,
+                "n": bg.cfg.n_bits, "gates": bg.gates,
+                "constant_filters": sum(c is not None for c in bg.constants),
+                **{f"{form}_{k}": v for form, covers in
+                   (("dnf", bg.covers), ("cnf", bg.cnf_covers))
+                   for k, v in (("max_cubes", max(len(c) for c in covers)),
+                                ("mean_cubes", float(np.mean(
+                                    [len(c) for c in covers]))),
+                                ("padded_bytes", GD.circuit_device_bytes(
+                                    bg, form)))}}
+    padded = {form: sum(h[f"{form}_padded_bytes"] for h in heads.values())
+              for form in ("dnf", "cnf")}
+    budget = config.performance.gates_device_budget
+    fits = max(padded.values()) <= budget
+    emit("gates_compile", compile_s=compile_s, threads=threads,
+         total_gates=total, filters=sum(h["filters"] for h in heads.values()),
+         padded_bytes=padded, default_budget=budget,
+         default_budget_path="device" if fits else "host", heads=heads)
+    check(total > 0 and total == sum(h["gates"] for h in heads.values()),
+          f"total_gates {total} is not the sum of the heads' gates")
+    if not fits:
+        config.performance.gates_device_budget = max(padded.values())
+        print(f"gates: this init's circuit does not fit the default budget "
+              f"of {budget} bytes; gates_device_budget set to "
+              f"{config.performance.gates_device_budget} bytes for this "
+              "phase", flush=True)
+    gdevs = {form: GD.build_device_gates(
+        gnets, form, max_cube_bytes=config.performance.gates_device_budget,
+        device=x.device) for form in ("dnf", "cnf")}
+
+    # (b) every launch of one B = 256 forward, DNF and CNF
+    captured = []
+    real = GD.gate_cubes
+
+    def rec(planes, cubes, offsets, filters, invert=False):
+        captured.append((planes, cubes, offsets, filters, invert))
+        return real(planes, cubes, offsets, filters, invert)
+
+    with mock.patch.object(GD, "gate_cubes", rec):
+        for form in ("dnf", "cnf"):
+            GD.gate_ttnet_apply_device(gdevs[form], model, x)
+    # one launch a boolean head: 11 a flagship forward
+    per_forward = sum(len(mg.heads) + (mg.convf is not None) for mg in gnets)
+    check(len(captured) == 2 * per_forward,
+          f"{len(captured)} gate_cubes launches in a DNF and a CNF forward, "
+          f"expected {per_forward} each")
+    cases = []
+    for launch in captured:
+        row = gate_case(*launch, GC)
+        cases.append(row)
+        emit("gates_kernels", kernel="gate_cubes", **row)
+    (out_dir / "gate_cases.json").write_text(json.dumps(cases, indent=1))
+    del captured
+
+    # (c) B = 256: each block's gate bits against the LUT forward's, both
+    # fed by the same bits, then the full forwards
+    h = _bits(stem(model, _nchw(x, model)), None)
+    mism = []
+    for i, (lut, block) in enumerate(zip(luts, model.blocks)):
+        want = lut_multihead_apply(lut, h, convf_float=block.Block_convf)
+        for form in ("dnf", "cnf"):
+            got = GD.gate_multihead_apply_device(
+                gdevs[form][i], h,
+                convf_float=block.Block_convf)
+            mism.append(int((got != want).sum()))
+        h = want
+    check(not any(mism), f"gate blocks differ from the LUT blocks: {mism}")
+    ref = lut_ttnet_apply(luts, model, x)
+    got = GD.gate_ttnet_apply_device(gdevs["dnf"], model, x)
+    top1 = float((ref.argmax(1) == got.argmax(1)).float().mean())
+    logit_diff = float((ref - got).abs().max())
+    emit("gates_model", batch=B, block_bit_mismatches=mism,
+         top1_agreement_vs_lut=top1, logit_max_abs_diff_vs_lut=logit_diff)
+    check(top1 == 1.0, f"gate top-1 agreement with the LUT {top1} < 100 %")
+    # where a B = 256 gate forward's device time goes
+    profile_forward("gates_dnf", lambda: GD.gate_ttnet_apply_device(
+        gdevs["dnf"], model, x), B, out_dir)
+
+    # (d) the host evaluator, as main's budget rule reaches it, on 8 images
+    saved = config.performance.gates_device_budget
+    config.performance.gates_device_budget = 0
+    try:
+        host_apply, on_device = cli._as_gate_model(model, "dnf", gnets)
+    finally:
+        config.performance.gates_device_budget = saved
+    check(not on_device, "a budget of 0 did not pick the host evaluator")
+    x8 = x[:8].contiguous()
+    t = time.perf_counter()
+    host = host_apply(x8)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    dev8 = GD.gate_ttnet_apply_device(gdevs["dnf"], model, x8)
+    check(torch.equal(host, dev8), "host and device gate logits differ")
+    check(torch.equal(host, gate_ttnet_apply(gnets, model, x8)),
+          "the host forward is not gate_ttnet_apply")
+    emit("gates_host", images=8, host_s=host_s, equals_device=True)
+
+    # (e) eval over the eval phase's shards, through main's functions
+    emodel = md.init(seed=args.seed, device=x.device)
+    cli.load_checkpoint(emodel, str(eval_dir / "weights.pth"))
+    evals = {}
+    GC.reset_launches()
+    for form in ("dnf", "cnf"):
+        cfg = cli.parse_args([
+            "--mode", "eval", "--gates", form, "--shards_dir",
+            str(eval_dir / "shards"), "--eval_batch_size", str(B),
+            "--root_dir", str(work / "logs")])
+        apply, on_device = cli._as_gate_model(emodel, form, gnets)
+        check(on_device, f"--gates {form} did not run on the card")
+        stats = {}
+        real_evaluate = cli.evaluate
+
+        def timed(*a, **k):
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                res = real_evaluate(*a, **k)
+                torch.cuda.synchronize()
+                stats["wall_s"] = time.perf_counter() - t
+            stats["busy_s"] = busy_ns(device_spans(prof)) / 1e9
+            return res
+
+        with mock.patch.object(cli, "evaluate", timed):
+            top1, top5, loss = cli._eval(cfg, apply, x.device, 224)
+        evals[form] = {"top1": top1, "top5": top5, "loss": loss,
+                       "img_s": EVAL_IMAGES / stats["wall_s"],
+                       "eval_s": stats["wall_s"],
+                       "device_idle_share": 1 - stats["busy_s"]
+                       / stats["wall_s"]}
+        emit("gates_eval", form=form, images=EVAL_IMAGES, batch=B,
+             **evals[form])
+        check(top1 >= 99.0, f"gate eval {form} top-1 {top1} < 99")
+    launches = GC.gate_cubes.launches
+    batches = -(-EVAL_IMAGES // B)
+    check(launches == 2 * per_forward * batches,
+          f"gate eval launched gate_cubes {launches} times, expected "
+          f"{2 * per_forward * batches}")
+
+    # (f) Verilog of the same covers
+    t = time.perf_counter()
+    manifest = export_model_verilog(gnets, str(work / "verilog"),
+                                    model_name=md.name)
+    verilog_s = time.perf_counter() - t
+    check(manifest["total_gates"] == total,
+          f"verilog total {manifest['total_gates']} != {total}")
+
+    # (g) the CLI's compile from the same weights, in a subprocess
+    mc = md.config
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "scale_imagenet_tpu_torch.main", "--mode",
+         "compile", "--model", md.name, "--nfilter", str(mc.nfilter),
+         "--tfilter", str(mc.tfilter), "--layers", str(mc.layers), "--ckpt",
+         str(eval_dir / "weights.pth"), "--compile_out",
+         str(work / "compile"), "--verilog"]
+        + ([] if x.is_cuda else ["--device", "cpu"]),
+        capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t
+    (out_dir / "gates_compile_cli.log").write_text(proc.stdout[-20000:]
+                                                   + proc.stderr[-20000:])
+    check(proc.returncode == 0, f"main --mode compile failed: "
+                                f"{proc.stderr[-2000:]}")
+    summary = json.loads((work / "compile" / "summary.json").read_text())
+    cli_verilog = json.loads((work / "compile" / "verilog"
+                              / "manifest.json").read_text())
+    check(cli_verilog["total_gates"] == total,
+          f"main --mode compile --verilog wrote {cli_verilog['total_gates']}"
+          f" gates of Verilog, the in-process circuits {total}")
+    # the CLI also minimizes a float (ReLU) head's columns that take at
+    # most 16 values (the JAX artifact rule); the circuits leave that head
+    # float, so its gates are the only ones the two totals do not share
+    float_heads = {k: v["gates"] for k, v in summary["blocks"].items()
+                   if k not in heads}
+    emit("gates_cli", verilog_s=verilog_s, verilog_modules=len(
+        manifest["modules"]), verilog_total_gates=manifest["total_gates"],
+        compile_cli_s=cli_s, compile_cli_total_gates=summary["total_gates"],
+        compile_cli_verilog_total_gates=cli_verilog["total_gates"],
+        compile_cli_float_head_gates=float_heads,
+        compile_cli_weights=summary["weights"])
+    bad = {k: (summary["blocks"][k]["gates"], h["gates"])
+           for k, h in heads.items() if summary["blocks"][k]["gates"]
+           != h["gates"]}
+    check(not bad and summary["total_gates"] == total + sum(
+        float_heads.values()), f"main --mode compile counted "
+        f"{summary['total_gates']} gates ({float_heads} in float heads), "
+        f"the in-process compile {total}; differing heads {bad}")
+    shutil.rmtree(work)
+    (eval_dir / "weights.pth").unlink()
+    dnf = [c for c in cases if not c["invert"]]
+    return {"launches": launches, "cases": cases, "dnf_cases": dnf,
+            "evals": evals, "total_gates": total}
 
 
 @contextlib.contextmanager
@@ -999,6 +1292,10 @@ def run(args) -> int:
     # ------------------------------------------------------------- eval
     evals = eval_phase(args, model, out_dir)
 
+    # ------------------------------------------------------------ gates
+    gates = gates_phase(args, md, model, luts, x, out_dir)
+    torch.cuda.synchronize()
+
     # ------------------------------------------------------------ train
     with torch.enable_grad():
         train_phase(args, model, out_dir)
@@ -1077,6 +1374,19 @@ def run(args) -> int:
                                          for r in fused_rows) else "bytes",
          "library_ms": None,
          "chain_ms": sum(r["chain_ms"] for r in fused_rows)},
+        {"name": "gate_cubes", "route": "cuda",
+         "source": "scale_imagenet_tpu_torch/csrc/gate_cubes.cu",
+         "replaces": "scale_imagenet_tpu/compile/gate_device.py:195 (XLA "
+                     "ops; no Pallas kernel)",
+         "launches": gates["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in gates["cases"]),
+         "ms": sum(r["ms"] for r in gates["dnf_cases"]),
+         "plain_ms": sum(r["plain_ms"] for r in gates["dnf_cases"]),
+         "bound_ms": sum(r["bound_ms"] for r in gates["dnf_cases"]),
+         "bound_by": "operations" if all(
+             r["bound_by"] == "operations" for r in gates["dnf_cases"])
+         else "bytes",
+         "library_ms": None},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,8 @@
 
 One process-wide ``numerics`` and one ``performance`` object, as in the JAX
 package.  The port has the fields of the paths it carries so far; the other
-numerics fields, ``fast_gelu``, ``merge_heads12`` and
-``gates_device_budget`` come with the paths that read them
-(``ROADMAP.md``).
+numerics fields, ``fast_gelu`` and ``merge_heads12`` come with the paths
+that read them (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -33,6 +32,11 @@ class PerformanceConfig:
     # -> conv -> BN -> act, with the polynomial erf in its GELU.  Off by
     # default, as in the JAX package.
     fused_pointwise_blocks: bool = False
+    # Padded cube-tensor budget (bytes, counted as the JAX package counts
+    # them, ``compile/gate_device.py::circuit_device_bytes``) under which
+    # ``--gates`` circuits run on the card (the ``gate_cubes`` kernel);
+    # larger circuits, or a budget <= 0, run on the host native evaluator.
+    gates_device_budget: int = 1 << 30
 
 
 performance = PerformanceConfig()

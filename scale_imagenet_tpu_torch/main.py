@@ -1,10 +1,13 @@
 """Command-line entry (counterpart of ``scale_imagenet_tpu/main.py``): the
-``--mode eval [--lut]``, ``--mode serve [--lut]`` and single-device
-``--mode train`` subsets.
+``--mode eval [--lut | --gates dnf|cnf]``, ``--mode serve [--lut | --gates
+dnf|cnf]``, ``--mode compile [--verilog]`` and single-device ``--mode
+train`` subsets.
 
     python -m scale_imagenet_tpu_torch.main --mode eval --shards_dir D \\
-        [--lut [--lut_path F]] --eval_batch_size 256
+        [--lut [--lut_path F] | --gates dnf] --eval_batch_size 256
     python -m scale_imagenet_tpu_torch.main --mode serve --lut --port 8000
+    python -m scale_imagenet_tpu_torch.main --mode compile \\
+        --compile_out D [--verilog] [--ckpt X.pth]
     python -m scale_imagenet_tpu_torch.main --mode train --shards_dir T \\
         --eval_shards_dir V [--amp --remat --grad_accum 2 --ema 0.999 \\
         --label_smooth 0.1] [--ckpt <step dir> | --ckpt X.pth]
@@ -15,7 +18,16 @@
 masking its pad rows, and prints ``final: top1 … top5 … loss …`` as the
 JAX CLI does.  ``--lut`` evaluates the compiled truth tables instead of the
 conv forward; ``--lut_path`` loads them from an archive, or writes it after
-compiling.  ``--write_shards`` decodes ``--data_dir``/<shards_split> into
+compiling.  ``--gates dnf|cnf`` evaluates the network as its boolean
+circuit instead (``compile/gate_net.py``): the minimized DNF covers, or the
+CNF form (the inverted complement covers); it runs on the card through the
+``gate_cubes`` kernel when the circuit fits
+``config.performance.gates_device_budget``, else on the host native
+evaluator, and says which (serving takes the card's circuit only).
+``--mode compile`` writes the truth-table artifacts (CSVs, DNF/CNF
+expressions, cube arrays, DIMACS) and ``summary.json`` with the gate count
+under ``--compile_out``, plus Verilog modules under ``--verilog``.
+``--write_shards`` decodes ``--data_dir``/<shards_split> into
 shards (the eval crop, or the 256x256 train pre-crop) and exits.
 ``--mode serve`` serves the model over HTTP (``runtime/server.py``).
 ``--mode train`` trains with SGD + momentum from shards (the full
@@ -39,14 +51,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import os
 import random
 from datetime import datetime
 
 import torch
 
+from .compile.gate_device import build_device_gates, \
+    gate_ttnet_apply_device
+from .compile.gate_net import compile_ttnet_gates, gate_ttnet_apply, \
+    total_gates
 from .compile.lut_eval import compile_ttnet_lut, lut_ttnet_apply
 from .compile.lut_store import load_luts, save_luts
+from .compile.truth_table import compile_model_truth_tables, table_cache
+from .compile.verilog import export_model_verilog
+from .config import performance
 from .data import DataLoader, ImageFolder, IMAGENET_MEAN, IMAGENET_STD, \
     device_prefetch, imagenet_eval_crop_u8, imagenet_eval_transform, \
     imagenet_train_crop_u8, imagenet_train_transform, pad_batches, \
@@ -110,14 +130,49 @@ _TRAIN_REFUSALS = {
 }
 _TRAIN_REFUSALS["--attack_eps"] = _TRAIN_REFUSALS["--attack"]
 
-_MODES = ("eval", "serve", "train")
+# ``scale_imagenet_tpu/main.py:777-808``: flags the JAX CLI refuses in
+# compile, in its order, with its messages
+_COMPILE_REFUSALS = {
+    "--fold_bn": "--fold_bn rewrites conv-serving weights; truth-table "
+                 "compilation evaluates the float blocks (their BNs are "
+                 "inside the tables) — drop the flag",
+    "--fuse_quant": "--fuse_quant is resnet serving; truth-table "
+                    "compilation applies to the TTnet families",
+    "--sp": "--sp/--tp shard EVAL over the mesh; truth-table compilation "
+            "is per-block",
+    "--grad_accum": "--grad_accum microbatches TRAINING steps; compilation "
+                    "has no gradients",
+    "--remat": "--remat is a TRAINING memory lever; compilation has no "
+               "backward pass",
+    "--ema": "--ema accumulates during TRAINING; compile the weights you "
+             "pass in",
+    "--label_smooth": "--label_smooth shapes the TRAIN loss; compilation "
+                      "evaluates the forward only",
+    "--gates": "--gates is an eval serving mode (--mode eval --gates "
+               "dnf|cnf); --mode compile writes the artifacts it runs",
+    "--certify": "--certify is certified EVAL (--mode eval)",
+    "--attack": "--attack is adversarial EVAL (--mode eval)",
+}
+_COMPILE_REFUSALS["--tp"] = _COMPILE_REFUSALS["--sp"]
+_COMPILE_REFUSALS["--attack_eps"] = _COMPILE_REFUSALS["--attack"]
+
+# ``scale_imagenet_tpu/main.py:887,986``
+_GATES_WITH_LUT = ("--gates and --lut are two serving modes for the same "
+                   "compiled network — pick one")
+# ``scale_imagenet_tpu/main.py:932-937``
+_GATES_ON_HOST = ("--gates: this circuit's padded cube tensors exceed "
+                  "config.performance.gates_device_budget, so it would run "
+                  "on the HOST evaluator — which cannot enter the server's "
+                  "jitted forward.  Raise the budget, or serve --lut")
+
+_MODES = ("eval", "serve", "train", "compile")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="TTnet PyTorch/CUDA harness")
     p.add_argument("--mode", default="eval",
-                   help="eval, serve or train (the other JAX modes: see "
-                        "ROADMAP.md)")
+                   help="eval, serve, train or compile (the other JAX "
+                        "modes: see ROADMAP.md)")
     p.add_argument("--model", type=str, default="ttnet_imagenet_small")
     p.add_argument("--nfilter", type=int, default=8)
     p.add_argument("--tfilter", type=int, default=8)
@@ -128,6 +183,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--lut_path", type=str, default=None,
                    help="LUT archive (.npz): loaded if present, else "
                         "written after compilation")
+    p.add_argument("--gates", choices=["dnf", "cnf"], default=None,
+                   help="evaluate / serve the network as its boolean "
+                        "circuit: the minimized DNF covers, or the CNF "
+                        "form (on the card when it fits "
+                        "config.performance.gates_device_budget)")
+    p.add_argument("--compile_out", type=str, default="./truth_tables",
+                   help="artifact directory for --mode compile")
+    p.add_argument("--max_minimize_bits", type=int, default=16)
+    p.add_argument("--verilog", action="store_true",
+                   help="--mode compile: also export the gate circuits "
+                        "as synthesizable Verilog modules "
+                        "(<compile_out>/verilog/, + manifest.json)")
     p.add_argument("--root_dir", type=str, default="./",
                    help="logs go to <root_dir>/logs/<log_name>/<date>, "
                         "checkpoints to <root_dir>/ckpt/<log_name>/<date>")
@@ -199,8 +266,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     args, unknown = p.parse_known_args(argv)
     if args.mode not in _MODES:
         raise ValueError(f"--mode {args.mode} is not ported yet (the port "
-                         "has --mode eval, serve and train; see "
+                         "has --mode eval, serve, train and compile; see "
                          "ROADMAP.md)")
+    if args.verilog and args.mode != "compile":
+        raise ValueError("--verilog exports --mode compile artifacts; "
+                         f"it does nothing in --mode {args.mode}")
     if args.grad_accum < 1:
         raise ValueError("--grad_accum must be >= 1")
     if args.ema and not (0.0 < args.ema < 1.0):
@@ -223,15 +293,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                 raise ValueError(f"--mode serve is single-host inference "
                                  f"serving; {flag} does not apply")
     if args.mode == "train":
-        flags = (["--lut"] if args.lut else []) + unknown
+        flags = (["--lut"] if args.lut else []) + (
+            ["--gates"] if args.gates else []) + unknown
         for flag in flags:
             refusal = _TRAIN_REFUSALS.get(flag.split("=")[0])
             if refusal:
                 raise ValueError(refusal)
+    if args.mode == "compile":
+        given = {f for f, on in training_flags.items() if on} | {
+            f.split("=")[0] for f in unknown}
+        if args.gates:
+            given.add("--gates")
+        for flag, refusal in _COMPILE_REFUSALS.items():
+            if flag in given:
+                raise ValueError(refusal)
     if unknown:
         raise ValueError(f"not ported yet: {' '.join(unknown)} (the port "
-                         "has the --mode eval/serve/train subset; see "
-                         "ROADMAP.md)")
+                         "has the --mode eval/serve/train/compile subset; "
+                         "see ROADMAP.md)")
+    if args.gates and args.lut:
+        raise ValueError(_GATES_WITH_LUT)
     if args.lut_path and not args.lut:
         raise ValueError("--lut_path is the archive of --lut; add --lut")
     if args.write_shards and not args.data_dir:
@@ -273,6 +354,66 @@ def load_or_compile_luts(model, lut_path: str | None = None):
         save_luts(lut_path, luts, model)
         print(f"saved LUTs -> {lut_path}")
     return luts
+
+
+def _as_gate_model(model, form: str, gnets=None):
+    """The gate-circuit twin of ``model`` (``scale_imagenet_tpu/main.py:445``):
+    ``(apply, on_device)``.  The covers are compiled (or taken from
+    ``gnets``); the circuit runs on the model's device through the
+    ``gate_cubes`` kernel when its padded cube tensors fit
+    ``config.performance.gates_device_budget``, else on the host native
+    evaluator, as the JAX rule says.  Either way it is bit-identical to the
+    LUT forward on the boolean blocks."""
+    if gnets is None:
+        print("compiling gate circuits (truth tables -> verified covers)...")
+        gnets = compile_ttnet_gates(model)
+    print(f"circuit size: {total_gates(gnets):,} gates ({form} form)")
+    budget = performance.gates_device_budget
+    try:
+        if budget <= 0:
+            raise ValueError("gates_device_budget <= 0 forces the host "
+                             "native evaluator")
+        gdevs = build_device_gates(gnets, form, max_cube_bytes=budget,
+                                   device=model.stem_conv.weight.device)
+    except ValueError as e:
+        print(f"gate circuit runs on HOST ({e})")
+        return (lambda x: gate_ttnet_apply(gnets, model, x, form=form)), \
+            False
+    print("gate circuit runs ON DEVICE (bit-sliced int32 cube evaluation, "
+          "32 positions/lane)")
+    return (lambda x: gate_ttnet_apply_device(gdevs, model, x)), True
+
+
+def _compile(cfg, md, model) -> dict:
+    """``--mode compile`` (``scale_imagenet_tpu/main.py:809-854``): every
+    Block_TT of every multi-head block to its artifacts under
+    ``--compile_out`` and ``summary.json``; ``--verilog`` adds the gate
+    circuits as Verilog modules."""
+    items = []
+    for i, block in enumerate(model.blocks):
+        items += [(f"block{i}_conv{h}", block.head(h))
+                  for h in sorted(block.cfg.head_cfgs())]
+        items.append((f"block{i}_convf", block.Block_convf))
+    with table_cache():   # --verilog reuses the tables and covers
+        summary = compile_model_truth_tables(
+            items, cfg.compile_out, max_minimize_bits=cfg.max_minimize_bits)
+        # gate counts are a property of the weights the tables were
+        # enumerated from: say which inside the artifact itself
+        summary["weights"] = (os.path.basename(cfg.ckpt) if cfg.ckpt
+                              else "random-init")
+        print(json.dumps(summary, indent=2))
+        with open(os.path.join(cfg.compile_out, "summary.json"), "w") as f:
+            json.dump(summary, f)
+        print(f"total gates: {summary['total_gates']:,}")
+        if cfg.verilog:
+            vdir = os.path.join(cfg.compile_out, "verilog")
+            manifest = export_model_verilog(compile_ttnet_gates(model), vdir,
+                                            model_name=md.name,
+                                            include_cnf=True)
+            summary["verilog"] = manifest
+            print(f"verilog: {len(manifest['modules'])} modules, "
+                  f"{manifest['total_gates']:,} gates -> {vdir}")
+    return summary
 
 
 def _run_dir(cfg, kind: str) -> str:
@@ -478,7 +619,8 @@ def _train(cfg, md, model, device):
 
 def main(argv=None, *, serve_ready=None, serve_stop=None):
     """CLI entry.  ``--mode eval`` returns ``(top1, top5, loss)``,
-    ``--mode train`` its summary (``_train``).  ``serve_ready``/
+    ``--mode train`` its summary (``_train``), ``--mode compile`` its
+    summary (``_compile``).  ``serve_ready``/
     ``serve_stop``: optional events for callers that run the server in a
     thread."""
     cfg = parse_args(argv)
@@ -498,8 +640,15 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         return _train(cfg, md, model, device)
     if cfg.ckpt:
         load_checkpoint(model, cfg.ckpt)
+    if cfg.mode == "compile":
+        return _compile(cfg, md, model)
     name = md.name
-    if cfg.lut:
+    if cfg.gates:
+        apply, on_device = _as_gate_model(model, cfg.gates)
+        name += "+gates"
+        if cfg.mode == "serve" and not on_device:
+            raise ValueError(_GATES_ON_HOST)
+    elif cfg.lut:
         luts = load_or_compile_luts(model, cfg.lut_path)
         name += "+lut"
 

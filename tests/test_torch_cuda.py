@@ -11,7 +11,8 @@ versions (which compute the index with a conv) must be equal.
 The fused pointwise block sums in another order than the plain version
 and contracts multiply-adds: ReLU outputs agree to 1e-5 (f32), and a
 Heaviside bit may flip only where the plain pre-activation is within 1e-4
-of the threshold, in at most 1e-4 of the outputs.
+of the threshold, in at most 1e-4 of the outputs.  The cube evaluation
+(``gate_cubes``) is integer logic: its words equal the plain version's.
 """
 
 import pytest
@@ -20,8 +21,10 @@ import torch
 import contextlib
 
 from scale_imagenet_tpu_torch import config
-from scale_imagenet_tpu_torch.compile import lut_eval
+from scale_imagenet_tpu_torch.compile import gate_device, gate_net, \
+    lut_eval
 from scale_imagenet_tpu_torch.kernels import fused_block as FB
+from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
 from scale_imagenet_tpu_torch.kernels import lut_gather as K
 from scale_imagenet_tpu_torch.models import get_model
 from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
@@ -350,3 +353,118 @@ def test_flagship_train_step_on_card_matches_cpu(cuda):
     assert [b.shape for b in card_bits] == [b.shape for b in cpu_bits]
     flips = sum(int((a != b).sum()) for a, b in zip(card_bits, cpu_bits))
     assert flips <= 1e-3 * sum(b.numel() for b in cpu_bits)
+
+
+# ------------------------------------------------------------- gate_cubes
+
+# the flagship's eleven cube launches of a B = 256 gate forward as (G, F,
+# n, W): block 0 heads 1 and 2, head 3, fuse; block 1 the same; block 2
+# heads 1 and 2, head 3 (its fuse head is float)
+FLAGSHIP_GATES = [(64, 1, 16, 6728), (64, 1, 16, 6728), (4, 16, 16, 25088),
+                  (16, 8, 16, 6728), (128, 1, 16, 1800), (128, 1, 16, 1800),
+                  (8, 16, 16, 6728), (32, 8, 16, 1800), (256, 1, 16, 512),
+                  (256, 1, 16, 512), (16, 16, 16, 1800)]
+# n = 4 .. 16 and wider, word counts that end inside a block's tile and
+# below one tile, one filter a group and many
+SMALL_GATES = [(3, 2, 4, 7), (2, 5, 8, 1000), (1, 3, 9, 513),
+               (4, 4, 12, 33), (2, 2, 16, 1), (1, 2, 20, 300),
+               (2, 1, 24, 64)]
+
+
+def _cubes(gf: int, n: int, t_max: int, seed: int):
+    """Seeded covers of ``gf`` filters: filter 0 empty (a constant
+    filter), filter 1 one cube, the others 1..t_max cubes whose masks
+    leave about three quarters of the n bits fixed."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(1, t_max + 1, (gf,), generator=gen)
+    counts[0] = 0
+    if gf > 1:
+        counts[1] = 1
+    total = int(counts.sum())
+    value = torch.randint(0, 2 ** n, (total,), generator=gen)
+    mask = torch.zeros(total, dtype=torch.int64)
+    for p in range(n):
+        mask |= (torch.rand(total, generator=gen) < 0.25).long() << p
+    cubes = torch.stack([value & ~mask, mask], 1).to(torch.int32)
+    offsets = torch.zeros(gf + 1, dtype=torch.int64)
+    offsets[1:] = counts.cumsum(0)
+    return cubes, offsets
+
+
+def _gate_case(cuda, g, f, n, w, t_max, seed):
+    gen = torch.Generator().manual_seed(seed)
+    planes = torch.randint(-2 ** 31, 2 ** 31, (g, n, w), generator=gen,
+                           dtype=torch.int64).to(torch.int32)
+    cubes, offsets = _cubes(g * f, n, t_max, seed + 1)
+    args = [t.to(cuda) for t in (planes, cubes, offsets)]
+    before = GC.gate_cubes.launches
+    for invert in (False, True):
+        got = GC.gate_cubes(*args, f, invert)
+        torch.cuda.synchronize()
+        want = GC.gate_cubes_plain(*args, f, invert)
+        assert got.dtype == torch.int32 and got.shape == (g, f, w)
+        assert torch.equal(got, want)
+        assert (got[0, 0] == (-1 if invert else 0)).all()   # empty cover
+    assert GC.gate_cubes.launches == before + 2
+
+
+@pytest.mark.parametrize("case", FLAGSHIP_GATES,
+                         ids=lambda c: "G{}F{}n{}W{}".format(*c))
+def test_gate_cubes_matches_plain_on_flagship_shapes(cuda, case):
+    _gate_case(cuda, *case, t_max=48, seed=sum(case))
+
+
+@pytest.mark.parametrize("case", SMALL_GATES,
+                         ids=lambda c: "G{}F{}n{}W{}".format(*c))
+def test_gate_cubes_matches_plain_on_small_shapes(cuda, case):
+    _gate_case(cuda, *case, t_max=300, seed=sum(case))
+
+
+def test_gate_cubes_single_cube_filters_and_refusals(cuda):
+    """T = 1 everywhere (including an all-don't-care cube, constant true),
+    and the wrapper's refusals, with no launch."""
+    planes = torch.randint(-2 ** 31, 2 ** 31, (2, 6, 40),
+                           dtype=torch.int64).to(torch.int32).to(cuda)
+    cubes = torch.tensor([[5, 0], [0, 63], [9, 6], [1, 62]],
+                         dtype=torch.int32, device=cuda)
+    offsets = torch.arange(5, dtype=torch.int64, device=cuda)
+    got = GC.gate_cubes(planes, cubes, offsets, 2)
+    assert torch.equal(got, GC.gate_cubes_plain(planes, cubes, offsets, 2))
+    assert (got[0, 1] == -1).all()                 # the tautology
+    before = GC.gate_cubes.launches
+    with pytest.raises(ValueError, match="cpu"):
+        GC.gate_cubes(planes, cubes.cpu(), offsets, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        GC.gate_cubes(planes.transpose(1, 2).contiguous().transpose(1, 2),
+                      cubes, offsets, 2)
+    with pytest.raises(ValueError, match="offsets"):
+        GC.gate_cubes(planes, cubes, offsets, 3)
+    assert GC.gate_cubes.launches == before
+
+
+def test_gate_block_on_card_equals_host(cuda):
+    """A compiled block (constant filters included) run as its circuit on
+    the card through the kernel equals the host evaluator, DNF and CNF,
+    bf16 and f32 bits, with a ragged last word."""
+    from scale_imagenet_tpu_torch.models.block_tt import BlockTT, \
+        BlockTTConfig
+
+    torch.manual_seed(0)
+    cfg = BlockTTConfig(in_planes=8, out_planes=16, k=2, padding=1,
+                        stride=1, groupsici=2)            # n = 16
+    block = BlockTT(cfg).to(cuda).eval()
+    with torch.no_grad():
+        block.bn2.running_mean.uniform_(-0.3, 0.3)
+        block.bn2.weight[0] = 0.0
+        block.bn2.bias[0] = 5.0
+    bg = gate_net.compile_block_gates(block)
+    assert bg.constants[0] == 1.0 and None in bg.constants
+    x = _bits((3, 8, 7, 5), False, torch.float32, 3, cuda)
+    before = GC.gate_cubes.launches
+    for form in ("dnf", "cnf"):
+        dev = gate_device.build_device_block(bg, form, cuda)
+        for dt in (torch.bfloat16, torch.float32):
+            got = gate_device.gate_block_apply_device(dev, x.to(dt))
+            host = gate_net.gate_block_apply(bg, x.to(dt), form)
+            assert got.dtype == dt and torch.equal(got, host)
+    assert GC.gate_cubes.launches == before + 4

@@ -1,7 +1,8 @@
 """The port stands alone: no file of it, nor ``chip_smoke.py``, imports JAX
 or anything of the JAX package, and every module imports without a card,
-``nvcc``, ``triton`` or Pillow (the card's machine has none: the shard path
-needs numpy only)."""
+``nvcc``, ``triton``, Pillow or sympy (the card's machine has none of the
+last three: the shard path needs numpy only, and the gate compiler uses
+the native engine, which the port builds itself)."""
 
 import ast
 import pkgutil
@@ -53,7 +54,8 @@ def test_every_module_imports_without_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'scale_imagenet_tpu', 'triton', 'PIL')]\n"
+            "('jax', 'jaxlib', 'scale_imagenet_tpu', 'triton', 'PIL', "
+            "'sympy')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -63,3 +65,26 @@ def test_every_module_imports_without_jax():
     assert {"scale_imagenet_tpu_torch.train.augment",
             "scale_imagenet_tpu_torch.train.optim",
             "scale_imagenet_tpu_torch.runtime.checkpoint"} <= set(mods)
+    # and the gate compiler's
+    assert {"scale_imagenet_tpu_torch.native.ttlogic",
+            "scale_imagenet_tpu_torch.compile.logic",
+            "scale_imagenet_tpu_torch.compile.gate_net",
+            "scale_imagenet_tpu_torch.compile.gate_device",
+            "scale_imagenet_tpu_torch.compile.verilog",
+            "scale_imagenet_tpu_torch.kernels.gate_cubes"} <= set(mods)
+
+
+def test_port_builds_and_loads_its_own_native_engine():
+    """The gate compiler loads ``build/native/libttlogic-*.so``, built from
+    ``native/ttlogic.cpp``, never the JAX package's ``_ttlogic.so``."""
+    code = ("from scale_imagenet_tpu_torch.compile.logic import "
+            "minimize_packed\n"
+            "from scale_imagenet_tpu_torch.native import pack_table_bits\n"
+            "minimize_packed(pack_table_bits([0, 1, 1, 1]), 2)\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert '_ttlogic.so' not in maps\n"
+            "assert '/build/native/libttlogic-' in maps\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert not [p for p in FILES if "_ttlogic.so" in p.read_text()]

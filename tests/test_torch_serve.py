@@ -121,8 +121,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--mode", "eval", "--native_data"],
-                                  ["--mode", "compile"],
-                                  ["--mode", "serve", "--gates", "dnf"],
+                                  ["--mode", "export"],
+                                  ["--mode", "serve", "--bf16"],
                                   ["--mode", "serve", "--fold_bn"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
