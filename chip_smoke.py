@@ -45,8 +45,10 @@ numbers:
            F) and again (loads F); top-1/5, loss, img/s, the device's idle
            share and the launch counts of each run;
 7. gates:  (a) the flagship's covers compiled once in-process (seconds,
-           threads, total and per-head gates, cube counts, the padded bytes
-           of the JAX budget rule and the path the default budget picks);
+           threads, total and per-head gates, cube counts, the bytes the
+           covers take on the card, which the budget counts, beside the
+           padded bytes of JAX's rule, and the path the default budget
+           picks);
            (b) each of the 11 ``gate_cubes`` launches of one B=256 forward,
            DNF and CNF, captured with its real planes: equal to the plain
            version bit for bit, times of both, the bound; (c) B=256: every
@@ -61,8 +63,9 @@ numbers:
            compile --verilog`` in a subprocess from the same weights, its
            ``total_gates`` equal to the in-process total on the boolean
            heads and its Verilog total equal to it (each filter minimized
-           once: the Verilog reuses the artifacts' covers).  Artifacts go
-           under ``build/``;
+           once: the Verilog reuses the artifacts' covers); (h) the
+           ``gate_cubes`` card tests (``tests/test_torch_cuda.py -k gate_``)
+           in a subprocess, all passed.  Artifacts go under ``build/``;
 8. train:  (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
@@ -656,19 +659,22 @@ def gates_phase(args, md, model, luts, x, out_dir: Path) -> dict:
                                 ("mean_cubes", float(np.mean(
                                     [len(c) for c in covers]))),
                                 ("padded_bytes", GD.circuit_device_bytes(
+                                    bg, form)),
+                                ("device_bytes", GD.device_bytes(
                                     bg, form)))}}
-    padded = {form: sum(h[f"{form}_padded_bytes"] for h in heads.values())
-              for form in ("dnf", "cnf")}
+    padded, held = ({form: sum(h[f"{form}_{k}"] for h in heads.values())
+                     for form in ("dnf", "cnf")}
+                    for k in ("padded_bytes", "device_bytes"))
     budget = config.performance.gates_device_budget
-    fits = max(padded.values()) <= budget
+    fits = max(held.values()) <= budget
     emit("gates_compile", compile_s=compile_s, threads=threads,
          total_gates=total, filters=sum(h["filters"] for h in heads.values()),
-         padded_bytes=padded, default_budget=budget,
+         device_bytes=held, padded_bytes=padded, default_budget=budget,
          default_budget_path="device" if fits else "host", heads=heads)
     check(total > 0 and total == sum(h["gates"] for h in heads.values()),
           f"total_gates {total} is not the sum of the heads' gates")
     if not fits:
-        config.performance.gates_device_budget = max(padded.values())
+        config.performance.gates_device_budget = max(held.values())
         print(f"gates: this init's circuit does not fit the default budget "
               f"of {budget} bytes; gates_device_budget set to "
               f"{config.performance.gates_device_budget} bytes for this "
@@ -837,6 +843,21 @@ def gates_phase(args, md, model, luts, x, out_dir: Path) -> dict:
         f"the in-process compile {total}; differing heads {bad}")
     shutil.rmtree(work)
     (eval_dir / "weights.pth").unlink()
+
+    # (h) the kernel's card tests, in a subprocess (no conftest: it
+    # configures JAX)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+         "no:cacheprovider", "tests/test_torch_cuda.py", "-k", "gate_"],
+        capture_output=True, text=True, timeout=600)
+    (out_dir / "gates_card_tests.log").write_text(proc.stdout[-20000:]
+                                                  + proc.stderr[-20000:])
+    tail = (proc.stdout.strip().splitlines() or [""])[-1]
+    emit("gates_card_tests", seconds=time.perf_counter() - t,
+         returncode=proc.returncode, summary=tail)
+    check(proc.returncode == 0 and " passed" in tail and "failed" not in tail
+          and "skipped" not in tail, f"gate card tests: {tail}")
     dnf = [c for c in cases if not c["invert"]]
     return {"launches": launches, "cases": cases, "dnf_cases": dnf,
             "evals": evals, "total_gates": total}

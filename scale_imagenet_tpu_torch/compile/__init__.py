@@ -1,5 +1,5 @@
 from .gate_device import build_device_gates, circuit_device_bytes, \
-    gate_block_apply_device, gate_multihead_apply_device, \
+    device_bytes, gate_block_apply_device, gate_multihead_apply_device, \
     gate_ttnet_apply_device
 from .gate_net import compile_block_gates, compile_multihead_gates, \
     compile_ttnet_gates, gate_block_apply, gate_multihead_apply, \
@@ -15,7 +15,7 @@ from .truth_table import block_truth_table, compile_model_truth_tables, \
 from .verilog import block_gates_to_verilog, cnf_cover_to_expr, \
     cover_to_expr, export_model_verilog
 
-__all__ = ["build_device_gates", "circuit_device_bytes",
+__all__ = ["build_device_gates", "circuit_device_bytes", "device_bytes",
            "gate_block_apply_device", "gate_multihead_apply_device",
            "gate_ttnet_apply_device", "compile_block_gates",
            "compile_multihead_gates", "compile_ttnet_gates",

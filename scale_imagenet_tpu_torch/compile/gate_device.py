@@ -15,10 +15,11 @@ plane packing and unpacking are plain torch ops.  Bit-identical to the host
 evaluator and to the LUT forward (the covers are verified minterm-exact at
 compile time).
 
-Which circuits go to the card follows the JAX rule exactly:
-``circuit_device_bytes`` is the padded ``(G, F, T, n)`` footprint JAX
-would allocate, and ``build_device_gates`` refuses circuits over
-``max_cube_bytes`` with JAX's message, so the caller runs them on the host.
+Which circuits go to the card is decided on the bytes the port holds there
+(``device_bytes``: the cubes, offsets and constant filters), not on JAX's
+padded ``(G, F, T, n)`` footprint (``circuit_device_bytes``, kept for
+comparison): ``build_device_gates`` refuses circuits over
+``max_cube_bytes``, and the caller runs those on the host.
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ class MultiHeadGatesDev:
 
 def circuit_device_bytes(bg: BlockGates, form: str = "dnf") -> int:
     """Padded cube-tensor footprint of one block on the device, as the JAX
-    package counts it (its budget rule; the port stores less)."""
+    package counts it (its budget rule; the port stores far less, see
+    ``device_bytes``)."""
     covers = bg.covers if form == "dnf" else bg.cnf_covers
     cfg = bg.cfg
     g = cfg.groupsici
@@ -71,6 +73,15 @@ def circuit_device_bytes(bg: BlockGates, form: str = "dnf") -> int:
     t = max((len(c) for c in covers), default=0)
     n = cfg.n_bits
     return 2 * g * f * max(t, 1) * n * 4
+
+
+def device_bytes(bg: BlockGates, form: str = "dnf") -> int:
+    """Bytes one block's ``BlockGatesDev`` holds on the card: the ``(T,
+    2)`` int32 cubes (8 bytes a cube), the ``(G*F + 1,)`` int64 offsets and
+    the constant filters' mask (bool) and value (f32)."""
+    covers = bg.covers if form == "dnf" else bg.cnf_covers
+    filters = len(covers)
+    return sum(len(c) for c in covers) * 8 + (filters + 1) * 8 + filters * 5
 
 
 def build_device_block(bg: BlockGates, form: str = "dnf",
@@ -99,16 +110,19 @@ def build_device_gates(gnets: list[MultiHeadGates], form: str = "dnf", *,
                        max_cube_bytes: int = 1 << 30,
                        device=None) -> list[MultiHeadGatesDev]:
     """Device twins of compiled gate nets on ``device``; raises when the
-    padded cube tensors would exceed ``max_cube_bytes`` (the caller falls
-    back to the host evaluator, as in the JAX package)."""
-    total = sum(circuit_device_bytes(h, form)
+    covers would take more than ``max_cube_bytes`` on the card, counted as
+    the port holds them (``device_bytes``; the JAX package counts its
+    padded tensors instead), and the caller falls back to the host
+    evaluator."""
+    total = sum(device_bytes(h, form)
                 for mg in gnets for h in list(mg.heads.values())
                 + ([mg.convf] if mg.convf else []))
     if total > max_cube_bytes:
         raise ValueError(
-            f"device gate circuit needs {total / 1e6:.0f} MB of padded "
-            f"cube tensors (> {max_cube_bytes / 1e6:.0f} MB budget) — "
-            "use the host evaluator for circuits this large")
+            f"device gate circuit needs {total:,} bytes of covers on the "
+            f"card (cubes, offsets and constants as the port holds them, "
+            f"not JAX's padded cube tensors) > the {max_cube_bytes:,}-byte "
+            "budget — use the host evaluator for circuits this large")
     return [
         MultiHeadGatesDev(
             cfg=mg.cfg,

@@ -32,10 +32,12 @@ class PerformanceConfig:
     # -> conv -> BN -> act, with the polynomial erf in its GELU.  Off by
     # default, as in the JAX package.
     fused_pointwise_blocks: bool = False
-    # Padded cube-tensor budget (bytes, counted as the JAX package counts
-    # them, ``compile/gate_device.py::circuit_device_bytes``) under which
-    # ``--gates`` circuits run on the card (the ``gate_cubes`` kernel);
-    # larger circuits, or a budget <= 0, run on the host native evaluator.
+    # Bytes of covers on the card under which ``--gates`` circuits run
+    # there (the ``gate_cubes`` kernel), counted as the port holds them:
+    # cubes, offsets and constant filters
+    # (``compile/gate_device.py::device_bytes``), not as the JAX package
+    # counts its padded cube tensors (``circuit_device_bytes``).  Larger
+    # circuits, or a budget <= 0, run on the host native evaluator.
     gates_device_budget: int = 1 << 30
 
 

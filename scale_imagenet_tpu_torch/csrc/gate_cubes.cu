@@ -25,112 +25,331 @@
 //           gives 0, or ~0 inverted, as in JAX; the caller substitutes
 //           the constant after unpacking.
 //
-// What bounds it on this card: integer logic on the CUDA cores.  The
-// function needs one logic operation a word for every fixed literal of
-// every cube: mism | (plane ^ value) is a three-input function, one LOP3
-// at the int32 rate; and one a cube, out | ~mism.  Each word is read once
-// and written once, so at the flagship's ~1,150 cubes of ~14 fixed
-// literals a filter that is ~20,000 operations a byte.  This kernel
-// spends two a bit and cube, (plane ^ x) & fixed and the OR, over every
-// bit p < MAXN, don't-care bits included: about twice what is needed
-// (the headroom a faster version goes after: walk only fixed literals).
+// What bounds it.  The bound the port states (chip_smoke.py::cube_ops) is
+// int32 logic: one LOP3 a word for every fixed literal of every cube
+// (mism | (plane ^ value)) and one a cube (out | ~mism), at 64 a clock an
+// SM.  The flagship's minimized covers fix about 7.7 of a cube's 16 bits,
+// so that is about 8.7 operations a cube and word; the words are read and
+// written once, far below the memory rate.  A walk over literals with the
+// planes in registers cannot reach it: registers take no run-time index,
+// so a cube's don't-care bits can only be skipped by a branch a bit, which
+// the compiler turns into predicated LOP3s issued for all 16 bits (17 a
+// cube and word, twice the bound before any latency), or by a switch a
+// nibble, which it compiles into compare trees with a shared load in every
+// case.  Both were slower on the card than what follows.
 //
-// Design (simple first): one block per (filter, tile of 128 * NW words),
-// one thread per NW words of the tile.  A thread keeps its NW words of the
-// group's n planes in registers (loaded once), so no intermediate reaches
-// global memory.  The filter's cubes are staged through shared memory
-// kChunk at a time, each decoded once into per-bit (xor constant, fixed
-// mask) words laid out bit-major, so the inner loop over a cube's bits is
-// one broadcast 8-byte shared load and 2 * NW logic operations a bit.  The
-// loop over a filter's cubes has a data-dependent length; n is a template
-// bound (8, 16, 32) so that the bit loop unrolls over registers, and bits
-// p >= n have a zero fixed mask.
+// Design: no logic a literal at all.
+// * Tables.  A block owns a tile of 64 words (two adjacent ones a lane)
+//   and one group's planes.  For each word and each nibble q of the n
+//   bits it keeps, in shared memory, the mismatch word of every one of the
+//   81 states of the nibble's four literals (don't care, must be 0, must
+//   be 1): the OR of plane or ~plane over the fixed bits.  Built once a
+//   group (4 plane loads and 81 stores a lane, word and nibble), it turns
+//   a cube into four table loads and two ORs a word, however many of its
+//   bits are fixed: mism = T0[s0] | T1[s1] | T2[s2] | T3[s3], then
+//   out |= ~mism.
+// * What bounds the design: shared-memory load instructions.  A warp
+//   issues five a cube (one 16-byte broadcast of the cube's four entry
+//   offsets, then four table loads), whatever each carries, so a lane
+//   takes two adjacent words and each table load is an 8-byte load: five
+//   instructions and nine 128-byte wavefronts for 64 cube-words.  With one
+//   word a lane (five instructions for 32 cube-words) the kernel was
+//   slower on the card, as it was with the offsets passed by shuffles
+//   (four instructions in place of one broadcast).
+// * Occupancy.  A table is 81 KB for n = 16, so 2 blocks fit an SM; the 6
+//   warps of a block share one table and take every sixth cube of the
+//   run, four cubes in flight.
+// * Work split.  The flat cube array (all filters' covers one after
+//   another) is cut into S equal runs, and a block takes one run and one
+//   tile.  S is set at launch from the shape alone (no host sync: each
+//   block reads T_total = offsets[G*F] itself): at least kWaves waves of
+//   resident blocks, raised until the last wave is 90 % full, since every
+//   block walks as many cubes as any other, however long or short the
+//   covers are.  So block 2's depthwise heads (G = 256, W = 512, 8 tiles,
+//   covers of up to ~4,100 cubes) fill the card.  A run may end inside a
+//   cover and may span several: at each filter boundary every warp
+//   combines its partial OR into the filter's words with atomicOr on words
+//   the launch zeroed first; CNF starts them at all ones and combines with
+//   atomicAnd(~acc), so the inversion is applied exactly once, after the
+//   combine, and an empty cover keeps 0 / ~0 with no block touching it.
+//   Where a run crosses into another group the block rebuilds its table
+//   between two barriers.
+// * Staging.  Each warp decodes its own 32 cubes of a chunk (one a lane)
+//   into table offsets in its own shared entries, so a chunk needs no
+//   block barrier, only __syncwarp; the next chunk's raw cubes are loaded
+//   into registers at the top of a chunk and are in flight while it is
+//   walked (cp.async would land them raw, and their decode would then
+//   need a second wait a chunk).
+// Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W, the flagship's
+// covers at B = 256): 4.94 ms a DNF forward against the 3.50 ms bound,
+// 1.41x, and every launch of a DNF or CNF forward between 1.25x and 1.70x;
+// 5.19 cube-words a clock an SM at the boost clock, about 73 % of the
+// 7.1 that nine wavefronts for 64 cube-words allow.  Every launch: PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 128;   // cubes staged in shared memory per pass
+constexpr int kWarps = 6;          // warps of a block, sharing one table
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;          // words a block, two a lane
+constexpr int kChunk = kThreads;   // cubes staged a pass, one a thread
+constexpr int kStates = 81;        // 3^4 states of a nibble of literals
+constexpr int kWaves = 2;          // least waves of resident blocks a launch
 
-template <int MAXN, int NW>
+// one staged cube: for each nibble q of its bits, the byte offset of its
+// table entry (q, state) from a lane's two words of the table
+template <int MAXN>
+struct alignas(16) StagedCube {
+  uint32_t off[MAXN / 4];
+};
+
+template <int MAXN>
+constexpr size_t smem_bytes() {
+  return kChunk * sizeof(StagedCube<MAXN>)
+         + static_cast<size_t>(MAXN / 4) * kStates * kTile
+               * sizeof(uint32_t);
+}
+
+// The block's table: for every word of the tile, every nibble q of the
+// group's bits and every state s = s0 + 3 s1 + 9 s2 + 27 s3 of its four
+// literals (s_i = 0: don't care, 1: the bit must be 0, 2: it must be 1),
+// the mismatch word of that literal set: the OR of plane (must be 0) or
+// ~plane (must be 1) over the fixed bits.  Entry (q, s) of word l is
+// tab[(q * 81 + s) * kTile + l], so a lane's two adjacent words are one
+// 8-byte load.  Warp k builds the nibbles q = k mod kWarps of its lane's
+// words w and w + 1.
+template <int MAXN>
+__device__ __forceinline__ void build_table(uint32_t* tab,
+                                            const uint32_t* planes, int g,
+                                            int n, int W, int w) {
+  // a word past W reads the last word and a plane p >= n the last plane:
+  // no store and no cube's fixed bit ever uses what they give
+  const uint32_t* src = planes + static_cast<long long>(g) * n * W;
+  const int w0 = min(w, W - 1), w1 = min(w + 1, W - 1);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int q0 = 0; q0 < MAXN / 4; q0 += kWarps) {
+    const int q = q0 + warp;
+    if (q >= MAXN / 4) break;
+    uint32_t x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t* row =
+          src + static_cast<long long>(min(4 * q + i, n - 1)) * W;
+      x[i] = __ldg(row + w0);
+      y[i] = __ldg(row + w1);
+    }
+    uint2* e = reinterpret_cast<uint2*>(tab + q * kStates * kTile) + lane;
+#pragma unroll
+    for (int s = 0; s < kStates; ++s) {
+      uint32_t m = 0u, m2 = 0u;
+#pragma unroll
+      for (int i = 0, d = s; i < 4; ++i, d /= 3) {
+        if (d % 3 == 1) { m |= x[i]; m2 |= y[i]; }
+        if (d % 3 == 2) { m |= ~x[i]; m2 |= ~y[i]; }
+      }
+      e[s * (kTile / 2)] = make_uint2(m, m2);
+    }
+  }
+}
+
+// OR (DNF) or AND-NOT (CNF) a run's partial result into a filter's words
+// w and w + 1
+__device__ __forceinline__ void combine(uint2& acc, uint32_t* row, int W,
+                                        int w, int invert) {
+  const uint32_t a[2] = {acc.x, acc.y};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (w + k < W && a[k]) {
+      if (invert) atomicAnd(row + w + k, ~a[k]);
+      else atomicOr(row + w + k, a[k]);
+    }
+  }
+  acc = make_uint2(0u, 0u);
+}
+
+// the first filter j in [0, GF) whose cover ends after cube c, i.e. with
+// offsets[j + 1] > c (offsets[GF] > c): a 32-way search, each lane one
+// probe, every warp alike
+__device__ __forceinline__ int find_filter(const long long* offsets, int GF,
+                                           long long c) {
+  const int lane = threadIdx.x % 32;
+  int lo = 0, hi = GF;                        // the answer is in [lo, hi)
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int probe = lo + lane * step;
+    const bool after = probe < hi && __ldg(offsets + probe + 1) > c;
+    const unsigned ball = __ballot_sync(0xFFFFFFFFu, after);
+    if (ball) {
+      const int f = __ffs(ball) - 1;
+      hi = lo + f * step + 1;
+      if (f > 0) lo += (f - 1) * step + 1;
+    } else {
+      lo += ((hi - lo + step - 1) / step - 1) * step + 1;
+    }
+  }
+  return lo;
+}
+
+template <int MAXN>
 __global__ void __launch_bounds__(kThreads)
 gate_cubes_kernel(const uint32_t* __restrict__ planes,
                   const uint2* __restrict__ cubes,
                   const long long* __restrict__ offsets,
-                  uint32_t* __restrict__ out, int F, int n, long long W,
-                  int invert) {
-  // per staged cube and bit p: (xor constant, fixed mask), bit-major so
-  // that the decode writes and the broadcast reads hit distinct banks
-  __shared__ uint2 lit[MAXN][kChunk];
-  const int gf = blockIdx.y;                  // filter g * F + f
-  const int g = gf / F;
-  const long long w0 =
-      static_cast<long long>(blockIdx.x) * (kThreads * NW) + threadIdx.x;
-
-  uint32_t pl[NW][MAXN];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const long long w = w0 + static_cast<long long>(k) * kThreads;
-#pragma unroll
-    for (int p = 0; p < MAXN; ++p)
-      pl[k][p] = (p < n && w < W)
-                     ? __ldg(planes + (static_cast<long long>(g) * n + p) * W
-                             + w)
-                     : 0u;
-  }
-  uint32_t acc[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) acc[k] = 0u;
-
+                  uint32_t* __restrict__ out, int GF, int F, int n, int W,
+                  int S, int invert) {
+  extern __shared__ uint4 smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // warp k stages and walks cubes k, k + kWarps, k + 2 kWarps, ... of each
+  // chunk: lane i holds cube k + kWarps * i in the warp's 32 entries
+  auto* mine = reinterpret_cast<StagedCube<MAXN>*>(smem) + 32 * warp;
+  auto* tab = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<StagedCube<MAXN>*>(smem) + kChunk);
+  const long long T = __ldg(offsets + GF);
+  const long long c0 = T * blockIdx.y / S;
+  const long long c1 = T * (blockIdx.y + 1) / S;
+  if (c0 >= c1) return;                       // the whole block: no barrier
+  const int w = blockIdx.x * kTile + 2 * lane;
   const uint32_t nmask = n >= 32 ? 0xFFFFFFFFu : ((1u << n) - 1u);
-  const long long t_end = offsets[gf + 1];
-  for (long long t0 = offsets[gf]; t0 < t_end; t0 += kChunk) {
-    const int cnt = static_cast<int>(min(static_cast<long long>(kChunk),
-                                         t_end - t0));
-    __syncthreads();                          // the last pass has read lit
-    for (int t = threadIdx.x; t < cnt; t += kThreads) {
-      const uint2 c = __ldg(cubes + t0 + t);
-      const uint32_t fixed = ~c.y & nmask;
+  const char* colb = reinterpret_cast<const char*>(tab + 2 * lane);
+
+  int j = find_filter(offsets, GF, c0);
+  long long fend = __ldg(offsets + j + 1);
+  int g = j / F;
+  build_table<MAXN>(tab, planes, g, n, W, w);
+  uint2 acc = make_uint2(0u, 0u);
+
+  auto fetch = [&](long long base) {
+    const long long c = base + warp + kWarps * lane;
+    return c < c1 ? __ldg(cubes + c) : make_uint2(0u, 0u);
+  };
+  auto decode = [&](uint2 cube) {
+    const uint32_t fx = ~cube.y & nmask;
+    StagedCube<MAXN> sc;
 #pragma unroll
-      for (int p = 0; p < MAXN; ++p)
-        lit[p][t] = make_uint2(0u - ((c.x >> p) & 1u),
-                               0u - ((fixed >> p) & 1u));
-    }
-    __syncthreads();
-    for (int t = 0; t < cnt; ++t) {
-      uint32_t mism[NW];
+    for (int q = 0; q < MAXN / 4; ++q) {
+      uint32_t state = 0u;
 #pragma unroll
-      for (int k = 0; k < NW; ++k) mism[k] = 0u;
-#pragma unroll
-      for (int p = 0; p < MAXN; ++p) {
-        const uint2 l = lit[p][t];
-#pragma unroll
-        for (int k = 0; k < NW; ++k) mism[k] |= (pl[k][p] ^ l.x) & l.y;
+      for (int i = 3; i >= 0; --i) {
+        const int p = 4 * q + i;
+        state = 3u * state
+                + (((fx >> p) & 1u) ? 1u + ((cube.x >> p) & 1u) : 0u);
       }
-#pragma unroll
-      for (int k = 0; k < NW; ++k) acc[k] |= ~mism[k];
+      sc.off[q] = (q * kStates + state) * kTile * sizeof(uint32_t);
     }
-  }
-  const uint32_t flip = invert ? 0xFFFFFFFFu : 0u;
+    mine[lane] = sc;
+    __syncwarp();
+  };
+  auto mismatch = [&](int i) {
+    const StagedCube<MAXN> sc = mine[i];
+    uint2 m = make_uint2(0u, 0u);
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const long long w = w0 + static_cast<long long>(k) * kThreads;
-    if (w < W) out[static_cast<long long>(gf) * W + w] = acc[k] ^ flip;
+    for (int q = 0; q < MAXN / 4; ++q) {
+      const uint2 v = *reinterpret_cast<const uint2*>(colb + sc.off[q]);
+      m.x |= v.x;
+      m.y |= v.y;
+    }
+    return m;
+  };
+
+  decode(fetch(c0));
+  __syncthreads();                            // the table is built
+  const int chunks = static_cast<int>((c1 - c0 + kChunk - 1) / kChunk);
+  for (int q = 0; q < chunks; ++q) {
+    const long long base = c0 + static_cast<long long>(q) * kChunk;
+    const uint2 next = fetch(base + kChunk);  // in flight meanwhile
+    const int cnt = static_cast<int>(min(static_cast<long long>(kChunk),
+                                         c1 - base));
+    int t = 0;
+    while (t < cnt) {
+      const int lim = static_cast<int>(min(static_cast<long long>(cnt),
+                                           fend - base));
+      // cubes [t, lim) are one filter's; this warp's are u = warp mod
+      // kWarps, its entries u / kWarps
+      int i = (t + kWarps - 1 - warp) / kWarps;
+      const int end = (lim + kWarps - 1 - warp) / kWarps;
+      for (; i + 4 <= end; i += 4) {            // four cubes in flight
+        const uint2 m0 = mismatch(i), m1 = mismatch(i + 1);
+        const uint2 m2 = mismatch(i + 2), m3 = mismatch(i + 3);
+        acc.x |= ~m0.x | ~m1.x | ~m2.x | ~m3.x;
+        acc.y |= ~m0.y | ~m1.y | ~m2.y | ~m3.y;
+      }
+      for (; i < end; ++i) {
+        const uint2 m = mismatch(i);
+        acc.x |= ~m.x;
+        acc.y |= ~m.y;
+      }
+      t = lim;
+      if (t < cnt) {              // cube base + t starts the next cover
+        combine(acc, out + static_cast<long long>(j) * W, W, w, invert);
+        do {
+          ++j;
+          fend = __ldg(offsets + j + 1);
+        } while (fend <= base + t);             // skip empty covers
+        if (j / F != g) {
+          g = j / F;
+          __syncthreads();                      // the old table is read
+          build_table<MAXN>(tab, planes, g, n, W, w);
+          __syncthreads();
+        }
+      }
+    }
+    __syncwarp();                               // this chunk's entries read
+    if (q + 1 < chunks) decode(next);
   }
+  combine(acc, out + static_cast<long long>(j) * W, W, w, invert);
 }
 
-template <int MAXN, int NW>
+// resident blocks of the card, set up once: the kernel's shared memory
+// (above 48 KB for n > 16) allowed and preferred over L1
+template <int MAXN>
+int resident_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(gate_cubes_kernel<MAXN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_bytes<MAXN>()));
+  cudaFuncSetAttribute(gate_cubes_kernel<MAXN>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gate_cubes_kernel<MAXN>, kThreads, smem_bytes<MAXN>());
+  return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+}
+
+// S, the runs the flat cube array is cut into: at least kWaves waves of
+// resident blocks over the word tiles, raised until the last wave is at
+// least 90 % full (every block walks as many cubes as any other)
+template <int MAXN>
+long long runs_t(long long W) {
+  static const int slots = resident_blocks<MAXN>();
+  const long long tiles = (W + kTile - 1) / kTile;
+  long long s = kWaves * static_cast<long long>(slots) / tiles;
+  if (s < 1) s = 1;
+  for (long long c = s; c <= 4 * s && c <= 65535; ++c) {
+    const long long waves = (tiles * c + slots - 1) / slots;
+    if (tiles * c * 10 >= waves * slots * 9) return c;
+  }
+  return s > 65535 ? 65535 : s;
+}
+
+template <int MAXN>
 int launch_t(const uint32_t* planes, const uint2* cubes,
              const long long* offsets, uint32_t* out, int G, int F, int n,
              long long W, int invert, cudaStream_t s) {
-  const long long tiles = (W + kThreads * NW - 1) / (kThreads * NW);
-  if (tiles > 0x7FFFFFFFLL || static_cast<long long>(G) * F > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(G * F));
-  gate_cubes_kernel<MAXN, NW><<<grid, kThreads, 0, s>>>(
-      planes, cubes, offsets, out, F, n, W, invert);
+  const long long tiles = (W + kTile - 1) / kTile;
+  const int S = static_cast<int>(runs_t<MAXN>(W));
+  cudaError_t err = cudaMemsetAsync(
+      out, invert ? 0xFF : 0x00,
+      static_cast<size_t>(G) * F * W * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(S));
+  gate_cubes_kernel<MAXN><<<grid, kThreads, smem_bytes<MAXN>(), s>>>(
+      planes, cubes, offsets, out, G * F, F, n, static_cast<int>(W), S,
+      invert);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,7 +362,9 @@ extern "C" int gate_cubes_launch(const void* planes, const void* cubes,
                                  const void* offsets, void* out, int G,
                                  int F, int n, long long W, int invert,
                                  void* stream) {
-  if (G <= 0 || F <= 0 || n <= 0 || n > 32 || W < 0)
+  if (G <= 0 || F <= 0 || n <= 0 || n > 32 || W < 0
+      || static_cast<long long>(G) * F > 0x7FFFFFFFLL
+      || W > 0x7FFFFFFFLL - kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (W == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
@@ -151,7 +372,16 @@ extern "C" int gate_cubes_launch(const void* planes, const void* cubes,
   auto cb = static_cast<const uint2*>(cubes);
   auto of = static_cast<const long long*>(offsets);
   auto o = static_cast<uint32_t*>(out);
-  if (n <= 8) return launch_t<8, 4>(pl, cb, of, o, G, F, n, W, invert, s);
-  if (n <= 16) return launch_t<16, 4>(pl, cb, of, o, G, F, n, W, invert, s);
-  return launch_t<32, 2>(pl, cb, of, o, G, F, n, W, invert, s);
+  if (n <= 8) return launch_t<8>(pl, cb, of, o, G, F, n, W, invert, s);
+  if (n <= 16) return launch_t<16>(pl, cb, of, o, G, F, n, W, invert, s);
+  return launch_t<32>(pl, cb, of, o, G, F, n, W, invert, s);
+}
+
+// S for a launch of n bits and W words on the current card: run s of the
+// flat cube array is cubes [T*s/S, T*(s+1)/S) (for tests)
+extern "C" long long gate_cubes_segments(int n, long long W) {
+  if (n <= 0 || n > 32 || W <= 0) return -1;
+  if (n <= 8) return runs_t<8>(W);
+  if (n <= 16) return runs_t<16>(W);
+  return runs_t<32>(W);
 }

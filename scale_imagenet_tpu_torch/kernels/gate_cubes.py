@@ -141,6 +141,8 @@ def _library():
             lib.gate_cubes_launch.argtypes = [p, p, p, p, i, i, i,
                                               ctypes.c_longlong, i, p]
             lib.gate_cubes_launch.restype = i
+            lib.gate_cubes_segments.argtypes = [i, ctypes.c_longlong]
+            lib.gate_cubes_segments.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 
@@ -178,4 +180,15 @@ def gate_cubes(planes: torch.Tensor, cubes: torch.Tensor,
 gate_cubes.launches = 0
 
 
-__all__ = ["MAX_BITS", "gate_cubes", "gate_cubes_plain", "reset_launches"]
+def segments(n: int, words: int) -> int:
+    """The number S of equal runs the kernel cuts the flat cube array into
+    at a launch of ``n`` bits and ``words`` words on the current card: run
+    s holds cubes ``[T*s // S, T*(s+1) // S)`` of the T in ``cubes``.  The
+    card tests place covers on run boundaries with it."""
+    if not 1 <= n <= MAX_BITS or words < 1:
+        raise ValueError(f"n={n}, words={words}")
+    return int(_library().gate_cubes_segments(n, words))
+
+
+__all__ = ["MAX_BITS", "gate_cubes", "gate_cubes_plain", "reset_launches",
+           "segments"]

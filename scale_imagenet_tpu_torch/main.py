@@ -159,11 +159,14 @@ _COMPILE_REFUSALS["--attack_eps"] = _COMPILE_REFUSALS["--attack"]
 # ``scale_imagenet_tpu/main.py:887,986``
 _GATES_WITH_LUT = ("--gates and --lut are two serving modes for the same "
                    "compiled network — pick one")
-# ``scale_imagenet_tpu/main.py:932-937``
-_GATES_ON_HOST = ("--gates: this circuit's padded cube tensors exceed "
+# ``scale_imagenet_tpu/main.py:932-937``, with the port's own count: the
+# bytes its covers take on the card, where JAX counts its padded tensors
+_GATES_ON_HOST = ("--gates: this circuit's covers, counted as the port "
+                  "holds them on the card (cubes, offsets and constants; "
+                  "JAX counts its padded cube tensors instead), exceed "
                   "config.performance.gates_device_budget, so it would run "
                   "on the HOST evaluator — which cannot enter the server's "
-                  "jitted forward.  Raise the budget, or serve --lut")
+                  "batched forward.  Raise the budget, or serve --lut")
 
 _MODES = ("eval", "serve", "train", "compile")
 
@@ -360,9 +363,9 @@ def _as_gate_model(model, form: str, gnets=None):
     """The gate-circuit twin of ``model`` (``scale_imagenet_tpu/main.py:445``):
     ``(apply, on_device)``.  The covers are compiled (or taken from
     ``gnets``); the circuit runs on the model's device through the
-    ``gate_cubes`` kernel when its padded cube tensors fit
-    ``config.performance.gates_device_budget``, else on the host native
-    evaluator, as the JAX rule says.  Either way it is bit-identical to the
+    ``gate_cubes`` kernel when its covers, as the port holds them there,
+    fit ``config.performance.gates_device_budget``, else on the host
+    native evaluator.  Either way it is bit-identical to the
     LUT forward on the boolean blocks."""
     if gnets is None:
         print("compiling gate circuits (truth tables -> verified covers)...")

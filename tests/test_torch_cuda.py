@@ -420,6 +420,73 @@ def test_gate_cubes_matches_plain_on_small_shapes(cuda, case):
     _gate_case(cuda, *case, t_max=300, seed=sum(case))
 
 
+@pytest.mark.parametrize("case", [(256, 1, 16, 512), (128, 1, 16, 1800)],
+                         ids=lambda c: "G{}F{}n{}W{}".format(*c))
+def test_gate_cubes_matches_plain_on_long_flagship_covers(cuda, case):
+    """Block 2's and block 1's depthwise heads with covers of up to 4,200
+    cubes a filter (the flagship's reach up to ~4,100): each cover is
+    split over many blocks and combined with atomics."""
+    _gate_case(cuda, *case, t_max=4200, seed=sum(case))
+
+
+def _cover_of(counts, n, seed):
+    """Seeded covers with the given cube counts a filter: about a quarter
+    of the bits don't care, and the first cube of every cover has every
+    bit fixed."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.tensor(counts, dtype=torch.int64)
+    total = int(counts.sum())
+    value = torch.randint(0, 2 ** n, (total,), generator=gen)
+    mask = torch.zeros(total, dtype=torch.int64)
+    for p in range(n):
+        mask |= (torch.rand(total, generator=gen) < 0.25).long() << p
+    offsets = torch.zeros(len(counts) + 1, dtype=torch.int64)
+    offsets[1:] = counts.cumsum(0)
+    mask[offsets[:-1][counts > 0]] = 0
+    cubes = torch.stack([value & ~mask, mask], 1).to(torch.int32)
+    return cubes, offsets
+
+
+@pytest.mark.parametrize("words", [100, 1800])
+def test_gate_cubes_covers_on_run_boundaries(cuda, words):
+    """The kernel cuts the flat cube array into S equal runs of m cubes:
+    covers that end exactly on a run boundary and one cube past it, that
+    start one past it, empty covers beside split ones, a cover of a single
+    tautology cube and one of a single fully fixed cube, groups crossed
+    inside a run (runs of 3 cubes at 100 words, of 400 at 1,800)."""
+    g, f, n = 4, 4, 16
+    runs = GC.segments(n, words)
+    assert runs >= 4
+    m = 3 if words == 100 else 400
+    # filter ends: m, m (empty), 2m + 1, 3m, 3m, 3m (empty), 3m + 1 (the
+    # tautology), 3m + 2 (the fixed cube), empties, then the rest
+    head = [m, 0, m + 1, m - 1, 0, 0, 1, 1]
+    counts = head + [0] * (g * f - len(head) - 1)
+    counts.append(runs * m - sum(counts))
+    assert counts[-1] >= 2
+    cubes, offsets = _cover_of(counts, n, seed=words)
+    cubes[3 * m, 1] = 2 ** n - 1            # filter 6: a lone tautology
+    bounds = {m * s for s in range(runs + 1)}
+    ends = set(offsets.tolist())
+    assert {m, 3 * m} <= bounds & ends                  # ends on a boundary
+    assert 2 * m + 1 in ends and 2 * m in bounds        # and one past it
+    gen = torch.Generator().manual_seed(7)
+    planes = torch.randint(-2 ** 31, 2 ** 31, (g, n, words), generator=gen,
+                           dtype=torch.int64).to(torch.int32)
+    args = [t.to(cuda) for t in (planes, cubes, offsets)]
+    for invert in (False, True):
+        got = GC.gate_cubes(*args, f, invert)
+        torch.cuda.synchronize()
+        want = GC.gate_cubes_plain(*args, f, invert)
+        assert torch.equal(got, want)
+        rows = got.view(g * f, words)
+        ones, zero = (0, -1) if invert else (-1, 0)
+        for empty in (1, 4, 5, 8, 14):
+            assert (rows[empty] == zero).all()
+        assert (rows[6] == ones).all()                  # the tautology
+        assert not (rows[7] == ones).all()              # one minterm
+
+
 def test_gate_cubes_single_cube_filters_and_refusals(cuda):
     """T = 1 everywhere (including an all-don't-care cube, constant true),
     and the wrapper's refusals, with no launch."""

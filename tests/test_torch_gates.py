@@ -305,29 +305,64 @@ def test_gate_cubes_refuses_bad_shapes():
 # ---------------------------------------------------------------- sizing
 
 def test_circuit_device_bytes_and_budget_match_jax():
-    jbgs, pbgs = [], []
+    """``circuit_device_bytes`` is JAX's padded count and equals JAX's.  The
+    budget is held against the port's own bytes (``device_bytes``), which
+    is not JAX's rule: a circuit over a small budget by JAX's count but not
+    by the port's is built on the device and runs there (the kernel's
+    plain version here), equal to the host circuit, where JAX refuses it;
+    one over the budget by the port's count is refused with the port's
+    text."""
+    jbgs, pbgs, xs = [], [], []
     for i in range(len(BLOCKS)):
-        jbg, pbg, _, _ = _blocks(i)
+        jbg, pbg, _, x = _blocks(i)
         for form in ("dnf", "cnf"):
             assert gate_device.circuit_device_bytes(pbg, form) == \
                 jdev.circuit_device_bytes(jbg, form)
         jbgs.append(jbg)
         pbgs.append(pbg)
+        xs.append(_nchw(x))
     jnets = [jgate.MultiHeadGates(cfg=None, heads={1: jbgs[0], 2: jbgs[1]},
                                   convf=jbgs[2], gates=0)]
     pnets = [gate_net.MultiHeadGates(cfg=None, heads={1: pbgs[0],
                                                       2: pbgs[1]},
                                      convf=pbgs[2], gates=0)]
-    need = sum(gate_device.circuit_device_bytes(b) for b in pbgs[:3])
+    padded = sum(gate_device.circuit_device_bytes(b) for b in pbgs[:3])
+    need = sum(gate_device.device_bytes(b) for b in pbgs[:3])
+    assert need < padded - 1
+    # over the budget by JAX's padded count, within it by the port's
+    with pytest.raises(ValueError):
+        jdev.build_device_gates(jnets, "dnf", max_cube_bytes=padded - 1)
+    for budget in (need, padded - 1):
+        built = gate_device.build_device_gates(pnets, "dnf",
+                                               max_cube_bytes=budget)
+        for dev, bg, x in zip([built[0].heads[1], built[0].heads[2],
+                               built[0].convf], pbgs, xs):
+            torch.testing.assert_close(
+                gate_device.gate_block_apply_device(dev, x),
+                gate_net.gate_block_apply(bg, x), rtol=0, atol=0)
+    # over it by the port's count: refused, and the text says which count
     for budget in (16, need - 1):
-        with pytest.raises(ValueError) as jerr:
-            jdev.build_device_gates(jnets, "dnf", max_cube_bytes=budget)
         with pytest.raises(ValueError) as err:
             gate_device.build_device_gates(pnets, "dnf",
                                            max_cube_bytes=budget)
-        assert str(err.value) == str(jerr.value)
+        assert f"{need:,} bytes of covers on the card" in str(err.value)
+        assert "not JAX's padded cube tensors" in str(err.value)
         assert "host evaluator" in str(err.value)
     built = gate_device.build_device_gates(pnets, "cnf",
                                            max_cube_bytes=need * 4)
     assert built[0].convf.invert and built[0].heads[1].offsets[-1] == \
         sum(len(c) for c in pbgs[0].cnf_covers)
+
+
+@pytest.mark.parametrize("i", range(len(BLOCKS)), ids=IDS)
+def test_device_bytes_are_what_the_card_holds(i):
+    """``device_bytes`` is the size of the tensors a ``BlockGatesDev``
+    holds (cubes, offsets, constant mask and values), DNF and CNF, with
+    constant filters."""
+    _, pbg, _, _ = _blocks(i, constants=True)
+    assert any(c is not None for c in pbg.constants)
+    for form in ("dnf", "cnf"):
+        dev = gate_device.build_device_block(pbg, form)
+        held = sum(t.numel() * t.element_size() for t in (
+            dev.cubes, dev.offsets, dev.const_mask, dev.const_val))
+        assert gate_device.device_bytes(pbg, form) == held
