@@ -5,11 +5,13 @@
 Drives the port's main paths on the flagship TTnet-Small (p = 64,
 --layers 1, 224x224): served as its compiled truth tables over HTTP,
 evaluated from uint8 shards (``--mode eval``, conv and ``--lut``, with the
-fused pointwise kernel on), compiled to gate circuits and evaluated as them
-(``--mode compile``, ``--mode eval --gates dnf|cnf``) and trained from
-uint8 pre-crop shards (``--mode train``), and holds every CUDA kernel
-against its plain PyTorch version.  Phases, each printing one line of its
-numbers:
+fused pointwise kernel on, and under the serving transforms ``--bf16`` and
+``--fold_bn``), exported (``--mode export``), compiled to gate circuits and
+evaluated as them (``--mode compile``, ``--mode eval --gates dnf|cnf``) and
+trained from uint8 pre-crop shards (``--mode train``); and the VGG16-stem
+variant at full width as conv, tables and gate circuit (eval, serve,
+compile).  It holds every CUDA kernel against its plain PyTorch version.
+Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together),
            build the flagship from --seed with its BN running statistics
@@ -44,7 +46,21 @@ numbers:
            the switch off, conv with it on, ``--lut --lut_path F`` (writes
            F) and again (loads F); top-1/5, loss, img/s, the device's idle
            share and the launch counts of each run;
-7. gates:  (a) the flagship's covers compiled once in-process (seconds,
+7. serving_transforms: ``--list_models``; the flagship folded
+           (``--fold_bn``), cast (``--bf16``) and both, as ``main`` applies
+           them: B=256 forward times with the fused switch off and on;
+           argmax agreement with the f32 forward on smooth images (JAX's
+           bf16 gate, >= 0.75 for bf16; >= 99 % for the fold, whose
+           Heaviside outputs flip in at most 1e-4) and the share of
+           Heaviside outputs each transform flips; where a bf16 forward's
+           device time goes (switch off and on); the 6 fused launches of
+           a bf16 and of a folded forward against the plain version
+           (``fused_case``); ``main --mode eval`` over the eval phase's
+           shards with ``--bf16`` and ``--fold_bn`` (switch off and on) and
+           both: img/s, idle share, launches; ``main --mode export`` and a
+           strict reload of the file, whose logits equal the weights' bit
+           for bit;
+8. gates:  (a) the flagship's covers compiled once in-process (seconds,
            threads, total and per-head gates, cube counts, the bytes the
            covers take on the card, which the budget counts, beside the
            padded bytes of JAX's rule, and the path the default budget
@@ -66,7 +82,20 @@ numbers:
            once: the Verilog reuses the artifacts' covers); (h) the
            ``gate_cubes`` card tests (``tests/test_torch_cuda.py -k gate_``)
            in a subprocess, all passed.  Artifacts go under ``build/``;
-8. train:  (a) one f32 step of the flagship at B=256, no augmentation, on
+9. vgg_stem: ``TT_vf_19lv3_imgnet_xsmall_VGG`` at full width (p = 64,
+           fcsize 36,864) from --seed with its BN statistics perturbed:
+           5,000 seeded images labelled by its conv forward; its 2
+           ``lut_window_bits`` launches (heads 1+2 merged, head 3; n = 4),
+           its 6 ``gate_cubes`` launches (DNF and CNF, n = 4) and its one
+           fused launch (head 3, G = 16, ci = co = 4) against their plain
+           versions, with times and bounds; conv vs LUT top-1 >= 99 %,
+           gate bits and logits equal to the LUT's; forward times and
+           device profiles; ``main --mode eval`` as conv (switch on),
+           ``--lut --lut_path`` (writing, then loading), ``--gates dnf`` and
+           ``cnf`` with their launch counts; ``main --mode compile
+           --verilog``; ``main --mode serve --lut`` and ``--gates dnf``,
+           each answer's top-5 equal to the direct LUT forward's;
+10. train: (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -79,7 +108,7 @@ numbers:
            memory, first and last loss, validation top-1, no launch of the
            port's kernels; (d) a resume from the recipe run's ``last``
            checkpoint continues at step 11 with a finite loss;
-9. perf:   B=1 latency and B=256 throughput, conv and LUT (each with the
+11. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -186,6 +215,18 @@ def time_ms(fn, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Host wall time of one call of ``fn`` (a forward), the mean over
+    ``iters`` calls after a warm-up, the card synchronised at both ends."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
 
 
 def perturb_bn(model, seed: int) -> None:
@@ -423,8 +464,9 @@ def fused_case(block, x, FB):
     row["vs_exact_chain"] = float(((out - exact).abs().max()) if act == "relu"
                                   else (out != exact).float().mean())
     del out, exact
-    nbytes = (x.numel() * x.element_size() + b * h * w * g * co * 4
-              + sum(t.numel() * 4 for t in params))
+    # the output is stored in x's dtype; the params are f32
+    nbytes = (x.numel() * x.element_size() + b * h * w * g * co
+              * x.element_size() + sum(t.numel() * 4 for t in params))
     ops = fused_ops(b * h * w, g, ci, m, co)
     row.update(ms=time_ms(run), plain_ms=time_ms(plain),
                chain_ms=time_ms(chain), bytes=nbytes, ops=ops,
@@ -464,16 +506,54 @@ def fused_kernels_phase(model, x, out_dir: Path) -> list:
     return rows
 
 
-def eval_phase(args, model, out_dir: Path) -> dict:
-    """``main --mode eval`` over self-labelled shards: conv (switch off,
-    on), LUT writing its archive, LUT loading it."""
+def main_eval(argv: list, fused: bool) -> dict:
+    """``main --mode eval`` (``argv``) with the fused switch set: top-1/5,
+    loss, img/s over the eval loop, the device's idle share over it, and
+    the launches of every kernel of the port in this run (the counts set to
+    0 just before it and read just after)."""
     from torch.profiler import ProfilerActivity, profile
 
     from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+
+    stats = {}
+    real_evaluate = cli.evaluate
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            res = real_evaluate(*a, **k)
+            torch.cuda.synchronize()
+            stats["wall_s"] = time.perf_counter() - t
+        stats["busy_s"] = busy_ns(device_spans(prof)) / 1e9
+        return res
+
+    K.reset_launches()
+    FB.reset_launches()
+    GC.reset_launches()
+    t = time.perf_counter()
+    with mock.patch.object(cli, "evaluate", timed), fused_blocks(fused):
+        top1, top5, loss = cli.main(argv)
+    torch.cuda.synchronize()
+    return {"top1": top1, "top5": top5, "loss": loss,
+            "img_s": EVAL_IMAGES / stats["wall_s"], "eval_s": stats["wall_s"],
+            "device_idle_share": 1 - stats["busy_s"] / stats["wall_s"],
+            "run_s": time.perf_counter() - t,
+            "launches": {"fused_pointwise_block":
+                         FB.fused_pointwise_block.launches,
+                         "lut_window_bits": K.lut_window_bits.launches,
+                         "lut_window_float": K.lut_window_float.launches,
+                         "gate_cubes": GC.gate_cubes.launches}}
+
+
+def eval_phase(args, model, out_dir: Path) -> dict:
+    """``main --mode eval`` over self-labelled shards: conv (switch off,
+    on), LUT writing its archive, LUT loading it."""
     from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
         IMAGENET_STD, pad_batches, write_shards
-    from scale_imagenet_tpu_torch.kernels import fused_block as FB
-    from scale_imagenet_tpu_torch.kernels import lut_gather as K
     from scale_imagenet_tpu_torch.layers.linear import linear
     from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
         ttnet_imagenet_apply, ttnet_imagenet_features
@@ -517,40 +597,12 @@ def eval_phase(args, model, out_dir: Path) -> dict:
             "--eval_batch_size", str(B), "--seed", str(args.seed),
             "--ckpt", str(ckpt), "--root_dir", str(work / "logs")]
     batches = -(-n // B)
-    real_evaluate = cli.evaluate
     results = {}
     for name, extra, fused in (
             ("conv", [], False), ("conv_fused", [], True),
             ("lut_write", ["--lut", "--lut_path", str(lut_path)], True),
             ("lut_load", ["--lut", "--lut_path", str(lut_path)], True)):
-        stats = {}
-
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                res = real_evaluate(*a, **k)
-                torch.cuda.synchronize()
-                stats["wall_s"] = time.perf_counter() - t
-            stats["busy_s"] = busy_ns(device_spans(prof)) / 1e9
-            return res
-
-        K.reset_launches()
-        FB.reset_launches()
-        t = time.perf_counter()
-        with mock.patch.object(cli, "evaluate", timed), fused_blocks(fused):
-            top1, top5, loss = cli.main(base + extra)
-        torch.cuda.synchronize()
-        launches = {"fused_pointwise_block": FB.fused_pointwise_block.launches,
-                    "lut_window_bits": K.lut_window_bits.launches,
-                    "lut_window_float": K.lut_window_float.launches}
-        results[name] = {"top1": top1, "top5": top5, "loss": loss,
-                         "img_s": n / stats["wall_s"],
-                         "eval_s": stats["wall_s"],
-                         "device_idle_share": 1 - stats["busy_s"]
-                         / stats["wall_s"],
-                         "run_s": time.perf_counter() - t,
-                         "launches": launches}
+        results[name] = main_eval(base + extra, fused)
         emit("eval", run=name, fused=fused, **results[name])
     want = {"conv": (0, 0), "conv_fused": (6 * batches, 0),
             "lut_write": (batches, 8 * batches),
@@ -1110,6 +1162,475 @@ def train_phase(args, model, out_dir: Path) -> dict:
     return {"parity": parity, "overfit": losses, "runs": runs}
 
 
+def flip_share(bits_a: list, bits_b: list) -> float:
+    """Share of the Heaviside outputs of two forwards that differ (each
+    chain fed by itself, so a flip counts again where it propagates)."""
+    check(len(bits_a) == len(bits_b) and all(
+        a.shape == b.shape for a, b in zip(bits_a, bits_b)),
+        "the two forwards ran different Heavisides")
+    flips = sum(int((a != b).sum()) for a, b in zip(bits_a, bits_b))
+    return flips / sum(a.numel() for a in bits_a)
+
+
+def capture_fused(model, x, apply) -> list:
+    """``(block, input)`` of every fused launch of one forward of ``model``
+    with the switch on."""
+    from scale_imagenet_tpu_torch.models import multihead
+
+    captured = []
+    real = multihead.block_tt
+
+    def rec(block, h, *a, **k):
+        if block.cfg.k in (1, (1, 1)):
+            captured.append((block, h))
+        return real(block, h, *a, **k)
+
+    with mock.patch.object(multihead, "block_tt", rec), fused_blocks(True):
+        apply(model, x)
+    torch.cuda.synchronize()
+    return captured
+
+
+def serving_transforms_phase(args, md, model, x, out_dir: Path) -> dict:
+    """The flagship under ``--bf16`` and ``--fold_bn`` (module docstring,
+    phase 7), the transforms as ``main`` applies them: in process on the
+    setup's model, through ``main`` on the eval phase's weights."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply
+
+    B = args.batch
+    names = cli.main(["--list_models"])
+    check("ttnet_imagenet_vgg_stem" in names and md.name in names,
+          f"--list_models printed {names}")
+    eval_dir = Path("build") / "chip_smoke_eval"
+    weights = str(eval_dir / "weights.pth")
+    models = {"f32": model}
+    for name, flags in (("bf16", ["--bf16"]), ("fold", ["--fold_bn"]),
+                        ("fold_bf16", ["--fold_bn", "--bf16"])):
+        models[name] = copy.deepcopy(model)
+        cli.apply_serving_transforms(cli.parse_args(
+            ["--mode", "serve", *flags]), models[name])
+    check(models["bf16"].stem_conv.weight.dtype == torch.bfloat16
+          and models["fold"].stem_conv.bias is not None
+          and not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "the serving transforms did not cast / fold, or turned TF32 on")
+
+    # (a) forward times, the switch off and on
+    fwd = {}
+    for name, m in models.items():
+        for fused in (False, True):
+            with fused_blocks(fused):
+                fwd[f"{name}{'_fused' if fused else ''}_b256_ms"] = wall_ms(
+                    lambda: ttnet_imagenet_apply(m, x), 10)
+    for k in list(fwd):
+        fwd[k.replace("_b256_ms", "_img_s")] = B / fwd[k] * 1e3
+
+    # (b) agreement with the f32 forward, each chain fed by itself, on
+    # smooth images as JAX's bf16 gate takes them (``tests/test_bf16_eval.py``:
+    # noise images sit on Heaviside thresholds far more often)
+    base = torch.rand((B, 3, 14, 14), generator=torch.Generator()
+                      .manual_seed(args.seed + 9))
+    smooth = torch.nn.functional.interpolate(
+        base, size=(224, 224), mode="bilinear").permute(0, 2, 3, 1) \
+        .contiguous().to(x.device)
+    logits, bits = {}, {}
+    for name, m in models.items():
+        bits[name] = []
+        with fused_blocks(False), heaviside_outputs(bits[name]):
+            logits[name] = ttnet_imagenet_apply(m, smooth)
+    bf16_dtype = str(logits["bf16"].dtype)
+    logits = {name: lg.float() for name, lg in logits.items()}
+    with fused_blocks(True):
+        for name in ("f32", "bf16", "fold"):
+            logits[f"{name}_fused"] = ttnet_imagenet_apply(
+                models[name], smooth).float()
+    top1 = {name: float((lg.argmax(1) == logits["f32"].argmax(1)).float()
+                        .mean()) for name, lg in logits.items()}
+    top1["fold_fused_vs_f32_fused"] = float(
+        (logits["fold_fused"].argmax(1) == logits["f32_fused"].argmax(1))
+        .float().mean())
+    shares = {name: flip_share(bits["f32"], bits[name])
+              for name in ("bf16", "fold", "fold_bf16")}
+    diffs = {name: float((logits[name] - logits["f32"]).abs().max())
+             for name in ("bf16", "fold", "fold_bf16")}
+    diffs["fold_fused_vs_f32_fused"] = float(
+        (logits["fold_fused"] - logits["f32_fused"]).abs().max())
+    emit("serving_transforms", batch=B, **fwd,
+         agreement_images="smooth (14x14 noise, bilinear to 224x224)",
+         top1_agreement_vs_f32=top1,
+         heaviside_flip_share_vs_f32=shares, logit_max_abs_diff_vs_f32=diffs,
+         logits_dtype_bf16=bf16_dtype)
+    check(min(top1["bf16"], top1["fold_bf16"], top1["bf16_fused"]) >= 0.75,
+          f"bf16 argmax agreement with f32 {top1} < 0.75")
+    check(shares["fold"] <= 1e-4, f"--fold_bn flipped {shares['fold']} of "
+                                  "the Heaviside outputs (> 1e-4)")
+    check(top1["fold"] >= 0.99 and top1["fold_fused_vs_f32_fused"] >= 0.99,
+          f"--fold_bn top-1 agreement {top1} < 0.99")
+    check(bf16_dtype == "torch.bfloat16", f"--bf16 logits are {bf16_dtype}")
+    # where a bf16 forward's device time goes (the f32 one: phase perf)
+    profile_forward("conv_bf16", lambda: ttnet_imagenet_apply(
+        models["bf16"], x), B, out_dir)
+    with fused_blocks(True):
+        profile_forward("conv_bf16_fused", lambda: ttnet_imagenet_apply(
+            models["bf16"], x), B, out_dir)
+
+    # (c) the fused launches of a bf16 and of a folded forward
+    rows = []
+    for name in ("bf16", "fold"):
+        captured = capture_fused(models[name], x, ttnet_imagenet_apply)
+        check(len(captured) == 6, f"{len(captured)} fused launches in a "
+                                  f"{name} forward, expected 6")
+        for block, h in captured:
+            row = {"transform": name, **fused_case(block, h, FB)}
+            rows.append(row)
+            emit("fused_kernels", kernel="fused_pointwise_block", **row)
+    del models, logits, bits
+
+    # (d) main --mode eval over the eval phase's shards
+    base = ["--mode", "eval", "--shards_dir", str(eval_dir / "shards"),
+            "--eval_batch_size", str(B), "--seed", str(args.seed),
+            "--ckpt", weights, "--root_dir", str(eval_dir / "logs")]
+    batches = -(-EVAL_IMAGES // B)
+    evals = {}
+    for name, flags, fused in (
+            ("bf16", ["--bf16"], False), ("bf16_fused", ["--bf16"], True),
+            ("fold", ["--fold_bn"], False),
+            ("fold_fused", ["--fold_bn"], True),
+            ("fold_bf16_fused", ["--fold_bn", "--bf16"], True)):
+        evals[name] = main_eval(base + flags, fused)
+        emit("eval", run=name, fused=fused, **evals[name])
+        want = 6 * batches if fused else 0
+        got = evals[name]["launches"]["fused_pointwise_block"]
+        check(got == want, f"eval {name} launched the fused kernel {got} "
+                           f"times, expected {want}")
+        # the labels come from the f32 forward on noise images, through a
+        # classifier BN set from them (an ill-conditioned head: bf16 moves
+        # its argmax often): a fold is the same function; bf16 is held to
+        # JAX's gate on smooth images above, and here to 10x chance (0.5 %)
+        floor = 99.0 if "bf16" not in name else 5.0
+        check(evals[name]["top1"] >= floor and np.isfinite(
+            evals[name]["loss"]),
+            f"eval {name} top-1 {evals[name]['top1']} < {floor}")
+
+    # (e) --mode export, then a strict reload: the same logits, bit for bit
+    exported = str(eval_dir / "exported.pth")
+    check(cli.main(["--mode", "export", "--ckpt", weights, "--export_out",
+                    exported]) == exported, "--mode export failed")
+    reloaded, loaded = (md.init(seed=args.seed + i, device=x.device)
+                        for i in (1, 2))
+    cli.load_checkpoint(reloaded, exported)
+    cli.load_checkpoint(loaded, weights)
+    same = torch.equal(ttnet_imagenet_apply(reloaded, x),
+                       ttnet_imagenet_apply(loaded, x))
+    emit("export", path_bytes=Path(exported).stat().st_size,
+         reload_logits_equal=same)
+    check(same, "the exported weights reload to other logits")
+    Path(exported).unlink()
+    return {"rows": rows, "evals": evals}
+
+
+def vgg_stem_phase(args, out_dir: Path) -> dict:
+    """The VGG16-stem variant at full width (module docstring, phase 9)."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.compile import gate_device as GD
+    from scale_imagenet_tpu_torch.compile import lut_eval
+    from scale_imagenet_tpu_torch.compile.gate_net import \
+        compile_ttnet_gates, total_gates
+    from scale_imagenet_tpu_torch.compile.lut_eval import _bits, \
+        compile_ttnet_lut, lut_multihead_apply, lut_ttnet_vgg_stem_apply
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, pad_batches, write_shards
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.layers.linear import linear
+    from scale_imagenet_tpu_torch.layers.pool import flatten
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, \
+        ttnet_vgg_stem_apply, vgg_stem
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    B, n = args.batch, EVAL_IMAGES
+    work = Path("build") / "chip_smoke_vgg"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device("cuda")
+    vmd = get_model("ttnet_imagenet_vgg_stem")
+    model = vmd.init(seed=args.seed, device=dev)
+    perturb_bn(model, args.seed + 10)
+    # images and labels: the classifier BN's statistics set from the first
+    # batch, as in the eval phase, then labels from the conv forward
+    t0 = time.perf_counter()
+    imgs = np.random.default_rng(args.seed + 11).integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    head = model.classifier
+    x = prepare(torch.from_numpy(imgs[:B]).cuda())
+    z = linear(flatten(model.blocks[0](vgg_stem(model, _nchw(x, model)))),
+               head.lin1.weight)
+    head.BN2.running_mean.copy_(z.mean(0))
+    head.BN2.running_var.copy_(z.var(0))
+    labels = []
+    for batch, _ in pad_batches(((imgs[i:i + B], np.zeros(
+            min(B, n - i), np.int32)) for i in range(0, n, B)), B):
+        labels.append(ttnet_vgg_stem_apply(
+            model, prepare(torch.from_numpy(batch).cuda())).argmax(1).cpu())
+    labels = torch.cat(labels)[:n].numpy().astype(np.int32)
+    write_shards(ArrayDataset(imgs, labels), str(work / "shards"))
+    weights = work / "weights.pth"
+    torch.save(model.state_dict(), weights)
+    del imgs, z
+    t = time.perf_counter()
+    luts = compile_ttnet_lut(model)
+    gnets = compile_ttnet_gates(model)
+    gdevs = {form: GD.build_device_gates(gnets, form, device=dev)
+             for form in ("dnf", "cnf")}
+    emit("vgg_setup", images=n, batch=B, classes_hit=int(
+        np.unique(labels).size), setup_s=t - t0,
+        compile_s=time.perf_counter() - t, total_gates=total_gates(gnets),
+        fcsize=vmd.config.fcsize, params=sum(
+            p.numel() for p in model.parameters()))
+
+    # (a) the window launches of one LUT forward
+    captured = []
+    real_bits = lut_eval.lut_window_bits
+
+    def rec_bits(xb, words, k, stride, padding, heads=1):
+        captured.append(("bits", xb, words, k, stride, padding, heads))
+        return real_bits(xb, words, k, stride, padding, heads)
+
+    with mock.patch.object(lut_eval, "lut_window_bits", rec_bits):
+        lut_ttnet_vgg_stem_apply(luts, model, x)
+    check(len(captured) == 2, f"{len(captured)} lut_window_bits launches a "
+                              "VGG-stem LUT forward, expected 2")
+    windows = []
+    for kind, *launch in captured:
+        row = window_case(kind, *launch, K)
+        windows.append(row)
+        emit("vgg_kernels", kernel="lut_window_bits", **row)
+    del captured
+
+    # (b) the cube launches of one DNF and one CNF forward
+    captured = []
+    real_cubes = GD.gate_cubes
+
+    def rec_cubes(planes, cubes, offsets, filters, invert=False):
+        captured.append((planes, cubes, offsets, filters, invert))
+        return real_cubes(planes, cubes, offsets, filters, invert)
+
+    with mock.patch.object(GD, "gate_cubes", rec_cubes):
+        for form in ("dnf", "cnf"):
+            GD.gate_ttnet_vgg_stem_apply_device(gdevs[form], model, x)
+    check(len(captured) == 6, f"{len(captured)} gate_cubes launches in a "
+                              "VGG-stem DNF and CNF forward, expected 3 each")
+    gates = []
+    for launch in captured:
+        row = gate_case(*launch, GC)
+        gates.append(row)
+        emit("vgg_kernels", kernel="gate_cubes", **row)
+    del captured
+
+    # (c) the fused launch of a conv forward (head 3, G = 16, ci = co = 4)
+    captured = capture_fused(model, x, ttnet_vgg_stem_apply)
+    check(len(captured) == 1, f"{len(captured)} fused launches a VGG-stem "
+                              "conv forward, expected 1")
+    fused = [fused_case(*captured[0], FB)]
+    emit("vgg_kernels", kernel="fused_pointwise_block", **fused[0])
+    del captured
+
+    # (d) conv, LUT and gates against each other at B = 256
+    ref = ttnet_vgg_stem_apply(model, x)
+    K.reset_launches()
+    got = lut_ttnet_vgg_stem_apply(luts, model, x)
+    torch.cuda.synchronize()
+    check(K.lut_window_bits.launches == 2, "VGG-stem LUT forward launches")
+    with mock.patch.object(lut_eval, "lut_window_bits",
+                           K.lut_window_bits_plain):
+        check(torch.equal(got, lut_ttnet_vgg_stem_apply(luts, model, x)),
+              "VGG-stem LUT logits through the kernel differ from the "
+              "plain version's")
+    h = vgg_stem(model, _nchw(x, model))
+    conv_bits = model.blocks[0](h)
+    lut_bits = lut_multihead_apply(luts[0], _bits(h, None))
+    gate_mism = {form: int((GD.gate_multihead_apply_device(
+        gdevs[form][0], _bits(h, None)) != lut_bits).sum())
+        for form in ("dnf", "cnf")}
+    gate_logits = {form: GD.gate_ttnet_vgg_stem_apply_device(
+        gdevs[form], model, x) for form in ("dnf", "cnf")}
+    top1 = float((ref.argmax(1) == got.argmax(1)).float().mean())
+    emit("vgg_model", batch=B, top1_agreement_conv_vs_lut=top1,
+         block_bit_mismatch_frac_conv_vs_lut=float(
+             (conv_bits != lut_bits.float()).float().mean()),
+         gate_bit_mismatches_vs_lut=gate_mism,
+         gate_logits_equal_lut={f: bool(torch.equal(v, got))
+                                for f, v in gate_logits.items()},
+         logit_max_abs_diff_conv_vs_lut=float((ref - got).abs().max()))
+    check(ref.shape == (B, 1000) and bool(torch.isfinite(ref).all()),
+          "VGG-stem logits non-finite or misshapen")
+    check(top1 >= 0.99, f"VGG-stem top-1 agreement conv vs LUT {top1}")
+    check(not any(gate_mism.values()) and all(
+        torch.equal(v, got) for v in gate_logits.values()),
+        f"VGG-stem gate bits differ from the LUT's: {gate_mism}")
+    del h, conv_bits, lut_bits, gate_logits, ref, got
+
+    # (e) forward times and where a LUT and a gate forward's time goes
+    fwd = {"conv_b256_ms": wall_ms(lambda: ttnet_vgg_stem_apply(model, x),
+                                   10),
+           "lut_b256_ms": wall_ms(lambda: lut_ttnet_vgg_stem_apply(
+               luts, model, x), 10)}
+    with fused_blocks(True):
+        fwd["conv_fused_b256_ms"] = wall_ms(
+            lambda: ttnet_vgg_stem_apply(model, x), 10)
+    for form in ("dnf", "cnf"):
+        fwd[f"gates_{form}_b256_ms"] = wall_ms(
+            lambda: GD.gate_ttnet_vgg_stem_apply_device(gdevs[form], model,
+                                                        x), 10)
+    for k in list(fwd):
+        fwd[k.replace("_b256_ms", "_img_s")] = B / fwd[k] * 1e3
+    emit("vgg_perf", batch=B, **fwd)
+    profile_forward("vgg_conv", lambda: ttnet_vgg_stem_apply(model, x), B,
+                    out_dir)
+    profile_forward("vgg_lut", lambda: lut_ttnet_vgg_stem_apply(
+        luts, model, x), B, out_dir)
+    profile_forward("vgg_gates_dnf", lambda: GD.gate_ttnet_vgg_stem_apply_device(
+        gdevs["dnf"], model, x), B, out_dir)
+    del model, luts, gdevs, x
+
+    # (f) main --mode eval: conv (the switch on), LUT writing and loading
+    # its archive, the gates in DNF and CNF
+    lut_path = str(work / "luts.npz")
+    base = ["--mode", "eval", "--model", vmd.name, "--shards_dir",
+            str(work / "shards"), "--eval_batch_size", str(B), "--seed",
+            str(args.seed), "--ckpt", str(weights), "--root_dir",
+            str(work / "logs")]
+    batches = -(-n // B)
+    evals = {}
+    for name, extra, fused_on, want in (
+            ("conv_fused", [], True, {"fused_pointwise_block": batches}),
+            ("lut_write", ["--lut", "--lut_path", lut_path], False,
+             {"lut_window_bits": 2 * batches}),
+            ("lut_load", ["--lut", "--lut_path", lut_path], False,
+             {"lut_window_bits": 2 * batches}),
+            ("gates_dnf", ["--gates", "dnf"], False,
+             {"gate_cubes": 3 * batches}),
+            ("gates_cnf", ["--gates", "cnf"], False,
+             {"gate_cubes": 3 * batches})):
+        evals[name] = main_eval(base + extra, fused_on)
+        emit("vgg_eval", run=name, fused=fused_on, **evals[name])
+        launched = {k: v for k, v in evals[name]["launches"].items() if v}
+        check(launched == want, f"VGG-stem eval {name} launched {launched}, "
+                                f"expected {want}")
+    check(evals["conv_fused"]["top1"] >= 99.0,
+          f"VGG-stem conv eval top-1 {evals['conv_fused']['top1']} < 99")
+    check(evals["lut_write"]["top1"] >= 99.0,
+          f"VGG-stem LUT eval top-1 {evals['lut_write']['top1']} < 99")
+    for name in ("lut_load", "gates_dnf", "gates_cnf"):
+        check(all(evals[name][k] == evals["lut_write"][k]
+                  for k in ("top1", "top5", "loss")),
+              f"VGG-stem eval {name} differs from lut_write")
+
+    # (g) main --mode compile --verilog from the same weights
+    t = time.perf_counter()
+    summary = cli.main(["--mode", "compile", "--model", vmd.name, "--ckpt",
+                        str(weights), "--compile_out", str(work / "compile"),
+                        "--verilog"])
+    emit("vgg_compile", compile_s=time.perf_counter() - t,
+         blocks=summary["blocks"], total_gates=summary["total_gates"],
+         verilog_total_gates=summary["verilog"]["total_gates"])
+    # n = 4 <= 12: the artifacts count the gates of minimized expressions,
+    # the circuits (and their Verilog) those of espresso covers, as in JAX
+    check(sorted(summary["blocks"]) == ["block0_conv1", "block0_conv2",
+                                        "block0_conv3"]
+          and summary["total_gates"] > 0
+          and summary["verilog"]["total_gates"] == total_gates(gnets),
+          f"VGG-stem --mode compile: {summary['blocks']}, Verilog "
+          f"{summary['verilog']['total_gates']} gates, circuits "
+          f"{total_gates(gnets)}")
+
+    # (h) main --mode serve, as tables and as the DNF circuit
+    serve_launches = {}
+    rng = torch.Generator().manual_seed(args.seed + 12)
+    reqs = torch.rand((8, 224, 224, 3), generator=rng)
+    smodel = vmd.init(seed=args.seed, device=dev)
+    cli.load_checkpoint(smodel, str(weights))
+    direct = lut_ttnet_vgg_stem_apply(compile_ttnet_lut(smodel), smodel,
+                                      reqs.to(dev))
+    direct = torch.topk(torch.softmax(direct, -1), 5).indices.tolist()
+    for form, flags in (("lut", ["--lut"]), ("gates_dnf", ["--gates",
+                                                           "dnf"])):
+        answers, health, counts = serve_requests(
+            ["--model", vmd.name, "--ckpt", str(weights), *flags], reqs,
+            batch=8)
+        serve_launches[form] = counts
+        agree = sum(a["top5"] == d for a, d in zip(answers, direct))
+        emit("vgg_serve", form=form, requests=len(answers), top5_equal=agree,
+             launches=counts, healthz=health)
+        check(agree == len(answers), f"VGG-stem serve {form}: top-5 of "
+                                     f"{len(answers) - agree} answers differ")
+        # a launch set a batch, the server's warm-up batch included
+        kernel, per = (("lut_window_bits", 2) if form == "lut"
+                       else ("gate_cubes", 3))
+        check(counts[kernel] == per * (health["batches"] + 1),
+              f"VGG-stem serve {form} launched {counts}")
+    shutil.rmtree(work)
+    return {"windows": windows, "gates": gates, "fused": fused,
+            "evals": evals, "serve_launches": serve_launches}
+
+
+def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
+    """``main --mode serve --serve_batch batch`` (and ``argv``) in a
+    thread, one concurrent raw-f32 request an image of ``reqs``: the
+    answers, ``/healthz`` and the port's kernel launches of the run (the
+    counts set to 0 just before it)."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+
+    ready, stop = threading.Event(), threading.Event()
+    errors = []
+    K.reset_launches()
+    FB.reset_launches()
+    GC.reset_launches()
+
+    def run_server():
+        try:
+            cli.main(["--mode", "serve", "--serve_batch", str(batch),
+                      "--port", "0", *argv],
+                     serve_ready=ready, serve_stop=stop)
+        except BaseException as e:        # reported by the main thread
+            errors.append(e)
+            ready.set()
+
+    th = threading.Thread(target=run_server, daemon=True)
+    th.start()
+    check(ready.wait(600) and not errors, f"server failed: {errors}")
+    url = f"http://127.0.0.1:{ready.port}"
+
+    def post(i):
+        req = urllib.request.Request(
+            url + "/predict", data=reqs[i].numpy().tobytes(),
+            headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        answers = list(pool.map(post, range(len(reqs))))
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    stop.set()
+    th.join(60)
+    check(not th.is_alive() and not errors, f"server stop: {errors}")
+    counts = {"fused_pointwise_block": FB.fused_pointwise_block.launches,
+              "lut_window_bits": K.lut_window_bits.launches,
+              "lut_window_float": K.lut_window_float.launches,
+              "gate_cubes": GC.gate_cubes.launches}
+    return answers, health, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1131,7 +1652,6 @@ def run(args) -> int:
         lut_multihead_apply, lut_ttnet_apply, _bits
     from scale_imagenet_tpu_torch.kernels import build
     from scale_imagenet_tpu_torch.kernels import lut_gather as K
-    from scale_imagenet_tpu_torch import main as cli
     from scale_imagenet_tpu_torch.models import get_model
     from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, stem, \
         ttnet_imagenet_apply
@@ -1251,41 +1771,9 @@ def run(args) -> int:
           f"table-exact logits differ from the default by {tab_err}")
 
     # ------------------------------------------------------------ serve
-    ready, stop = threading.Event(), threading.Event()
-    K.reset_launches()
-    server_err = []
-
-    def run_server():
-        try:
-            cli.main(["--mode", "serve", "--lut", "--serve_batch", "8",
-                      "--port", "0", "--seed", str(args.seed)],
-                     serve_ready=ready, serve_stop=stop)
-        except BaseException as e:        # reported by the main thread
-            server_err.append(e)
-            ready.set()
-
-    th = threading.Thread(target=run_server, daemon=True)
-    th.start()
-    check(ready.wait(600) and not server_err, f"server failed: {server_err}")
-    url = f"http://127.0.0.1:{ready.port}"
     imgs = torch.rand((16, 224, 224, 3), generator=gen)
-
-    def post(i):
-        req = urllib.request.Request(
-            url + "/predict", data=imgs[i].numpy().tobytes(),
-            headers={"Content-Type": "application/octet-stream"})
-        with urllib.request.urlopen(req, timeout=120) as r:
-            return json.loads(r.read())
-
-    with ThreadPoolExecutor(16) as pool:
-        answers = list(pool.map(post, range(16)))
-    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-        health = json.loads(r.read())
-    stop.set()
-    th.join(60)
-    check(not th.is_alive() and not server_err, f"server stop: {server_err}")
-    serve_launches = {"lut_window_bits": K.lut_window_bits.launches,
-                      "lut_window_float": K.lut_window_float.launches}
+    answers, health, serve_launches = serve_requests(
+        ["--lut", "--seed", str(args.seed)], imgs, batch=8)
     # the direct forward: the same seed's model, unperturbed, B = 8 (the
     # server's padded shape)
     smodel = md.init(seed=args.seed, device=dev)
@@ -1313,8 +1801,16 @@ def run(args) -> int:
     # ------------------------------------------------------------- eval
     evals = eval_phase(args, model, out_dir)
 
+    # ----------------------------------------------- serving transforms
+    transforms = serving_transforms_phase(args, md, model, x, out_dir)
+    torch.cuda.synchronize()
+
     # ------------------------------------------------------------ gates
     gates = gates_phase(args, md, model, luts, x, out_dir)
+    torch.cuda.synchronize()
+
+    # --------------------------------------------------------- VGG stem
+    vgg = vgg_stem_phase(args, out_dir)
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ train
@@ -1322,15 +1818,6 @@ def run(args) -> int:
         train_phase(args, model, out_dir)
 
     # ------------------------------------------------------------- perf
-    def wall_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / iters
-
     x1 = x[:1].contiguous()
     perf = {
         "conv_b1_ms": wall_ms(lambda: ttnet_imagenet_apply(model, x1), 50),
@@ -1362,53 +1849,86 @@ def run(args) -> int:
           f"convolutions a LUT forward: {convs}, expected the stem's and "
           "the float fuse head's only")
 
-    def entry(kind, replaces, launches):
-        rows = cases[kind]
-        return {"name": f"lut_window_{kind}", "route": "cuda",
-                "source": "scale_imagenet_tpu_torch/csrc/lut_gather.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": sum(r["ms"] for r in rows),
-                "plain_ms": sum(r["plain_ms"] for r in rows),
-                "bound_ms": sum(r["bound_ms"] for r in rows),
-                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                           for r in rows) else "operations",
-                "library_ms": sum(r["library_ms"] for r in rows),
-                "chain_ms": sum(r["chain_ms"] for r in rows)}
+    def sums(rows, prefix=""):
+        """A forward's launches summed: ms, plain, bound (and the library
+        lookup and chain where the rows have them)."""
+        out = {f"{prefix}{k}": sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "chain_ms") if k in rows[0]}
+        # the kind that bounds the larger part of the summed bound
+        share = {kind: sum(r["bound_ms"] for r in rows
+                           if r["bound_by"] == kind)
+                 for kind in ("bytes", "operations")}
+        out[f"{prefix}bound_by"] = max(share, key=share.get)
+        return out
 
+    def entry(name, source, replaces, by_path, rows, vgg_rows=(),
+              err="max_abs_err", library=True):
+        """One kernel's line: ``launches`` the sum over the paths that
+        launch it, each counted from 0 over its run (``launches_by_path``);
+        the times a flagship forward's launches take, and the VGG stem's
+        under ``vgg_stem_*``; the worst error over every case."""
+        line = {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": max(r[err] for r in [*rows, *vgg_rows]),
+                **sums(rows)}
+        if not library:
+            line["library_ms"] = None
+        if vgg_rows:
+            line.update(sums(vgg_rows, "vgg_stem_"))
+        return line
+
+    vgg_evals = vgg["evals"]
     kernels = [
-        entry("bits", "scale_imagenet_tpu/pallas/lut_gather.py:84",
-              serve_launches["lut_window_bits"]),
-        entry("float", "scale_imagenet_tpu/pallas/lut_gather.py:107",
-              table_exact_launches["lut_window_float"]),
-        {"name": "fused_pointwise_block", "route": "cuda",
-         "source": "scale_imagenet_tpu_torch/csrc/fused_block.cu",
-         "replaces": "scale_imagenet_tpu/pallas/fused_block.py:41, "
-                     "scale_imagenet_tpu/pallas/fused_block.py:191",
-         "launches": evals["conv_fused"]["launches"][
-             "fused_pointwise_block"],
-         "max_abs_err": max(r["max_abs_err_float32"] for r in fused_rows),
-         "ms": sum(r["ms"] for r in fused_rows),
-         "plain_ms": sum(r["plain_ms"] for r in fused_rows),
-         "bound_ms": sum(r["bound_ms"] for r in fused_rows),
-         "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                         for r in fused_rows) else "bytes",
-         "library_ms": None,
-         "chain_ms": sum(r["chain_ms"] for r in fused_rows)},
-        {"name": "gate_cubes", "route": "cuda",
-         "source": "scale_imagenet_tpu_torch/csrc/gate_cubes.cu",
-         "replaces": "scale_imagenet_tpu/compile/gate_device.py:195 (XLA "
-                     "ops; no Pallas kernel)",
-         "launches": gates["launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in gates["cases"]),
-         "ms": sum(r["ms"] for r in gates["dnf_cases"]),
-         "plain_ms": sum(r["plain_ms"] for r in gates["dnf_cases"]),
-         "bound_ms": sum(r["bound_ms"] for r in gates["dnf_cases"]),
-         "bound_by": "operations" if all(
-             r["bound_by"] == "operations" for r in gates["dnf_cases"])
-         else "bytes",
-         "library_ms": None},
+        entry("lut_window_bits",
+              "scale_imagenet_tpu_torch/csrc/lut_gather.cu",
+              "scale_imagenet_tpu/pallas/lut_gather.py:84",
+              {"serve_flagship": serve_launches["lut_window_bits"],
+               "serve_vgg_stem": vgg["serve_launches"]["lut"][
+                   "lut_window_bits"],
+               "eval_vgg_stem_lut": vgg_evals["lut_write"]["launches"][
+                   "lut_window_bits"]},
+              cases["bits"], vgg["windows"]),
+        entry("lut_window_float",
+              "scale_imagenet_tpu_torch/csrc/lut_gather.cu",
+              "scale_imagenet_tpu/pallas/lut_gather.py:107",
+              {"table_exact_forward": table_exact_launches[
+                  "lut_window_float"]}, cases["float"]),
+        entry("fused_pointwise_block",
+              "scale_imagenet_tpu_torch/csrc/fused_block.cu",
+              "scale_imagenet_tpu/pallas/fused_block.py:41, "
+              "scale_imagenet_tpu/pallas/fused_block.py:191",
+              {"eval_conv_fused": evals["conv_fused"]["launches"][
+                  "fused_pointwise_block"],
+               **{f"eval_{k}": v["launches"]["fused_pointwise_block"]
+                  for k, v in transforms["evals"].items()},
+               "eval_vgg_stem_conv_fused": vgg_evals["conv_fused"][
+                   "launches"]["fused_pointwise_block"]},
+              fused_rows, vgg["fused"], err="max_abs_err_float32",
+              library=False),
+        entry("gate_cubes", "scale_imagenet_tpu_torch/csrc/gate_cubes.cu",
+              "scale_imagenet_tpu/compile/gate_device.py:195 (XLA ops; no "
+              "Pallas kernel)",
+              {"eval_gates_flagship": gates["launches"],
+               "serve_vgg_stem_gates_dnf": vgg["serve_launches"][
+                   "gates_dnf"]["gate_cubes"],
+               **{f"eval_vgg_stem_{k}": vgg_evals[k]["launches"][
+                   "gate_cubes"] for k in ("gates_dnf", "gates_cnf")}},
+              gates["dnf_cases"], [r for r in vgg["gates"]
+                                   if not r["invert"]], library=False),
     ]
+    # the cases under the serving transforms: bf16 x, folded biases
+    fused_line = kernels[2]
+    fused_line["max_abs_err"] = max(
+        fused_line["max_abs_err"],
+        *(r["max_abs_err_float32"] for r in transforms["rows"]))
+    fused_line.update({f"{t}_{k}": v for t in ("bf16", "fold") for k, v in
+                       sums([r for r in transforms["rows"]
+                             if r["transform"] == t]).items()})
+    # every gate case, CNF included, counts towards the worst error
+    kernels[3]["max_abs_err"] = max(
+        r["max_abs_err"] for r in [*gates["cases"], *vgg["gates"]])
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,9 @@ from ..layers.pool import constant_pad2d
 from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair
 from ..models.multihead import MultiHeadConfig, channel_interleave, \
     reconcile_heads
-from ..models.ttnet_imagenet import TTnetImageNet
-from .gate_net import BlockGates, MultiHeadGates, _fuse, ttnet_gate_forward
+from ..models.ttnet_imagenet import TTnetImageNet, TTnetVGGStem
+from .gate_net import BlockGates, MultiHeadGates, _fuse, \
+    ttnet_gate_forward, vgg_stem_gate_forward
 
 
 @dataclasses.dataclass
@@ -194,6 +195,8 @@ def gate_multihead_apply_device(mdev: MultiHeadGatesDev,
             for i in sorted(mdev.heads)}
     cat = reconcile_heads(outs, cfg, x_bits,
                           lambda pooled: (pooled >= 0.5).to(x_bits.dtype))
+    if not cfg.fuse:
+        return cat
     cat = channel_interleave(cat, cfg.cpt)
     return _fuse(cat, mdev.convf, convf_float, gate_block_apply_device)
 
@@ -207,3 +210,13 @@ def gate_ttnet_apply_device(gdevs: list[MultiHeadGatesDev],
     return ttnet_gate_forward(
         model, x, lambda i, block, h: gate_multihead_apply_device(
             gdevs[i], h, convf_float=block.Block_convf))
+
+
+@torch.no_grad()
+def gate_ttnet_vgg_stem_apply_device(gdevs: list[MultiHeadGatesDev],
+                                     model: TTnetVGGStem,
+                                     x: torch.Tensor) -> torch.Tensor:
+    """Device gate-circuit forward of the VGG-stem variant
+    (``gate_device.py:305``; mirror of ``gate_ttnet_vgg_stem_apply``)."""
+    return vgg_stem_gate_forward(
+        model, x, lambda block, h: gate_multihead_apply_device(gdevs[0], h))

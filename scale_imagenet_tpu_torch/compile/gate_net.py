@@ -33,7 +33,8 @@ from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair, block_tt
 from ..models.classifier import classifier_scale
 from ..models.multihead import MultiHeadBlock, MultiHeadConfig, \
     channel_interleave, reconcile_heads
-from ..models.ttnet_imagenet import TTnetImageNet, _nchw, stem
+from ..models.ttnet_imagenet import TTnetImageNet, TTnetVGGStem, _nchw, \
+    stem, vgg_stem
 from ..native import eval_covers, pack_table_bits
 from .logic import map_in_order, minimize_packed
 from .lut_eval import _bits
@@ -171,8 +172,8 @@ def gate_block_apply(bg: BlockGates, x_bits: torch.Tensor,
 class MultiHeadGates:
     cfg: MultiHeadConfig
     heads: dict                     # head index -> BlockGates
-    convf: BlockGates | None        # None when the fuse head is float
-    gates: int
+    convf: BlockGates | None        # None when the fuse head is float or
+    gates: int                      # absent (``cfg.fuse`` off)
 
 
 def compile_multihead_gates(block: MultiHeadBlock,
@@ -181,7 +182,7 @@ def compile_multihead_gates(block: MultiHeadBlock,
     heads = {i: compile_block_gates(block.head(i), threads)
              for i in sorted(cfg.head_cfgs())}
     convf = None
-    if not cfg.convf_cfg().last:
+    if cfg.fuse and not cfg.convf_cfg().last:
         convf = compile_block_gates(block.Block_convf, threads)
     total = sum(h.gates for h in heads.values()) \
         + (convf.gates if convf else 0)
@@ -211,16 +212,19 @@ def gate_multihead_apply(mg: MultiHeadGates, x_bits: torch.Tensor, *,
     # heaviside(avgpool2(bits) - 0.5) == [mean of the 4 bits >= 0.5]
     cat = reconcile_heads(outs, cfg, x_bits,
                           lambda pooled: (pooled >= 0.5).to(x_bits.dtype))
+    if not cfg.fuse:
+        return cat
     cat = channel_interleave(cat, cfg.cpt)
     return _fuse(cat, mg.convf, convf_float,
                  lambda bg, c: gate_block_apply(bg, c, form=form))
 
 
 @torch.no_grad()
-def compile_ttnet_gates(model: TTnetImageNet,
+def compile_ttnet_gates(model,
                         threads: int | None = None) -> list[MultiHeadGates]:
-    """Compile every multi-head block of a ttnet_imagenet model to gate
-    circuits (the float stem and classifier stay float)."""
+    """Compile every multi-head block of a ttnet_imagenet model (the
+    VGG-stem variant too) to gate circuits (the float stem and classifier
+    stay float)."""
     return [compile_multihead_gates(b, threads) for b in model.blocks]
 
 
@@ -250,3 +254,24 @@ def gate_ttnet_apply(gnets: list[MultiHeadGates], model: TTnetImageNet,
     return ttnet_gate_forward(
         model, x, lambda i, block, h: gate_multihead_apply(
             gnets[i], h, form=form, convf_float=block.Block_convf))
+
+
+def vgg_stem_gate_forward(model: TTnetVGGStem, x: torch.Tensor,
+                          block_apply) -> torch.Tensor:
+    """The VGG-stem variant's float stem, ``block_apply(block, h)`` on its
+    one block, flatten and the float classifier."""
+    h = block_apply(model.blocks[0],
+                    _bits(vgg_stem(model, _nchw(x, model)), None))
+    return classifier_scale(model.classifier,
+                            flatten(h).to(model.stem_conv.weight.dtype))
+
+
+@torch.no_grad()
+def gate_ttnet_vgg_stem_apply(gnets: list[MultiHeadGates],
+                              model: TTnetVGGStem, x: torch.Tensor, *,
+                              form: str = "dnf") -> torch.Tensor:
+    """Host gate-circuit forward of the VGG-stem variant (``gate_net.py:
+    287``): NHWC images -> logits; the block has no fuse head."""
+    return vgg_stem_gate_forward(
+        model, x, lambda block, h: gate_multihead_apply(gnets[0], h,
+                                                        form=form))

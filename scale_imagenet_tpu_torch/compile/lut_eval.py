@@ -19,7 +19,9 @@ The routing mirrors the TPU path:
 * the last block's float (ReLU) fuse head runs as the float conv by default
   (``last_via_conv=True``), or as its float table (the table-exact variant);
 * bits flow between blocks in bf16 on the card and in f32 on the CPU
-  (``_bits``); bits, pooled quarter-means and the indices are exact in both.
+  (``_bits``); bits, pooled quarter-means and the indices are exact in both;
+* a block without a fuse head (``MultiHeadConfig.fuse`` off: the VGG-stem
+  variant, ``lut_ttnet_vgg_stem_apply``) ends at the raw 4-head concat.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair, block_tt
 from ..models.classifier import classifier_scale
 from ..models.multihead import MultiHeadBlock, MultiHeadConfig, \
     channel_interleave, reconcile_heads
-from ..models.ttnet_imagenet import TTnetImageNet, _nchw, stem
+from ..models.ttnet_imagenet import TTnetImageNet, TTnetVGGStem, _nchw, \
+    stem, vgg_stem
 from .truth_table import block_truth_table
 
 
@@ -117,7 +120,7 @@ def _merged_heads_apply(heads: list[BlockLUT], words: torch.Tensor,
 class MultiHeadLUT:
     cfg: MultiHeadConfig
     heads: dict                 # head index -> BlockLUT
-    convf: BlockLUT
+    convf: BlockLUT | None      # None for a block without a fuse head
     # which heads share a launch, and their concatenated words: built once
     merged: list = dataclasses.field(init=False, repr=False)
 
@@ -130,7 +133,8 @@ def compile_multihead_lut(block: MultiHeadBlock) -> MultiHeadLUT:
         cfg=block.cfg,
         heads={i: compile_block_tt_lut(block.head(i))
                for i in sorted(block.cfg.head_cfgs())},
-        convf=compile_block_tt_lut(block.Block_convf))
+        convf=compile_block_tt_lut(block.Block_convf)
+        if block.cfg.fuse else None)
 
 
 def lut_multihead_apply(lut: MultiHeadLUT, x_bits: torch.Tensor,
@@ -150,6 +154,8 @@ def lut_multihead_apply(lut: MultiHeadLUT, x_bits: torch.Tensor,
     # heaviside(avgpool2(bits) - 0.5) == [mean of the 4 bits >= 0.5]
     cat = reconcile_heads(outs, lut.cfg, x_bits,
                           lambda pooled: (pooled >= 0.5).to(x_bits.dtype))
+    if not lut.cfg.fuse:
+        return cat
     cat = channel_interleave(cat, lut.cfg.cpt)
     if convf_float is not None and lut.convf.cfg.last:
         # the float block sees bits in its own dtype: its conv/BN/GELU
@@ -159,9 +165,9 @@ def lut_multihead_apply(lut: MultiHeadLUT, x_bits: torch.Tensor,
 
 
 @torch.no_grad()
-def compile_ttnet_lut(model: TTnetImageNet) -> list[MultiHeadLUT]:
-    """Compile every multi-head block of a ttnet_imagenet model, on the
-    model's device."""
+def compile_ttnet_lut(model) -> list[MultiHeadLUT]:
+    """Compile every multi-head block of a ttnet_imagenet model (the
+    VGG-stem variant too), on the model's device."""
     return [compile_multihead_lut(b) for b in model.blocks]
 
 
@@ -198,3 +204,17 @@ def lut_ttnet_apply(luts: list[MultiHeadLUT], model: TTnetImageNet,
     h = lut_ttnet_features(luts, model, x, last_via_conv=last_via_conv,
                            bits_dtype=bits_dtype)
     return classifier_scale(model.classifier, h)
+
+
+@torch.no_grad()
+def lut_ttnet_vgg_stem_apply(luts: list[MultiHeadLUT], model: TTnetVGGStem,
+                             x: torch.Tensor,
+                             bits_dtype=None) -> torch.Tensor:
+    """LUT-mode forward of the VGG-stem variant (``lut_eval.py:348``): the
+    float stem and classifier, its one block as tables (heads 1 and 2 in one
+    merged launch, head 3 in another), ending at the raw concat.  NHWC
+    images -> logits.  Compile with ``compile_ttnet_lut``."""
+    h = _bits(vgg_stem(model, _nchw(x, model)), bits_dtype)
+    h = lut_multihead_apply(luts[0], h)
+    return classifier_scale(model.classifier,
+                            flatten(h).to(model.stem_conv.weight.dtype))

@@ -8,7 +8,8 @@ written by either package loads in the other:
     __format_version__   int64
     __params_digest__    uint8 bytes of the weights' SHA-256 hex digest
     b{i}_h{h}_table      (out_planes, 2^n) float32 (bits, or floats of a
-    b{i}_convf_table      last block)
+    b{i}_convf_table      last block); no convf keys for a block without
+                          a fuse head (the VGG-stem variant)
     b{i}_h{h}_packed     the JAX kernel layout (G, F, S, 128): int32 bit
     b{i}_convf_packed     words, or float32 rows; written where the JAX
                           compiler writes it, ignored on load
@@ -113,7 +114,7 @@ def save_luts(path: str, luts: list[MultiHeadLUT], model) -> None:
                 model_digest(model).encode(), dtype=np.uint8)}
     for i, ml in enumerate(luts):
         for key, lut in [*((f"h{h}", bl) for h, bl in ml.heads.items()),
-                         ("convf", ml.convf)]:
+                         *([("convf", ml.convf)] if ml.convf else [])]:
             table = _table(lut).cpu().numpy().astype(np.float32)
             arrs[f"b{i}_{key}_table"] = table
             packed = _jax_packed(lut, table)
@@ -140,7 +141,8 @@ def _block_lut(table: np.ndarray, cfg, device) -> BlockLUT:
 
 
 def load_luts(path: str, model) -> list[MultiHeadLUT]:
-    """Rebuild the LUTs of ``model`` (a ``ttnet_imagenet`` port model) from
+    """Rebuild the LUTs of ``model`` (a ``ttnet_imagenet`` port model, the
+    VGG-stem variant included: its block has no fuse table) from
     a ``save_luts`` archive of either package, on the model's device.
     Refuses (``ValueError``) an archive of another format version or one
     whose stored digest is not ``model``'s: its tables were enumerated
@@ -172,6 +174,6 @@ def load_luts(path: str, model) -> list[MultiHeadLUT]:
             heads = {h: _block_lut(data[f"b{i}_h{h}_table"], hcfg, device)
                      for h, hcfg in bcfg.head_cfgs().items()}
             convf = _block_lut(data[f"b{i}_convf_table"], bcfg.convf_cfg(),
-                               device)
+                               device) if bcfg.fuse else None
             luts.append(MultiHeadLUT(cfg=bcfg, heads=heads, convf=convf))
     return luts

@@ -188,6 +188,20 @@ def _save_packed_artifacts(out_dir: str, block_id: int, sub_block_id: int,
                 comment=f"block {block_id} filter {filter_id} value {v}"))
 
 
+def model_block_items(model) -> list:
+    """``(name, BlockTT)`` of every Block_TT of every multi-head block, in
+    ``--mode compile``'s order: ``block{i}_conv{h}``, then
+    ``block{i}_convf`` where the block has a fuse head (the VGG-stem
+    variant's has none, ``scale_imagenet_tpu/main.py:816-826``)."""
+    items = []
+    for i, block in enumerate(model.blocks):
+        items += [(f"block{i}_conv{h}", block.head(h))
+                  for h in sorted(block.cfg.head_cfgs())]
+        if block.cfg.fuse:
+            items.append((f"block{i}_convf", block.Block_convf))
+    return items
+
+
 def compile_model_truth_tables(block_items, out_dir: str,
                                minimize: bool = True,
                                max_minimize_bits: int = 12,

@@ -10,6 +10,12 @@ Conv weights go HWIO -> OIHW, linear weights ``(in, out)`` -> ``(out, in)``;
 BN ``num_batches_tracked`` and the activations' ``grad_scale`` buffers
 (inference reads neither) get their defaults so ``strict=True`` loads.
 
+The VGG-stem variant's map is the reference's too
+(``scale_imagenet_tpu/convert/torch_import.py:215-240``): ``features.1`` and
+``features.3`` the stem convs (weight and bias), ``features.5`` the stem
+BN, ``features.7`` the stem activation, ``features.8`` the block (heads
+``Block_conv{1,2,3}``, no fuse head), ``features.10`` the classifier.
+
 ``jax_trees`` is the inverse map, from a port model back to the JAX
 layout (``compile/lut_store.py`` hashes it).  The trees are nested dicts of
 numpy arrays; nothing here imports JAX.
@@ -19,6 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..models.ttnet_imagenet import TTnetVGGStemConfig
 
 _HEADS = (("conv1", "Block_conv1"), ("conv2", "Block_conv2"),
           ("conv3", "Block_conv3"), ("convf", "Block_convf"))
@@ -44,16 +52,39 @@ def _act(sd: dict, prefix: str) -> None:
     sd[f"{prefix}.grad_scale"] = torch.tensor(1.0)
 
 
-def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
-    """``cfg``: the port's ``TTnetImageNetConfig`` of the same model."""
-    sd: dict = {"features.1.weight": _conv(params["stem_conv"]["weight"])}
-    _bn(sd, "features.2", params["stem_bn"], state["stem_bn"])
-    _act(sd, "features.3")
+def _is_vgg(cfg) -> bool:
+    return isinstance(cfg, TTnetVGGStemConfig)
+
+
+def _layout(cfg) -> tuple[int, int]:
+    """``(index of the first block, index of the classifier)`` in
+    ``features``."""
+    if _is_vgg(cfg):
+        return 8, 10
     n_blocks = len(cfg.block_configs())
-    for i in range(n_blocks):
-        base = f"features.{4 + i}"
+    return 4, 4 + n_blocks + 2                    # after AvgPool + Flatten
+
+
+def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
+    """``cfg``: the port's ``TTnetImageNetConfig`` or
+    ``TTnetVGGStemConfig`` of the same model."""
+    sd: dict = {}
+    if _is_vgg(cfg):
+        for key, name in (("features.1", "vgg_conv1"),
+                          ("features.3", "vgg_conv2")):
+            sd[f"{key}.weight"] = _conv(params[name]["weight"])
+            sd[f"{key}.bias"] = _t(params[name]["bias"])
+        _bn(sd, "features.5", params["stem_bn"], state["stem_bn"])
+        _act(sd, "features.7")
+    else:
+        sd["features.1.weight"] = _conv(params["stem_conv"]["weight"])
+        _bn(sd, "features.2", params["stem_bn"], state["stem_bn"])
+        _act(sd, "features.3")
+    first, cls = _layout(cfg)
+    for i, bcfg in enumerate(cfg.block_configs()):
+        base = f"features.{first + i}"
         bp, bs = params[f"block{i}"], state[f"block{i}"]
-        for ours, name in _HEADS:
+        for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
             prefix = f"{base}.{name}"
             sd[f"{prefix}.conv1.weight"] = _conv(bp[ours]["conv1"]["weight"])
             _bn(sd, f"{prefix}.bn1", bp[ours]["bn1"], bs[ours]["bn1"])
@@ -61,7 +92,7 @@ def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
             _bn(sd, f"{prefix}.bn2", bp[ours]["bn2"], bs[ours]["bn2"])
             _act(sd, f"{prefix}.act")
         _act(sd, f"{base}.act")
-    cls = f"features.{4 + n_blocks + 2}"          # after AvgPool + Flatten
+    cls = f"features.{cls}"
     cp, cs = params["classifier"], state["classifier"]
     sd[f"{cls}.lin1.weight"] = _t(np.asarray(cp["lin1"]["weight"]).T)
     _bn(sd, f"{cls}.BN2", cp["bn"], cs["bn"])
@@ -86,21 +117,30 @@ def _bn_trees(sd: dict, prefix: str) -> tuple[dict, dict]:
 
 
 def jax_trees(model) -> tuple[dict, dict]:
-    """The inverse of ``state_dict_from_jax``: a port ``TTnetImageNet`` as
-    the JAX package's ``(params, state)`` nested dicts of numpy arrays
-    (conv weights OIHW -> HWIO, linear weights ``(out, in)`` ->
-    ``(in, out)``, the buffers inference does not read left out), in the
-    model's dtype."""
+    """The inverse of ``state_dict_from_jax``: a port ``TTnetImageNet`` or
+    ``TTnetVGGStem`` as the JAX package's ``(params, state)`` nested dicts
+    of numpy arrays (conv weights OIHW -> HWIO, linear weights ``(out,
+    in)`` -> ``(in, out)``, the buffers inference does not read left out),
+    in the model's dtype."""
     sd = model.state_dict()
-    params: dict = {"stem_conv": {"weight": _hwio(sd["features.1.weight"])}}
+    cfg = model.cfg
+    params: dict = {}
     state: dict = {}
-    params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.2")
-    n_blocks = len(model.cfg.block_configs())
-    for i in range(n_blocks):
-        base = f"features.{4 + i}"
+    if _is_vgg(cfg):
+        for key, name in (("features.1", "vgg_conv1"),
+                          ("features.3", "vgg_conv2")):
+            params[name] = {"bias": _np(sd[f"{key}.bias"]),
+                            "weight": _hwio(sd[f"{key}.weight"])}
+        params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.5")
+    else:
+        params["stem_conv"] = {"weight": _hwio(sd["features.1.weight"])}
+        params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.2")
+    first, cls = _layout(cfg)
+    for i, bcfg in enumerate(cfg.block_configs()):
+        base = f"features.{first + i}"
         bp, bs = params.setdefault(f"block{i}", {}), \
             state.setdefault(f"block{i}", {})
-        for ours, name in _HEADS:
+        for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
             prefix = f"{base}.{name}"
             bn1, bn1_s = _bn_trees(sd, f"{prefix}.bn1")
             bn2, bn2_s = _bn_trees(sd, f"{prefix}.bn2")
@@ -109,7 +149,7 @@ def jax_trees(model) -> tuple[dict, dict]:
                         "conv2": {"weight": _hwio(sd[f"{prefix}.conv2.weight"])},
                         "bn2": bn2}
             bs[ours] = {"bn1": bn1_s, "bn2": bn2_s}
-    cls = f"features.{4 + n_blocks + 2}"
+    cls = f"features.{cls}"
     bn, bn_s = _bn_trees(sd, f"{cls}.BN2")
     params["classifier"] = {
         "lin1": {"weight": np.ascontiguousarray(_np(sd[f"{cls}.lin1.weight"]).T)},

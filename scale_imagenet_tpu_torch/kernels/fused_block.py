@@ -43,7 +43,6 @@ import threading
 
 import torch
 
-from ..layers.norm import bn_scale_bias
 from ..ops.binarize import heaviside01
 from ..ops.gelu import fast_gelu
 
@@ -68,11 +67,28 @@ def _count() -> None:
 
 # ------------------------------------------------------------ parameters
 
+def _affine(bn, conv_bias) -> tuple:
+    """An eval BN after a conv as float32 ``(scale, bias)``, folded in the
+    module's dtype or float32, whichever is wider (a bf16 module folds in
+    float32): ``bn(conv(x) + cb) = s * conv(x) + (b + s * cb)``."""
+    dt = torch.promote_types(bn.weight.dtype, torch.float32)
+    w, b, mean, var = (getattr(bn, k).detach().to(dt) for k in
+                       ("weight", "bias", "running_mean", "running_var"))
+    s = w / torch.sqrt(var + bn.eps)          # ``layers.norm.bn_scale_bias``
+    b = b - mean * s
+    if conv_bias is not None:
+        b = b + s * conv_bias.detach().to(dt)
+    return s.float(), b.float()
+
+
 def block_tt_pointwise_params(block) -> tuple:
     """Fold a k=1 ``BlockTT``'s weights and eval BNs into the kernel
     layout ``(w1 (G, ci, m), s1 (G, m), b1, w2 (G, m, co), s2 (G, co),
-    b2)``, float32 (``fused_block.py:118``).  Grouped conv output channels
-    are group-major: channel ``g*m + j`` of conv1 is ``w1[g, :, j]``.
+    b2)``, float32 (``fused_block.py:118``), from the module's values in
+    float32 also when it is bf16 (``--bf16``).  A conv bias (present after
+    ``--fold_bn``) goes into its affine's bias; the JAX package's fold
+    drops it (``ROADMAP.md`` queue C).  Grouped conv output channels are
+    group-major: channel ``g*m + j`` of conv1 is ``w1[g, :, j]``.
     ``w1`` is a ``(G, ci, m)`` view of a copy of conv1's ``(G, m, ci)``
     weight, the layout the kernel reads, so a launch copies nothing; the
     other five are contiguous."""
@@ -82,10 +98,10 @@ def block_tt_pointwise_params(block) -> tuple:
     m = cfg.t * cfg.in_planes // g
     co = cfg.out_planes // g
     w1 = block.conv1.weight.detach().float().reshape(g, m, ci).clone()
-    w2 = block.conv2.weight.reshape(g, co, m).transpose(1, 2)
-    s1, b1 = bn_scale_bias(block.bn1)
-    s2, b2 = bn_scale_bias(block.bn2)
-    rest = [t.detach().float().contiguous() for t in
+    w2 = block.conv2.weight.detach().float().reshape(g, co, m).transpose(1, 2)
+    s1, b1 = _affine(block.bn1, block.conv1.bias)
+    s2, b2 = _affine(block.bn2, block.conv2.bias)
+    rest = [t.contiguous() for t in
             (s1.reshape(g, m), b1.reshape(g, m), w2, s2.reshape(g, co),
              b2.reshape(g, co))]
     return (w1.transpose(1, 2), *rest)

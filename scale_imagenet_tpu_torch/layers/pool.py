@@ -15,6 +15,11 @@ def avg_pool(x: torch.Tensor, window=2, stride=None) -> torch.Tensor:
     return F.avg_pool2d(x, window, stride if stride is not None else window)
 
 
+def max_pool(x: torch.Tensor, window=2, stride=None) -> torch.Tensor:
+    """MaxPool2d: VALID (no padding), odd sizes floor (``pool.py:29``)."""
+    return F.max_pool2d(x, window, stride if stride is not None else window)
+
+
 def zero_pad2d(x: torch.Tensor, pad: tuple) -> torch.Tensor:
     """torch ZeroPad2d order: ``(left, right, top, bottom)``."""
     return F.pad(x, tuple(pad))

@@ -1,11 +1,16 @@
 """Command-line entry (counterpart of ``scale_imagenet_tpu/main.py``): the
-``--mode eval [--lut | --gates dnf|cnf]``, ``--mode serve [--lut | --gates
-dnf|cnf]``, ``--mode compile [--verilog]`` and single-device ``--mode
-train`` subsets.
+``--mode eval [--fold_bn] [--bf16] [--lut | --gates dnf|cnf]``, ``--mode
+serve`` (the same serving flags), ``--mode compile [--verilog]``, ``--mode
+export`` and single-device ``--mode train`` subsets, and ``--list_models``.
 
     python -m scale_imagenet_tpu_torch.main --mode eval --shards_dir D \\
-        [--lut [--lut_path F] | --gates dnf] --eval_batch_size 256
+        [--fold_bn] [--bf16] [--lut [--lut_path F] | --gates dnf] \\
+        --eval_batch_size 256
     python -m scale_imagenet_tpu_torch.main --mode serve --lut --port 8000
+    python -m scale_imagenet_tpu_torch.main --mode export --export_out F \\
+        [--ckpt X.pth]
+    python -m scale_imagenet_tpu_torch.main --model ttnet_imagenet_vgg_stem \\
+        --mode eval --shards_dir D [--lut | --gates cnf]
     python -m scale_imagenet_tpu_torch.main --mode compile \\
         --compile_out D [--verilog] [--ckpt X.pth]
     python -m scale_imagenet_tpu_torch.main --mode train --shards_dir T \\
@@ -30,6 +35,16 @@ under ``--compile_out``, plus Verilog modules under ``--verilog``.
 ``--write_shards`` decodes ``--data_dir``/<shards_split> into
 shards (the eval crop, or the 256x256 train pre-crop) and exits.
 ``--mode serve`` serves the model over HTTP (``runtime/server.py``).
+Eval and serve apply the serving transforms in the JAX CLI's order
+(``main.py:578-618``): ``--fold_bn`` folds every BN into its conv
+(``convert/bn_fold.py``), then ``--bf16`` casts the floating parameters and
+buffers to bfloat16, then ``--lut`` or ``--gates`` compile the network
+(which refuse both transforms, with the JAX CLI's messages).  ``--mode
+export`` writes the unmodified weights as a reference-layout ``.pth``
+(``--export_out``, ``convert/export.py``).  ``--list_models`` prints the
+registry's names.  The VGG-stem variant (``--model
+ttnet_imagenet_vgg_stem``) runs in eval, serve and compile, as its conv,
+LUT or gate forward (``_family_forwards``).
 ``--mode train`` trains with SGD + momentum from shards (the full
 augmentation on the card from pre-crop shards, a random flip from
 same-size ones) or from ``--data_dir``/train (the PIL train transform),
@@ -41,9 +56,9 @@ Weights come from ``--seed`` or from ``--ckpt``: a reference-layout
 its full state.  ``config.performance`` is not a flag, as in the JAX
 package.
 
-Every other mode and flag of the JAX CLI arrives with a later slice and
-raises here naming ``ROADMAP.md``; the flags that the JAX CLI refuses in a
-mode raise with its messages.
+Every other flag of the JAX CLI arrives with a later slice and raises here
+naming ``ROADMAP.md``; the flags that the JAX CLI refuses in a mode raise
+with its messages.
 """
 
 from __future__ import annotations
@@ -59,21 +74,27 @@ from datetime import datetime
 import torch
 
 from .compile.gate_device import build_device_gates, \
-    gate_ttnet_apply_device
+    gate_ttnet_apply_device, gate_ttnet_vgg_stem_apply_device
 from .compile.gate_net import compile_ttnet_gates, gate_ttnet_apply, \
-    total_gates
-from .compile.lut_eval import compile_ttnet_lut, lut_ttnet_apply
+    gate_ttnet_vgg_stem_apply, total_gates
+from .compile.lut_eval import compile_ttnet_lut, lut_ttnet_apply, \
+    lut_ttnet_vgg_stem_apply
 from .compile.lut_store import load_luts, save_luts
-from .compile.truth_table import compile_model_truth_tables, table_cache
+from .compile.truth_table import compile_model_truth_tables, \
+    model_block_items, table_cache
 from .compile.verilog import export_model_verilog
 from .config import performance
+from .convert.bn_fold import fold_model_bns
+from .convert.export import save_torch_checkpoint
 from .data import DataLoader, ImageFolder, IMAGENET_MEAN, IMAGENET_STD, \
     device_prefetch, imagenet_eval_crop_u8, imagenet_eval_transform, \
     imagenet_train_crop_u8, imagenet_train_transform, pad_batches, \
     shard_loader, write_shards
 from .device import resolve_device
-from .models import get_model
-from .models.ttnet_imagenet import ttnet_imagenet_apply
+from .models import get_model, list_models
+from .models.multihead import MultiHeadBlock
+from .models.ttnet_imagenet import TTnetImageNetConfig, \
+    TTnetVGGStemConfig, ttnet_imagenet_apply, ttnet_vgg_stem_apply
 from .runtime.checkpoint import MODEL_FILE, CheckpointManager, \
     load_train_state, train_payload
 from .runtime.evaluate import evaluate
@@ -168,14 +189,46 @@ _GATES_ON_HOST = ("--gates: this circuit's covers, counted as the port "
                   "on the HOST evaluator — which cannot enter the server's "
                   "batched forward.  Raise the budget, or serve --lut")
 
-_MODES = ("eval", "serve", "train", "compile")
+# ``scale_imagenet_tpu/main.py:890-899,993-1002``: the serving transforms
+# --gates refuses
+_GATES_WITH_BF16 = ("--gates executes boolean covers (its float "
+                    "stem/classifier stay f32); --bf16 cannot apply")
+_GATES_WITH_FOLD = ("--fold_bn perturbs pre-Heaviside values at float "
+                    "precision, which can flip truth-table rows; gate "
+                    "circuits compile from the unfolded model — drop "
+                    "--fold_bn")
+# ``scale_imagenet_tpu/main.py:587-590,604-607``: and --lut
+_LUT_WITH_FOLD = ("--fold_bn rewrites conv-mode serving weights; --lut "
+                  "serves integer tables (BN is already inside them) — "
+                  "drop one")
+_LUT_WITH_BF16 = ("--bf16 applies to conv-mode serving; LUT serving is "
+                  "integer-table execution (its float stem stays f32)")
+# the JAX CLI takes --bf16 in compile and leaves it unused; the port
+# refuses a flag that would do nothing
+_COMPILE_WITH_BF16 = ("--bf16 casts conv-serving weights; truth-table "
+                      "compilation evaluates the float blocks in their own "
+                      "precision — drop the flag")
+_COMPILE_CACHE = ("--compile_cache is the JAX package's persistent XLA "
+                  "compilation cache; the port runs no XLA programs (its "
+                  "CUDA kernels are built once into build/kernels/) — drop "
+                  "the flag")
+
+_MODES = ("eval", "serve", "train", "compile", "export")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="TTnet PyTorch/CUDA harness")
     p.add_argument("--mode", default="eval",
-                   help="eval, serve, train or compile (the other JAX "
-                        "modes: see ROADMAP.md)")
+                   help="eval, serve, train, compile or export")
+    p.add_argument("--list_models", action="store_true",
+                   help="print every registry model name and exit")
+    p.add_argument("--compile_cache", type=str, default=None,
+                   help="the JAX CLI's XLA compilation cache: refused here "
+                        "(the port runs no XLA programs)")
+    p.add_argument("--export_out", type=str, default="./exported.pth",
+                   help="--mode export: write the weights as a reference-"
+                        "layout .pth (loads strict into the reference "
+                        "classes and into the JAX package's importer)")
     p.add_argument("--model", type=str, default="ttnet_imagenet_small")
     p.add_argument("--nfilter", type=int, default=8)
     p.add_argument("--tfilter", type=int, default=8)
@@ -191,6 +244,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "circuit: the minimized DNF covers, or the CNF "
                         "form (on the card when it fits "
                         "config.performance.gates_device_budget)")
+    p.add_argument("--fold_bn", action="store_true",
+                   help="eval / serve with every BatchNorm folded into the "
+                        "conv before it (composes with --bf16)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 serving: cast the floating parameters and BN "
+                        "statistics to bfloat16 for eval / serve")
     p.add_argument("--compile_out", type=str, default="./truth_tables",
                    help="artifact directory for --mode compile")
     p.add_argument("--max_minimize_bits", type=int, default=16)
@@ -267,10 +326,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "or a checkpoint dir (its model.pth; training "
                         "resumes its full state)")
     args, unknown = p.parse_known_args(argv)
+    if args.list_models:
+        return args
     if args.mode not in _MODES:
-        raise ValueError(f"--mode {args.mode} is not ported yet (the port "
-                         "has --mode eval, serve, train and compile; see "
-                         "ROADMAP.md)")
+        raise ValueError(f"--mode {args.mode}: the modes are "
+                         f"{', '.join(_MODES)}")
+    if args.compile_cache:
+        raise ValueError(_COMPILE_CACHE)
     if args.verilog and args.mode != "compile":
         raise ValueError("--verilog exports --mode compile artifacts; "
                          f"it does nothing in --mode {args.mode}")
@@ -295,9 +357,10 @@ def parse_args(argv=None) -> argparse.Namespace:
             if on:
                 raise ValueError(f"--mode serve is single-host inference "
                                  f"serving; {flag} does not apply")
+    serving_flags = {"--lut": args.lut, "--gates": bool(args.gates),
+                     "--fold_bn": args.fold_bn, "--bf16": args.bf16}
     if args.mode == "train":
-        flags = (["--lut"] if args.lut else []) + (
-            ["--gates"] if args.gates else []) + unknown
+        flags = [f for f, on in serving_flags.items() if on] + unknown
         for flag in flags:
             refusal = _TRAIN_REFUSALS.get(flag.split("=")[0])
             if refusal:
@@ -307,15 +370,36 @@ def parse_args(argv=None) -> argparse.Namespace:
             f.split("=")[0] for f in unknown}
         if args.gates:
             given.add("--gates")
+        if args.fold_bn:
+            given.add("--fold_bn")
         for flag, refusal in _COMPILE_REFUSALS.items():
             if flag in given:
                 raise ValueError(refusal)
+        if args.bf16:
+            raise ValueError(_COMPILE_WITH_BF16)
+    if args.mode == "export":
+        # ``scale_imagenet_tpu/main.py:743-770``, for the flags the port has
+        for flag, on in {**serving_flags, **training_flags,
+                         "--shards_dir": args.shards_dir is not None}.items():
+            if on:
+                raise ValueError(f"--mode export writes the UNMODIFIED "
+                                 f"weights in the reference layout; {flag} "
+                                 "does not apply")
     if unknown:
         raise ValueError(f"not ported yet: {' '.join(unknown)} (the port "
-                         "has the --mode eval/serve/train/compile subset; "
-                         "see ROADMAP.md)")
-    if args.gates and args.lut:
-        raise ValueError(_GATES_WITH_LUT)
+                         "has the --mode eval/serve/train/compile/export "
+                         "subset; see ROADMAP.md)")
+    if args.gates:
+        if args.lut:
+            raise ValueError(_GATES_WITH_LUT)
+        if args.bf16:
+            raise ValueError(_GATES_WITH_BF16)
+        if args.fold_bn:
+            raise ValueError(_GATES_WITH_FOLD)
+    if args.lut and args.fold_bn:
+        raise ValueError(_LUT_WITH_FOLD)
+    if args.lut and args.bf16:
+        raise ValueError(_LUT_WITH_BF16)
     if args.lut_path and not args.lut:
         raise ValueError("--lut_path is the archive of --lut; add --lut")
     if args.write_shards and not args.data_dir:
@@ -340,7 +424,28 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
                          "checkpoint formats: see ROADMAP.md")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = sd.get("model_state_dict", sd)
+    # a block without a fuse head (the VGG-stem variant): the reference
+    # constructs one and never applies it, and the JAX importer skips its
+    # keys (``scale_imagenet_tpu/convert/torch_import.py:233``); every
+    # other key loads strict
+    dead = tuple(f"{name}.Block_convf." for name, m in model.named_modules()
+                 if isinstance(m, MultiHeadBlock) and not m.cfg.fuse)
+    if dead:
+        sd = {k: v for k, v in sd.items() if not k.startswith(dead)}
     model.load_state_dict(sd, strict=True)
+
+
+def _family_forwards(config) -> tuple:
+    """``(conv, lut, gate host, gate device)`` forwards of a config's
+    family (the dispatch of ``scale_imagenet_tpu/main.py:345,420``): the
+    VGG-stem variant's, or the rest of the ttnet_imagenet family's.  Both
+    compile their tables and covers with the generic block walk
+    (``compile_ttnet_lut``, ``compile_ttnet_gates``)."""
+    if isinstance(config, TTnetVGGStemConfig):
+        return (ttnet_vgg_stem_apply, lut_ttnet_vgg_stem_apply,
+                gate_ttnet_vgg_stem_apply, gate_ttnet_vgg_stem_apply_device)
+    return (ttnet_imagenet_apply, lut_ttnet_apply, gate_ttnet_apply,
+            gate_ttnet_apply_device)
 
 
 def load_or_compile_luts(model, lut_path: str | None = None):
@@ -367,6 +472,7 @@ def _as_gate_model(model, form: str, gnets=None):
     fit ``config.performance.gates_device_budget``, else on the host
     native evaluator.  Either way it is bit-identical to the
     LUT forward on the boolean blocks."""
+    host_apply, device_apply = _family_forwards(model.cfg)[2:]
     if gnets is None:
         print("compiling gate circuits (truth tables -> verified covers)...")
         gnets = compile_ttnet_gates(model)
@@ -380,23 +486,19 @@ def _as_gate_model(model, form: str, gnets=None):
                                    device=model.stem_conv.weight.device)
     except ValueError as e:
         print(f"gate circuit runs on HOST ({e})")
-        return (lambda x: gate_ttnet_apply(gnets, model, x, form=form)), \
-            False
+        return (lambda x: host_apply(gnets, model, x, form=form)), False
     print("gate circuit runs ON DEVICE (bit-sliced int32 cube evaluation, "
           "32 positions/lane)")
-    return (lambda x: gate_ttnet_apply_device(gdevs, model, x)), True
+    return (lambda x: device_apply(gdevs, model, x)), True
 
 
 def _compile(cfg, md, model) -> dict:
     """``--mode compile`` (``scale_imagenet_tpu/main.py:809-854``): every
     Block_TT of every multi-head block to its artifacts under
     ``--compile_out`` and ``summary.json``; ``--verilog`` adds the gate
-    circuits as Verilog modules."""
-    items = []
-    for i, block in enumerate(model.blocks):
-        items += [(f"block{i}_conv{h}", block.head(h))
-                  for h in sorted(block.cfg.head_cfgs())]
-        items.append((f"block{i}_convf", block.Block_convf))
+    circuits as Verilog modules.  A block without a fuse head (the VGG-stem
+    variant) has no ``convf`` item."""
+    items = model_block_items(model)
     with table_cache():   # --verilog reuses the tables and covers
         summary = compile_model_truth_tables(
             items, cfg.compile_out, max_minimize_bits=cfg.max_minimize_bits)
@@ -417,6 +519,18 @@ def _compile(cfg, md, model) -> dict:
             print(f"verilog: {len(manifest['modules'])} modules, "
                   f"{manifest['total_gates']:,} gates -> {vdir}")
     return summary
+
+
+def apply_serving_transforms(cfg, model) -> None:
+    """``--fold_bn``, then ``--bf16``, on ``model`` in place
+    (``scale_imagenet_tpu/main.py:578-618``; ``parse_args`` has refused
+    them with ``--lut`` and ``--gates``)."""
+    if cfg.fold_bn:
+        print(f"folded {fold_model_bns(model)} conv/BN pairs")
+    if cfg.bf16:
+        # the floating parameters and buffers; ``_nchw`` casts the images
+        # to the stem's dtype, and TF32 stays off for every f32 op
+        model.to(torch.bfloat16)
 
 
 def _run_dir(cfg, kind: str) -> str:
@@ -627,6 +741,10 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     ``serve_stop``: optional events for callers that run the server in a
     thread."""
     cfg = parse_args(argv)
+    if cfg.list_models:
+        names = list_models()
+        print("\n".join(names))
+        return names
     if cfg.write_shards:
         crop = imagenet_train_crop_u8 if cfg.shards_split == "train" \
             else imagenet_eval_crop_u8
@@ -640,12 +758,21 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
                    layers=cfg.layers)
     model = md.init(seed=cfg.seed, device=device)
     if cfg.mode == "train":
+        if not isinstance(md.config, TTnetImageNetConfig):
+            raise ValueError(f"--mode train of {md.name} is not ported yet "
+                             "(see ROADMAP.md)")
         return _train(cfg, md, model, device)
     if cfg.ckpt:
         load_checkpoint(model, cfg.ckpt)
     if cfg.mode == "compile":
         return _compile(cfg, md, model)
+    if cfg.mode == "export":
+        path = save_torch_checkpoint(cfg.export_out, model)
+        print(f"wrote reference-compatible checkpoint: {path}")
+        return path
+    apply_serving_transforms(cfg, model)
     name = md.name
+    conv_apply, lut_apply = _family_forwards(model.cfg)[:2]
     if cfg.gates:
         apply, on_device = _as_gate_model(model, cfg.gates)
         name += "+gates"
@@ -656,10 +783,10 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         name += "+lut"
 
         def apply(x):
-            return lut_ttnet_apply(luts, model, x)
+            return lut_apply(luts, model, x)
     else:
         def apply(x):
-            return ttnet_imagenet_apply(model, x)
+            return conv_apply(model, x)
     size = md.config.image_size
     if cfg.mode == "eval":
         return _eval(cfg, apply, device, size)

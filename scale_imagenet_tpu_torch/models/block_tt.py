@@ -83,15 +83,18 @@ class BlockTT(nn.Module):
 
     def pointwise_params(self) -> tuple:
         """``block_tt_pointwise_params`` folded once and kept: it is folded
-        again only when a weight or BN statistic is replaced (``.to``) or
-        written in place (``load_state_dict``), which the tensors' storage
-        and version counters show."""
-        tensors = (self.conv1.weight, self.conv2.weight, self.bn1.weight,
-                   self.bn1.bias, self.bn1.running_mean, self.bn1.running_var,
+        again only when a weight, conv bias or BN statistic is added or
+        replaced (``.to``, ``convert/bn_fold.py``) or written in place
+        (``load_state_dict``), which the tensors' presence, storage and
+        version counters show."""
+        tensors = (self.conv1.weight, self.conv1.bias, self.conv2.weight,
+                   self.conv2.bias, self.bn1.weight, self.bn1.bias,
+                   self.bn1.running_mean, self.bn1.running_var,
                    self.bn2.weight, self.bn2.bias, self.bn2.running_mean,
                    self.bn2.running_var)
         # an inference tensor keeps no version counter
-        key = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+        key = tuple(None if t is None else
+                    (t.data_ptr(), 0 if t.is_inference() else t._version)
                     for t in tensors)
         if self._folded is None or self._folded[0] != key:
             self._folded = (key, block_tt_pointwise_params(self))
@@ -112,10 +115,12 @@ def block_tt(block: BlockTT, x: torch.Tensor, pre_padded: bool = False,
                                     "relu" if cfg.last else "heaviside")
     if cfg.padding != 0 and not pre_padded:
         x = constant_pad2d(x, cfg.padding)
-    out = conv2d(x, block.conv1.weight, stride=cfg.stride,
+    # a conv bias exists after BN folding (``convert/bn_fold.py``)
+    out = conv2d(x, block.conv1.weight, block.conv1.bias, stride=cfg.stride,
                  groups=cfg.groupsici)
     out = gelu(batch_norm(block.bn1, out, stats))
-    out = conv2d(out, block.conv2.weight, groups=cfg.groupsici)
+    out = conv2d(out, block.conv2.weight, block.conv2.bias,
+                 groups=cfg.groupsici)
     out = batch_norm(block.bn2, out, stats)
     return torch.relu(out) if cfg.last else heaviside01(out)
 

@@ -30,5 +30,7 @@ class ClassifierScale(nn.Module):
 def classifier_scale(head: ClassifierScale, x: torch.Tensor,
                      stats: dict | None = None) -> torch.Tensor:
     """Eval, or training when ``stats`` is given (``layers/norm.py``)."""
-    y = batch_norm(head.BN2, linear(x, head.lin1.weight), stats)
+    # lin1 has a bias after BN folding (``convert/bn_fold.py``)
+    y = batch_norm(head.BN2, linear(x, head.lin1.weight, head.lin1.bias),
+                   stats)
     return linear(polynome_act(y), head.lin2.weight, head.lin2.bias)

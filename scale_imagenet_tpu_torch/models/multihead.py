@@ -40,8 +40,17 @@ def _fixup_v2small(xw: int, out1w: int) -> dict:
     return {}
 
 
+def _fixup_v2small_alexnet(xw: int, out1w: int) -> dict:
+    """The VGG-stem variant's chain (``multihead.py:95-100``): the v2small
+    one plus an ``x == 11`` row (the AvgPool4 + MaxPool5 stem gives 11^2)."""
+    if xw == 11:
+        return {3: _PAD2, 4: _PAD2}
+    return _fixup_v2small(xw, out1w)
+
+
 # the other families' tables come with those families
-FIXUP_RULES = {"v2small": _fixup_v2small}
+FIXUP_RULES = {"v2small": _fixup_v2small,
+               "v2small_alexnet": _fixup_v2small_alexnet}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +67,9 @@ class MultiHeadConfig:
     out_mult: int = 2          # fused head outputs out_mult * out_planes
     t: int = 8
     fixup: str = "v2small"
+    # False: the block returns the raw 4-head concat, with no interleave and
+    # no fuse head (the VGG-stem variant's block, ``multihead.py:150``)
+    fuse: bool = True
 
     def _groupsici(self, g: int, cin: int, cout: int) -> int:
         """``int(cin / g)`` like the reference, which crashes constructing
@@ -98,19 +110,22 @@ class MultiHeadConfig:
 
     @property
     def out_channels(self) -> int:
+        if not self.fuse:
+            return self.cpt * self.in_planes
         return self.convf_cfg().out_planes
 
 
 class MultiHeadBlock(nn.Module):
     """Heads under the reference names ``Block_conv{1,2,3}`` and
-    ``Block_convf``, plus the block-level re-binarize ``act``."""
+    ``Block_convf`` (``None`` without ``cfg.fuse``), plus the block-level
+    re-binarize ``act``."""
 
     def __init__(self, cfg: MultiHeadConfig):
         super().__init__()
         self.cfg = cfg
         for i, hcfg in cfg.head_cfgs().items():
             self.add_module(f"Block_conv{i}", BlockTT(hcfg))
-        self.Block_convf = BlockTT(cfg.convf_cfg())
+        self.Block_convf = BlockTT(cfg.convf_cfg()) if cfg.fuse else None
         self.act = Binarize01Act()
 
     def head(self, i: int) -> BlockTT:
@@ -156,6 +171,8 @@ def multihead_block(block: MultiHeadBlock, x: torch.Tensor,
     outs = {i: block_tt(block.head(i), x, stats=stats) for i in (1, 2, 3)}
     cat = reconcile_heads(outs, cfg, x,
                           lambda pooled: binarize01_act(pooled - 0.5))
+    if not cfg.fuse:
+        return cat
     cat = channel_interleave(cat, cfg.cpt)
     return block_tt(block.Block_convf, cat, stats=stats)
 

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``scale_imagenet_tpu/models/registry.py:311-326``).
 
-The ``ttnet_imagenet`` entries of this slice and their reference aliases;
-the rest of the JAX registry follows its families (``ROADMAP.md``).
+The ``ttnet_imagenet`` entries ported so far and their reference aliases,
+the VGG-stem variant among them (``registry.py:148-160``); the rest of the
+JAX registry follows its families (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -12,20 +13,23 @@ from typing import Callable
 import torch
 
 from .ttnet_imagenet import TTnetImageNet, TTnetImageNetConfig, \
-    build_ttnet_imagenet
+    TTnetVGGStem, TTnetVGGStemConfig, build_ttnet_imagenet, \
+    build_ttnet_vgg_stem
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     name: str
-    config: TTnetImageNetConfig
+    config: TTnetImageNetConfig | TTnetVGGStemConfig
 
     def init(self, seed: int = 0, device=None,
-             dtype: torch.dtype = torch.float32) -> TTnetImageNet:
+             dtype: torch.dtype = torch.float32) \
+            -> TTnetImageNet | TTnetVGGStem:
         """The model on ``device`` (the card unless the caller asks for the
         CPU), in eval mode, weights from ``seed``."""
-        return build_ttnet_imagenet(self.config, seed=seed, device=device,
-                                    dtype=dtype)
+        build = build_ttnet_vgg_stem if isinstance(
+            self.config, TTnetVGGStemConfig) else build_ttnet_imagenet
+        return build(self.config, seed=seed, device=device, dtype=dtype)
 
 
 def _ttnet_imagenet(name: str, variant: str):
@@ -35,6 +39,14 @@ def _ttnet_imagenet(name: str, variant: str):
             variant=variant, nfilter=nfilter, tfilter=tfilter,
             layers=layers, num_classes=num_classes, image_size=image_size,
             stem_impl=stem_impl))
+    return build
+
+
+def _vgg_stem(name: str):
+    def build(num_classes=1000, **_):
+        # the other width flags do not apply: the stem fixes p = 64
+        return ModelDef(name=name,
+                        config=TTnetVGGStemConfig(num_classes=num_classes))
     return build
 
 
@@ -51,6 +63,10 @@ MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
                                                 "small"),
     "TT_vf_19lv3_imgnet_xsmall": _ttnet_imagenet("TT_vf_19lv3_imgnet_xsmall",
                                                  "xsmall"),
+    # the VGG16-stem variant, under both of the JAX package's names
+    "TT_vf_19lv3_imgnet_xsmall_VGG": _vgg_stem(
+        "TT_vf_19lv3_imgnet_xsmall_VGG"),
+    "ttnet_imagenet_vgg_stem": _vgg_stem("TT_vf_19lv3_imgnet_xsmall_VGG"),
 }
 
 

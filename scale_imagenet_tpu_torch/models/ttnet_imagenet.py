@@ -12,8 +12,13 @@ a ``stats`` dict, which then receives every BN's new running statistics
 (``layers/norm.py``; ``train/steps.py`` writes them).  With
 ``cfg.remat`` the training forward runs each multi-head block under
 ``torch.utils.checkpoint``, as ``jax.checkpoint`` does at
-``scale_imagenet_tpu/models/ttnet_imagenet.py:167-182``.  The VGG-stem and
-``v2`` variants come later (``ROADMAP.md``).
+``scale_imagenet_tpu/models/ttnet_imagenet.py:167-182``.
+
+The VGG-stem variant (``TTnetVGGStem``, ``ttnet_imagenet.py:199-277``)
+follows the family: AvgPool(4) -> two 3x3 convs with bias and ReLU -> BN
+-> MaxPool(5) -> Heaviside -> one xsmall multi-head block that returns its
+raw 4-head concat -> Flatten -> Classifier_scale.  It runs in eval only.
+The ``v2`` variant comes later (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..device import exact_float32, resolve_device
 from ..kernels.stem import space_to_depth_stem
 from ..layers.conv import conv2d
 from ..layers.norm import batch_norm
-from ..layers.pool import avg_pool, flatten
+from ..layers.pool import avg_pool, flatten, max_pool
 from ..ops.binarize import Binarize01Act, heaviside01
 from .classifier import ClassifierScale, classifier_scale
 from .multihead import MultiHeadBlock, MultiHeadConfig, multihead_out_size
@@ -185,10 +190,14 @@ def _nchw(x: torch.Tensor, model: TTnetImageNet) -> torch.Tensor:
 def stem(model: TTnetImageNet, x: torch.Tensor,
          stats: dict | None = None) -> torch.Tensor:
     """Stem on NCHW images -> {0,1} bits (NCHW)."""
+    conv = model.stem_conv
+    # the stem conv has a bias after BN folding (``convert/bn_fold.py``)
     if model.cfg.stem_impl == "s2d":
-        h = space_to_depth_stem(x, model.stem_conv.weight)
+        h = space_to_depth_stem(x, conv.weight)
+        if conv.bias is not None:
+            h = h + conv.bias.view(1, -1, 1, 1)
     else:
-        h = conv2d(avg_pool(x, 2), model.stem_conv.weight, stride=2,
+        h = conv2d(avg_pool(x, 2), conv.weight, conv.bias, stride=2,
                    padding=3)
     return heaviside01(batch_norm(model.stem_bn, h, stats))
 
@@ -231,3 +240,117 @@ def ttnet_imagenet_apply(model: TTnetImageNet, x: torch.Tensor,
     ``stats`` is given."""
     return classifier_scale(model.classifier,
                             ttnet_imagenet_features(model, x, stats), stats)
+
+
+# ---------------------------------------------------------------------------
+# The VGG16-stem variant (TT_vf_19lv3_imgnet_xsmall_VGG)
+
+@dataclasses.dataclass(frozen=True)
+class TTnetVGGStemConfig:
+    num_classes: int = 1000
+    image_size: int = 224
+    classifier_inter: int = 1000
+    p: int = 64
+
+    def block_config(self) -> MultiHeadConfig:
+        """The xsmall block with the ``x == 11`` fixup row and no fuse
+        head: it returns the raw 4-head concat."""
+        return MultiHeadConfig(in_planes=self.p, out_planes=self.p,
+                               stride=1, last=False,
+                               **{**BLOCK_VARIANTS["xsmall"],
+                                  "fixup": "v2small_alexnet", "fuse": False})
+
+    def block_configs(self) -> list[MultiHeadConfig]:
+        return [self.block_config()]
+
+    def feature_shape(self) -> tuple[int, int, int]:
+        """(H, W, C) entering the flatten: 224 -> 56 (AvgPool 4; the convs
+        keep the size) -> 11 (MaxPool 5) -> 12 (the block's fixup pads)."""
+        s = self.image_size // 4 // 5
+        h, w = multihead_out_size(self.block_config(), s, s)
+        return h, w, self.block_config().out_channels
+
+    @property
+    def fcsize(self) -> int:
+        h, w, c = self.feature_shape()
+        return h * w * c
+
+
+class TTnetVGGStem(nn.Module):
+    """The reference module tree (``convert/torch_import.py:215-240``):
+    ``features`` = [AvgPool, conv, ReLU, conv, ReLU, BN, MaxPool, act,
+    block, Flatten, Classifier_scale]."""
+
+    def __init__(self, cfg: TTnetVGGStemConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.features = nn.Sequential(
+            nn.AvgPool2d(4),
+            nn.Conv2d(3, 64, 3, padding=1),
+            nn.ReLU(),
+            nn.Conv2d(64, 64, 3, padding=1),
+            nn.ReLU(),
+            nn.BatchNorm2d(64),
+            nn.MaxPool2d(5),
+            Binarize01Act(),
+            MultiHeadBlock(cfg.block_config()),
+            nn.Flatten(),
+            ClassifierScale(cfg.fcsize, cfg.classifier_inter,
+                            cfg.num_classes),
+        )
+
+    @property
+    def stem_conv(self) -> nn.Conv2d:
+        """The first conv: its weight sets the forward's float dtype."""
+        return self.features[1]
+
+    @property
+    def stem_conv2(self) -> nn.Conv2d:
+        return self.features[3]
+
+    @property
+    def stem_bn(self) -> nn.BatchNorm2d:
+        return self.features[5]
+
+    @property
+    def blocks(self) -> list[MultiHeadBlock]:
+        return [self.features[8]]
+
+    @property
+    def classifier(self) -> ClassifierScale:
+        return self.features[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ttnet_vgg_stem_apply(self, x)
+
+
+def build_ttnet_vgg_stem(cfg: TTnetVGGStemConfig, seed: int = 0,
+                         device=None,
+                         dtype: torch.dtype = torch.float32) -> TTnetVGGStem:
+    """The model in eval mode on ``device`` (the card unless the caller
+    asks for the CPU), weights from ``seed``.  The stem's convs are random
+    too, as in the JAX package: no pretrained VGG16 weights are fetched."""
+    dev = resolve_device(device)
+    exact_float32()
+    model = TTnetVGGStem(cfg)
+    init_ttnet_imagenet(model, torch.Generator().manual_seed(seed))
+    return model.to(device=dev, dtype=dtype).eval()
+
+
+def vgg_stem(model: TTnetVGGStem, x: torch.Tensor) -> torch.Tensor:
+    """The float stem on NCHW images -> {0,1} bits (NCHW, 11x11 at 224):
+    AvgPool(4) -> conv3x3 + bias -> ReLU -> conv3x3 + bias -> ReLU -> BN
+    -> MaxPool(5) -> Heaviside."""
+    c1, c2 = model.stem_conv, model.stem_conv2
+    h = avg_pool(x, 4)
+    h = torch.relu(conv2d(h, c1.weight, c1.bias, padding=1))
+    h = torch.relu(conv2d(h, c2.weight, c2.bias, padding=1))
+    h = batch_norm(model.stem_bn, h)
+    return heaviside01(max_pool(h, 5))
+
+
+def ttnet_vgg_stem_apply(model: TTnetVGGStem,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Eval forward (``ttnet_imagenet.py:259``): NHWC images -> logits."""
+    h = model.blocks[0](vgg_stem(model, _nchw(x, model)))
+    return classifier_scale(model.classifier, flatten(h))

@@ -535,3 +535,116 @@ def test_gate_block_on_card_equals_host(cuda):
             host = gate_net.gate_block_apply(bg, x.to(dt), form)
             assert got.dtype == dt and torch.equal(got, host)
     assert GC.gate_cubes.launches == before + 4
+
+
+# --------------------------------------------- the serving transforms' inputs
+
+def _pointwise_block(groups: int, seed: int, fold: bool, dtype, device):
+    """A k=1 Block_TT of 64 channels in ``groups`` groups (4: the
+    flagship's first head 3; 16: the VGG stem's head 3), BN statistics
+    moved off their defaults, folded into the convs when ``fold``."""
+    from scale_imagenet_tpu_torch.convert.bn_fold import fold_bn_into_conv
+    from scale_imagenet_tpu_torch.models.block_tt import BlockTT, \
+        BlockTTConfig
+
+    torch.manual_seed(seed)
+    block = BlockTT(BlockTTConfig(in_planes=64, out_planes=64, k=1,
+                                  padding=0, groupsici=groups)).eval()
+    with torch.no_grad():
+        for bn in (block.bn1, block.bn2):
+            bn.running_mean.uniform_(-0.3, 0.3)
+            bn.running_var.uniform_(0.5, 2.0)
+            bn.bias.uniform_(-0.3, 0.3)
+        if fold:
+            fold_bn_into_conv(block.conv1, block.bn1)
+            fold_bn_into_conv(block.conv2, block.bn2)
+    return block.to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("groups", [4, 16], ids=["flagship", "vgg_stem"])
+@pytest.mark.parametrize("fold,dtype", [(False, torch.bfloat16),
+                                        (True, torch.float32),
+                                        (True, torch.bfloat16)],
+                         ids=["bf16", "fold", "fold_bf16"])
+def test_fused_kernel_on_folded_and_bf16_blocks(cuda, groups, fold, dtype):
+    """``--bf16`` gives the kernel bf16 x (its affines folded in f32 from the
+    bf16 module), ``--fold_bn`` conv biases inside the affines: the kernel
+    against its plain version on the same params, through the model's
+    gate."""
+    block = _pointwise_block(groups, 3 * groups, fold, dtype, cuda)
+    params = block.pointwise_params()
+    assert all(t.dtype == torch.float32 for t in params)
+    if fold:
+        torch.testing.assert_close(
+            params[2], block.conv1.bias.float().view(groups, -1)
+            * params[1])
+    x = _bits((16, 64, 11, 11), False, dtype, groups, cuda)
+    before = FB.fused_pointwise_block.launches
+    with fused_on():
+        got = block(x)
+    torch.cuda.synchronize()
+    assert FB.fused_pointwise_block.launches == before + 1
+    rows = x.permute(0, 2, 3, 1).reshape(-1, 64)
+    want = FB.fused_pointwise_block_plain(rows, *params)
+    got = got.permute(0, 2, 3, 1).reshape(-1, 64)
+    assert got.dtype == dtype
+    flips = got != want
+    assert flips.float().mean() <= 1e-4
+    pre = FB.fused_pointwise_preact_plain(rows, *params)
+    assert bool((pre[flips].abs() < 1e-4).all())
+
+
+# ------------------------------------------------------ the VGG-stem variant
+
+# its two window launches at B = 256: heads 1 and 2 merged (k = 2, pad 1)
+# and head 3, both n = 4 on the 11x11 stem bits
+VGG_BITS = [((256, 64, 11, 11), 2, 1, 1, 64, 1, 2, False),
+            ((256, 64, 11, 11), 1, 1, 0, 16, 4, 1, False)]
+# its cube launches' (G, F, n, W): heads 1 and 2, head 3; n = 4 takes the
+# kernel's n <= 8 instantiation
+VGG_GATES = [(64, 1, 4, 1152), (16, 4, 4, 1152)]
+
+
+@pytest.mark.parametrize("case", VGG_BITS,
+                         ids=lambda c: f"k{c[1]}G{c[4]}F{c[5]}K{c[6]}")
+def test_bit_kernel_matches_plain_on_vgg_stem_shapes(cuda, case):
+    _bits_case(cuda, *case, seed=sum(case[0]) + case[4])
+
+
+@pytest.mark.parametrize("case", VGG_GATES,
+                         ids=lambda c: "G{}F{}n{}W{}".format(*c))
+def test_gate_cubes_matches_plain_on_vgg_stem_shapes(cuda, case):
+    _gate_case(cuda, *case, t_max=16, seed=sum(case))
+
+
+def test_vgg_stem_forwards_through_the_kernels(cuda, monkeypatch):
+    """The VGG stem on the card: 2 window launches a LUT forward, 3 cube
+    launches a gate forward, 1 fused launch a conv forward with the switch
+    on; LUT logits equal the plain versions', gate logits the LUT's, and
+    the argmax of all of them the conv forward's."""
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_vgg_stem_apply
+
+    model = get_model("ttnet_imagenet_vgg_stem").init(seed=0, device=cuda)
+    x = torch.rand((4, 224, 224, 3), generator=torch.Generator()
+                   .manual_seed(3)).to(cuda)
+    luts = lut_eval.compile_ttnet_lut(model)
+    gnets = gate_net.compile_ttnet_gates(model)
+    K.reset_launches()
+    GC.reset_launches()
+    FB.reset_launches()
+    got = lut_eval.lut_ttnet_vgg_stem_apply(luts, model, x)
+    gates = [gate_device.gate_ttnet_vgg_stem_apply_device(
+        gate_device.build_device_gates(gnets, form, device=cuda), model, x)
+        for form in ("dnf", "cnf")]
+    ref = ttnet_vgg_stem_apply(model, x)
+    with fused_on():
+        fused = ttnet_vgg_stem_apply(model, x)
+    torch.cuda.synchronize()
+    assert (K.lut_window_bits.launches, GC.gate_cubes.launches,
+            FB.fused_pointwise_block.launches) == (2, 6, 1)
+    for out in (*gates, ref, fused):
+        assert torch.equal(out.argmax(1), got.argmax(1))
+    assert all(torch.equal(g, got) for g in gates)
+    monkeypatch.setattr(lut_eval, "lut_window_bits", K.lut_window_bits_plain)
+    assert torch.equal(lut_eval.lut_ttnet_vgg_stem_apply(luts, model, x), got)

@@ -72,6 +72,9 @@ def test_every_module_imports_without_jax():
             "scale_imagenet_tpu_torch.compile.gate_device",
             "scale_imagenet_tpu_torch.compile.verilog",
             "scale_imagenet_tpu_torch.kernels.gate_cubes"} <= set(mods)
+    # and the serving transforms'
+    assert {"scale_imagenet_tpu_torch.convert.bn_fold",
+            "scale_imagenet_tpu_torch.convert.export"} <= set(mods)
 
 
 def test_port_builds_and_loads_its_own_native_engine():

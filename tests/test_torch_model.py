@@ -53,7 +53,8 @@ def test_registry_and_shapes():
 
     assert {"ttnet_imagenet_small", "ttnet_imagenet_xsmall",
             "ttnet_imagenet_small_g8", "TT_vf_19lv3_imgnet_small",
-            "TT_vf_19lv3_imgnet_xsmall"} == set(list_models())
+            "TT_vf_19lv3_imgnet_xsmall", "ttnet_imagenet_vgg_stem",
+            "TT_vf_19lv3_imgnet_xsmall_VGG"} == set(list_models())
     for name in list_models():
         for layers in range(5):
             cfg = get_model(name, layers=layers).config

@@ -121,9 +121,9 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--mode", "eval", "--native_data"],
-                                  ["--mode", "export"],
-                                  ["--mode", "serve", "--bf16"],
-                                  ["--mode", "serve", "--fold_bn"]])
+                                  ["--mode", "export", "--tp"],
+                                  ["--mode", "serve", "--fuse_quant"],
+                                  ["--mode", "serve", "--sp"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         cli.main(argv)
