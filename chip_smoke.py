@@ -8,10 +8,13 @@ evaluated from uint8 shards (``--mode eval``, conv and ``--lut``, with the
 fused pointwise kernel on, and under the serving transforms ``--bf16`` and
 ``--fold_bn``), exported (``--mode export``), compiled to gate circuits and
 evaluated as them (``--mode compile``, ``--mode eval --gates dnf|cnf``) and
-trained from uint8 pre-crop shards (``--mode train``); and the VGG16-stem
+trained from uint8 pre-crop shards (``--mode train``); the VGG16-stem
 variant at full width as conv, tables and gate circuit (eval, serve,
-compile).  It holds every CUDA kernel against its plain PyTorch version.
-Phases, each printing one line of its numbers:
+compile) and in training; the v2 variant at full width (eval, serve,
+train; its k=1 blocks through the fused kernel at ci = 32); and the
+TT_FHE family at full width on 32x32 inputs as conv, tables and circuit
+(eval, serve, compile).  It holds every CUDA kernel against its plain
+PyTorch version.  Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together),
            build the flagship from --seed with its BN running statistics
@@ -95,7 +98,38 @@ Phases, each printing one line of its numbers:
            ``cnf`` with their launch counts; ``main --mode compile
            --verilog``; ``main --mode serve --lut`` and ``--gates dnf``,
            each answer's top-5 equal to the direct LUT forward's;
-10. train: (a) one f32 step of the flagship at B=256, no augmentation, on
+10. v2:    ``ttnet_imagenet_v2`` at full width (p = 64, 224², groups
+           stepped down: head 3 and every fuse head at ci = 32) from --seed
+           with its BN statistics perturbed, and the ptxas report of the
+           kernel's ci = 32 instantiations (registers, spills): (a) the 6
+           fused launches of one B=256 conv forward against their plain
+           versions (``fused_case``) with ms and bound; (b) the conv
+           forward with the switch off and on: argmax agreement >= 99 %,
+           6 fused launches, ms, device profiles; (c) ``main --mode eval``
+           over 2,560 seeded images labelled by the unfused forward, the
+           switch off and on, with their launch counts; (d) ``main --mode
+           serve`` with the switch on, 8 requests, top-5 equal to the
+           direct forward's; (e) three f32 train steps at B=256 (the
+           switch on, no fused launch): step ms and peak device memory;
+11. vgg_train: ten f32 steps of the VGG-stem variant on one B=256 batch:
+           the loss falls; step ms, peak memory and a step's profile;
+12. fhe:   each deterministic TT_FHE model (``TT_FHE_SMALL``,
+           ``TT_FHE_XSMALL``, ``TT_FHE_ref``, ``TT_FHE_SMALL_polyhead``,
+           ``TT_FHE_SMALL_bireal``, ``TT_FHE_XSMALL_vAlexnet``) at full
+           width (p = 64, 32², B = 256), BN statistics perturbed: (a) for
+           ``TT_FHE_SMALL`` and ``TT_FHE_XSMALL_vAlexnet``, every window,
+           cube (DNF and CNF) and fused launch of a forward against its
+           plain version, with ms and bound; (b) conv vs LUT top-1 >= 99 %
+           and logits within 1e-4, gate bits and logits equal to the
+           LUT's (DNF and CNF), forward ms as conv (switch off, on), LUT
+           and gates; (c) ``main --mode eval`` over 5,000 seeded 32²
+           images labelled by its conv forward, as conv (switch on),
+           ``--lut`` and ``--gates dnf|cnf``, with their launch counts;
+           (d) ``main --mode serve`` (``--lut``, or conv for the Bi-Real
+           stem, which has no tables), top-5 equal to the direct forward's;
+           (e) ``main --mode compile --verilog``, its Verilog gate count
+           equal to the in-process circuits';
+13. train: (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -108,7 +142,7 @@ Phases, each printing one line of its numbers:
            memory, first and last loss, validation top-1, no launch of the
            port's kernels; (d) a resume from the recipe run's ``last``
            checkpoint continues at step 11 with a finite loss;
-11. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
+14. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -128,6 +162,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -154,6 +189,9 @@ OPS_PER_S = 67e12
 # integer op) take no f32 instruction and are not counted
 GELU_OPS = 41
 EVAL_IMAGES = 5000
+V2_EVAL_IMAGES = 2560              # 10 batches of B = 256
+V2_TRAIN_STEPS = 3
+FHE_EVAL_IMAGES = 5000
 TRAIN_IMAGES = 2560                # 10 steps of B = 256 an epoch
 # one f32 step of the flagship, card against CPU (PERF.md states these):
 # relative loss gap, cosine of the parameter updates, flipped Heavisides
@@ -428,11 +466,17 @@ def fused_case(block, x, FB):
         name = str(dt).replace("torch.", "")
         check(got.dtype == dt, f"fused kernel stored {got.dtype} at {where}")
         if act == "relu":
-            err = float((got.float() - want.float()).abs().max())
-            # f32: FMA contraction and summation order; bf16: one step
-            check(torch.allclose(got.float(), want.float(), rtol=(
-                0 if dt == torch.float32 else 2 ** -8), atol=1e-5),
-                f"fused ReLU != plain at {where} {name}: {err}")
+            ref = want.float()
+            diff = (got.float() - ref).abs()
+            err = float(diff.max())
+            # f32: FMA contraction and summation order (1e-5); bf16: one
+            # bf16 step of the value, 2^(floor(log2 |v|) - 7), where the
+            # two f32 sums round to neighbouring bf16 values
+            step = torch.zeros_like(ref) if dt == torch.float32 else \
+                torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(
+                    2.0 ** -126))) - 7)
+            check(bool((diff <= step + 1e-5).all()),
+                  f"fused ReLU != plain at {where} {name}: {err}")
         else:
             flips = got != want
             err = float(flips.any())
@@ -506,11 +550,11 @@ def fused_kernels_phase(model, x, out_dir: Path) -> list:
     return rows
 
 
-def main_eval(argv: list, fused: bool) -> dict:
-    """``main --mode eval`` (``argv``) with the fused switch set: top-1/5,
-    loss, img/s over the eval loop, the device's idle share over it, and
-    the launches of every kernel of the port in this run (the counts set to
-    0 just before it and read just after)."""
+def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
+    """``main --mode eval`` (``argv``, over ``images`` images) with the
+    fused switch set: top-1/5, loss, img/s over the eval loop, the device's
+    idle share over it, and the launches of every kernel of the port in
+    this run (the counts set to 0 just before it and read just after)."""
     from torch.profiler import ProfilerActivity, profile
 
     from scale_imagenet_tpu_torch import main as cli
@@ -539,7 +583,7 @@ def main_eval(argv: list, fused: bool) -> dict:
         top1, top5, loss = cli.main(argv)
     torch.cuda.synchronize()
     return {"top1": top1, "top5": top5, "loss": loss,
-            "img_s": EVAL_IMAGES / stats["wall_s"], "eval_s": stats["wall_s"],
+            "img_s": images / stats["wall_s"], "eval_s": stats["wall_s"],
             "device_idle_share": 1 - stats["busy_s"] / stats["wall_s"],
             "run_s": time.perf_counter() - t,
             "launches": {"fused_pointwise_block":
@@ -552,9 +596,7 @@ def main_eval(argv: list, fused: bool) -> dict:
 def eval_phase(args, model, out_dir: Path) -> dict:
     """``main --mode eval`` over self-labelled shards: conv (switch off,
     on), LUT writing its archive, LUT loading it."""
-    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
-        IMAGENET_STD, pad_batches, write_shards
-    from scale_imagenet_tpu_torch.layers.linear import linear
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
     from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
         ttnet_imagenet_apply, ttnet_imagenet_features
     from scale_imagenet_tpu_torch.train import make_input_pipeline
@@ -569,27 +611,17 @@ def eval_phase(args, model, out_dir: Path) -> dict:
     imgs = np.random.default_rng(args.seed + 3).integers(
         0, 256, (n, 224, 224, 3), dtype=np.uint8)
     prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
-    # with the init's statistics, the classifier BN maps every image of a
-    # seeded random network to one class; set them from the first batch so
-    # that the argmax depends on the image
     model = copy.deepcopy(model)
-    head = model.classifier
     with fused_blocks(False):
-        z = linear(ttnet_imagenet_features(model, prepare(
-            torch.from_numpy(imgs[:B]).cuda())), head.lin1.weight)
-        head.BN2.running_mean.copy_(z.mean(0))
-        head.BN2.running_var.copy_(z.var(0))
-        labels = []
-        for batch, _ in pad_batches(((imgs[i:i + B], np.zeros(
-                min(B, n - i), np.int32)) for i in range(0, n, B)), B):
-            xb = prepare(torch.from_numpy(batch).cuda())
-            labels.append(ttnet_imagenet_apply(model, xb).argmax(1).cpu())
-    labels = torch.cat(labels)[:n].numpy().astype(np.int32)
-    write_shards(ArrayDataset(imgs, labels), str(work / "shards"))
+        fit_classifier_bn(model.classifier, ttnet_imagenet_features(
+            model, prepare(torch.from_numpy(imgs[:B]).cuda())))
+        labels = self_labelled_shards(
+            lambda xb: ttnet_imagenet_apply(model, xb), imgs, B,
+            work / "shards")
     ckpt = work / "weights.pth"
     torch.save(model.state_dict(), ckpt)
     lut_path = work / "luts.npz"
-    del imgs, model, z
+    del imgs, model
     emit("eval_setup", images=n, batch=B, classes_hit=int(
         np.unique(labels).size), setup_s=time.perf_counter() - t0)
 
@@ -951,7 +983,7 @@ def one_train_step(model, x, y, sink: list) -> float:
 
 
 def step_parity(model, B: int, seed: int) -> dict:
-    """12(a): one f32 step of the seeded flagship without augmentation on
+    """13(a): one f32 step of the seeded flagship without augmentation on
     the card, with the fused switch on (training must not take the eval
     kernel), and on the CPU (the plain path), from the same weights and
     batch: the relative loss gap, the cosine between the two parameter
@@ -1026,7 +1058,7 @@ class StepTimer:
 
 
 def train_phase(args, model, out_dir: Path) -> dict:
-    """12(a)-(d): the step against the CPU, an overfit check on one batch,
+    """13(a)-(d): the step against the CPU, an overfit check on one batch,
     ``main --mode train`` from seeded 256x256 pre-crop shards (f32, then
     the README's recipe), and a resume from the recipe's ``last``
     checkpoint."""
@@ -1341,12 +1373,10 @@ def vgg_stem_phase(args, out_dir: Path) -> dict:
         compile_ttnet_gates, total_gates
     from scale_imagenet_tpu_torch.compile.lut_eval import _bits, \
         compile_ttnet_lut, lut_multihead_apply, lut_ttnet_vgg_stem_apply
-    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
-        IMAGENET_STD, pad_batches, write_shards
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
     from scale_imagenet_tpu_torch.kernels import fused_block as FB
     from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
     from scale_imagenet_tpu_torch.kernels import lut_gather as K
-    from scale_imagenet_tpu_torch.layers.linear import linear
     from scale_imagenet_tpu_torch.layers.pool import flatten
     from scale_imagenet_tpu_torch.models import get_model
     from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, \
@@ -1367,22 +1397,14 @@ def vgg_stem_phase(args, out_dir: Path) -> dict:
     imgs = np.random.default_rng(args.seed + 11).integers(
         0, 256, (n, 224, 224, 3), dtype=np.uint8)
     prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
-    head = model.classifier
     x = prepare(torch.from_numpy(imgs[:B]).cuda())
-    z = linear(flatten(model.blocks[0](vgg_stem(model, _nchw(x, model)))),
-               head.lin1.weight)
-    head.BN2.running_mean.copy_(z.mean(0))
-    head.BN2.running_var.copy_(z.var(0))
-    labels = []
-    for batch, _ in pad_batches(((imgs[i:i + B], np.zeros(
-            min(B, n - i), np.int32)) for i in range(0, n, B)), B):
-        labels.append(ttnet_vgg_stem_apply(
-            model, prepare(torch.from_numpy(batch).cuda())).argmax(1).cpu())
-    labels = torch.cat(labels)[:n].numpy().astype(np.int32)
-    write_shards(ArrayDataset(imgs, labels), str(work / "shards"))
+    fit_classifier_bn(model.classifier, flatten(model.blocks[0](
+        vgg_stem(model, _nchw(x, model)))))
+    labels = self_labelled_shards(lambda xb: ttnet_vgg_stem_apply(model, xb),
+                                  imgs, B, work / "shards")
     weights = work / "weights.pth"
     torch.save(model.state_dict(), weights)
-    del imgs, z
+    del imgs
     t = time.perf_counter()
     luts = compile_ttnet_lut(model)
     gnets = compile_ttnet_gates(model)
@@ -1578,6 +1600,470 @@ def vgg_stem_phase(args, out_dir: Path) -> dict:
     shutil.rmtree(work)
     return {"windows": windows, "gates": gates, "fused": fused,
             "evals": evals, "serve_launches": serve_launches}
+
+
+def ptxas_report(log: str, marker: str) -> list:
+    """``[{function, registers, spill_stores, spill_loads}]`` of the entry
+    functions whose name holds ``marker``, from an ``nvcc -Xptxas -v``
+    log."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)} if marker in m.group(1) else None
+            if cur is not None:
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def fit_classifier_bn(head, features: torch.Tensor) -> None:
+    """Set a ``Classifier_scale``'s BN statistics from one batch of
+    ``features``: with the init's statistics the classifier BN maps every
+    image of a seeded random network to one class; fitted, the argmax
+    depends on the image."""
+    from scale_imagenet_tpu_torch.layers.linear import linear
+
+    z = linear(features, head.lin1.weight)
+    head.BN2.running_mean.copy_(z.mean(0))
+    head.BN2.running_var.copy_(z.var(0))
+
+
+def self_labelled_shards(apply, imgs: np.ndarray, B: int,
+                         path: Path) -> np.ndarray:
+    """Label seeded uint8 images by ``apply``'s argmax (ImageNet-normalized
+    on the card, as the shard eval does) and write them as shards at
+    ``path``; returns the labels."""
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, pad_batches, write_shards
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    n = len(imgs)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    labels = []
+    for batch, _ in pad_batches(((imgs[i:i + B], np.zeros(
+            min(B, n - i), np.int32)) for i in range(0, n, B)), B):
+        labels.append(apply(prepare(torch.from_numpy(batch).cuda()))
+                      .argmax(1).cpu())
+    labels = torch.cat(labels)[:n].numpy().astype(np.int32)
+    write_shards(ArrayDataset(imgs, labels), str(path))
+    return labels
+
+
+def v2_phase(args, out_dir: Path) -> dict:
+    """The v2 variant at full width (module docstring, phase 10)."""
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply, ttnet_imagenet_features
+    from scale_imagenet_tpu_torch.train import TrainState, \
+        make_input_pipeline, make_optimizer, make_train_step
+
+    B, n = args.batch, V2_EVAL_IMAGES
+    work = Path("build") / "chip_smoke_v2"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device("cuda")
+    md = get_model("ttnet_imagenet_v2")
+    model = md.init(seed=args.seed, device=dev)
+    perturb_bn(model, args.seed + 20)
+    gen = torch.Generator().manual_seed(args.seed + 21)
+    x = torch.rand((B, 224, 224, 3), generator=gen).to(dev)
+    log = (out_dir / "ptxas_fused_block.log")
+    ptxas = ptxas_report(log.read_text() if log.exists() else "",
+                         "fused_pointwise_kernelILi32")
+    emit("v2_setup", blocks=[[b.head_cfgs()[3].groupsici,
+                              b.convf_cfg().groupsici, b.out_channels]
+                             for b in md.config.block_configs()],
+         fcsize=md.config.fcsize, ptxas_ci32=ptxas)
+
+    # (a) the 6 fused launches of one conv forward, each against its plain
+    # version, with ms and bound
+    captured = capture_fused(model, x, ttnet_imagenet_apply)
+    check(len(captured) == 6, f"{len(captured)} fused launches a v2 conv "
+                              "forward, expected 6")
+    rows = []
+    for block, h in captured:
+        row = fused_case(block, h, FB)
+        check(row["ci"] == 32, f"v2 fused launch at ci={row['ci']}")
+        rows.append(row)
+        emit("v2_kernels", kernel="fused_pointwise_block", **row)
+    del captured
+    (out_dir / "v2_fused_cases.json").write_text(json.dumps(rows, indent=1))
+
+    # (b) the conv forward with the switch off and on
+    ref = ttnet_imagenet_apply(model, x)
+    FB.reset_launches()
+    with fused_blocks(True):
+        got = ttnet_imagenet_apply(model, x)
+    torch.cuda.synchronize()
+    fused_launches = FB.fused_pointwise_block.launches
+    top1 = float((ref.argmax(1) == got.argmax(1)).float().mean())
+    fwd = {"conv_b256_ms": wall_ms(lambda: ttnet_imagenet_apply(model, x),
+                                   5)}
+    with fused_blocks(True):
+        fwd["conv_fused_b256_ms"] = wall_ms(
+            lambda: ttnet_imagenet_apply(model, x), 5)
+    for k in list(fwd):
+        fwd[k.replace("_b256_ms", "_img_s")] = B / fwd[k] * 1e3
+    emit("v2_model", batch=B, fused_launches=fused_launches,
+         top1_agreement_off_vs_on=top1,
+         logit_max_abs_diff_off_vs_on=float((ref - got).abs().max()), **fwd)
+    check(ref.shape == (B, 1000) and bool(torch.isfinite(ref).all())
+          and bool(torch.isfinite(got).all()), "v2 logits non-finite or "
+                                               "misshapen")
+    check(fused_launches == 6, f"v2 conv forward launched {fused_launches} "
+                               "fused kernels, expected 6")
+    check(top1 >= 0.99, f"v2 top-1 agreement off vs on {top1}")
+    profile_forward("v2_conv", lambda: ttnet_imagenet_apply(model, x), B,
+                    out_dir)
+    with fused_blocks(True):
+        profile_forward("v2_conv_fused", lambda: ttnet_imagenet_apply(
+            model, x), B, out_dir)
+    del ref, got
+
+    # (c) main --mode eval over shards labelled by the unfused forward (the
+    # classifier BN's statistics set from the first batch, as in the eval
+    # phase), switch off and on
+    imgs = np.random.default_rng(args.seed + 22).integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    emodel = copy.deepcopy(model)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    fit_classifier_bn(emodel.classifier, ttnet_imagenet_features(
+        emodel, prepare(torch.from_numpy(imgs[:B]).cuda())))
+    labels = self_labelled_shards(
+        lambda xb: ttnet_imagenet_apply(emodel, xb), imgs, B,
+        work / "shards")
+    weights = work / "weights.pth"
+    torch.save(emodel.state_dict(), weights)
+    del imgs
+    base = ["--mode", "eval", "--model", md.name, "--shards_dir",
+            str(work / "shards"), "--eval_batch_size", str(B), "--ckpt",
+            str(weights), "--root_dir", str(work / "logs")]
+    batches = -(-n // B)
+    evals = {}
+    for name, fused in (("conv", False), ("conv_fused", True)):
+        evals[name] = main_eval(base, fused, images=n)
+        emit("v2_eval", run=name, fused=fused, images=n,
+             classes_hit=int(np.unique(labels).size), **evals[name])
+        want = {"fused_pointwise_block": 6 * batches} if fused else {}
+        launched = {k: v for k, v in evals[name]["launches"].items() if v}
+        check(launched == want, f"v2 eval {name} launched {launched}, "
+                                f"expected {want}")
+    check(evals["conv"]["top1"] >= 99.9,
+          f"v2 eval conv top-1 {evals['conv']['top1']} < 99.9")
+    check(evals["conv_fused"]["top1"] >= 99.0,
+          f"v2 eval conv_fused top-1 {evals['conv_fused']['top1']} < 99")
+
+    # (d) main --mode serve with the switch on: each answer's top-5 equal
+    # to the direct forward's at the server's padded batch
+    reqs = torch.rand((8, 224, 224, 3), generator=gen)
+    with fused_blocks(True):
+        answers, health, serve_launches = serve_requests(
+            ["--model", md.name, "--ckpt", str(weights)], reqs, batch=8)
+        direct = ttnet_imagenet_apply(emodel, reqs.to(dev))
+    direct = torch.topk(torch.softmax(direct, -1), 5).indices.tolist()
+    agree = sum(a["top5"] == d for a, d in zip(answers, direct))
+    emit("v2_serve", requests=len(answers), top5_equal=agree,
+         launches=serve_launches, healthz=health)
+    check(agree == len(answers), f"v2 serve: top-5 of "
+                                 f"{len(answers) - agree} answers differ")
+    check(serve_launches["fused_pointwise_block"] == 6 * (
+        health["batches"] + 1), f"v2 serve launched {serve_launches}")
+    del emodel
+
+    # (e) a few f32 train steps at B (the switch on: training must not take
+    # the eval kernel), their time and peak device memory
+    opt, _ = make_optimizer(0.1)
+    ts = TrainState(model, opt.init(dict(model.named_parameters())))
+    step = make_train_step(model, opt)
+    xt = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
+    yt = torch.randint(0, 1000, (B,), generator=gen).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FB.reset_launches()
+    losses = []
+    with torch.enable_grad(), fused_blocks(True):
+        ts, m = step(ts, xt, yt)
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(V2_TRAIN_STEPS - 1):
+            ts, m = step(ts, xt, yt)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / (V2_TRAIN_STEPS - 1)
+    losses = [float(v) for v in losses]
+    train = {"batch": B, "steps": V2_TRAIN_STEPS, "losses": losses,
+             "step_ms": step_ms, "train_img_s": B / step_ms * 1e3,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "fused_launches_in_training":
+                 FB.fused_pointwise_block.launches}
+    emit("v2_train", **train)
+    check(all(np.isfinite(losses)), f"v2 train losses {losses}")
+    check(train["fused_launches_in_training"] == 0,
+          "a v2 training forward launched the eval-only fused kernel")
+    shutil.rmtree(work)
+    return {"fused": rows, "evals": evals, "serve_launches": serve_launches,
+            "train": train}
+
+
+def vgg_train_phase(args, out_dir: Path) -> dict:
+    """Ten f32 steps of the VGG-stem variant on one batch (module
+    docstring, phase 11)."""
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    B = args.batch
+    model = get_model("ttnet_imagenet_vgg_stem").init(seed=args.seed,
+                                                      device="cuda")
+    opt, _ = make_optimizer(0.1)
+    ts = TrainState(model, opt.init(dict(model.named_parameters())))
+    step = make_train_step(model, opt)
+    gen = torch.Generator().manual_seed(args.seed + 30)
+    x = torch.randn((B, 224, 224, 3), generator=gen).cuda()
+    y = torch.randint(0, 1000, (B,), generator=gen).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t = time.perf_counter()
+    for _ in range(10):
+        ts, metrics = step(ts, x, y)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 10
+    losses = [float(v) for v in losses]
+    out = {"batch": B, "steps": 10, "losses": losses, "step_ms": step_ms,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    emit("vgg_train", **out)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"ten VGG-stem steps on one batch did not lower the loss: "
+          f"{losses}")
+    profile_forward("vgg_train_step", lambda: step(ts, x, y), B, out_dir,
+                    iters=2)
+    return out
+
+
+FHE_NAMES = ("TT_FHE_SMALL", "TT_FHE_XSMALL", "TT_FHE_ref",
+             "TT_FHE_SMALL_polyhead", "TT_FHE_SMALL_bireal",
+             "TT_FHE_XSMALL_vAlexnet")
+# the models whose launches are each held against the plain version: they
+# cover every FHE launch shape (XSMALL and polyhead have SMALL's heads)
+FHE_CASES = ("TT_FHE_SMALL", "TT_FHE_XSMALL_vAlexnet")
+
+
+def fhe_phase(args, out_dir: Path) -> dict:
+    """The TT_FHE family at full width (module docstring, phase 12)."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.compile import gate_device as GD
+    from scale_imagenet_tpu_torch.compile import lut_eval
+    from scale_imagenet_tpu_torch.compile.gate_net import total_gates
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.models import get_model
+
+    B, n = args.batch, FHE_EVAL_IMAGES
+    work = Path("build") / "chip_smoke_fhe"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed + 40)
+    x = torch.rand((B, 32, 32, 3), generator=gen).to(dev)
+    imgs = np.random.default_rng(args.seed + 41).integers(
+        0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    reqs = torch.rand((8, 32, 32, 3), generator=gen)
+    cases = {"windows": [], "gates": [], "fused": []}
+    results = {}
+    for mi, name in enumerate(FHE_NAMES):
+        md = get_model(name)
+        model = md.init(seed=args.seed, device=dev)
+        perturb_bn(model, args.seed + 42 + mi)
+        fam = cli._family(md.config)
+        tables = md.config.spec.get("act") != "bireal" \
+            if hasattr(md.config, "spec") else True
+        res = {"fcsize": md.config.fcsize, "params": sum(
+            p.numel() for p in model.parameters())}
+        mwork = work / name
+        labels = self_labelled_shards(lambda xb: fam.conv(model, xb), imgs,
+                                      B, mwork / "shards")
+        weights = mwork / "weights.pth"
+        torch.save(model.state_dict(), weights)
+        res["classes_hit"] = int(np.unique(labels).size)
+        ref = fam.conv(model, x)
+        check(ref.shape == (B, 10) and bool(torch.isfinite(ref).all()),
+              f"{name} logits non-finite or misshapen")
+        t = time.perf_counter()
+        if tables:
+            luts = fam.lut_compile(model)
+            gnets = fam.gate_compile(model)
+            gdevs = {form: GD.build_device_gates(gnets, form, device=dev)
+                     for form in ("dnf", "cnf")}
+            res.update(compile_s=time.perf_counter() - t,
+                       total_gates=total_gates(gnets))
+        if name in FHE_CASES:
+            # (a) every window, cube and fused launch of a B = 256 forward
+            captured = []
+            real_bits = lut_eval.lut_window_bits
+
+            def rec_bits(xb, words, k, stride, padding, heads=1):
+                captured.append((xb, words, k, stride, padding, heads))
+                return real_bits(xb, words, k, stride, padding, heads)
+
+            with mock.patch.object(lut_eval, "lut_window_bits", rec_bits):
+                fam.lut(luts, model, x)
+            for launch in captured:
+                row = {"model": name, **window_case("bits", *launch, K)}
+                cases["windows"].append(row)
+                emit("fhe_kernels", kernel="lut_window_bits", **row)
+            captured = []
+            real_cubes = GD.gate_cubes
+
+            def rec_cubes(planes, cubes, offsets, filters, invert=False):
+                captured.append((planes, cubes, offsets, filters, invert))
+                return real_cubes(planes, cubes, offsets, filters, invert)
+
+            with mock.patch.object(GD, "gate_cubes", rec_cubes):
+                for form in ("dnf", "cnf"):
+                    fam.gate_device(gdevs[form], model, x)
+            for launch in captured:
+                row = {"model": name, **gate_case(*launch, GC)}
+                cases["gates"].append(row)
+                emit("fhe_kernels", kernel="gate_cubes", **row)
+            for block, h in capture_fused(model, x, fam.conv):
+                row = {"model": name, **fused_case(block, h, FB)}
+                cases["fused"].append(row)
+                emit("fhe_kernels", kernel="fused_pointwise_block", **row)
+            del captured
+        # (b) conv against tables and circuits at B = 256
+        fwd = {"conv_b256_ms": wall_ms(lambda: fam.conv(model, x), 10)}
+        with fused_blocks(True):
+            fwd["conv_fused_b256_ms"] = wall_ms(lambda: fam.conv(model, x),
+                                                10)
+        if tables:
+            got = fam.lut(luts, model, x)
+            top1 = float((ref.argmax(1) == got.argmax(1)).float().mean())
+            gate_equal = {form: bool(torch.equal(
+                fam.gate_device(gdevs[form], model, x), got))
+                for form in ("dnf", "cnf")}
+            bits_mism = {}
+            for form in ("dnf", "cnf"):
+                h = torch.rand((B, model.blocks[0].cfg.in_planes, 9, 9),
+                               generator=gen).lt(0.5).to(dev, torch.bfloat16) \
+                    if model.blocks else None
+                bits_mism[form] = sum(int((GD.gate_multihead_apply_device(
+                    gd, h) != lut_eval.lut_multihead_apply(lut, h)).sum())
+                    for gd, lut in zip(gdevs[form], luts))
+            diff = float((ref - got).abs().max())
+            res.update(top1_agreement_conv_vs_lut=top1,
+                       logit_max_abs_diff_conv_vs_lut=diff,
+                       gate_logits_equal_lut=gate_equal,
+                       gate_bit_mismatches_vs_lut=bits_mism)
+            check(top1 >= 0.99, f"{name} top-1 agreement conv vs LUT {top1}")
+            # the tables are exact: the logits differ by float rounding only
+            check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
+                  f"{name} LUT logits differ from the conv's by {diff}")
+            check(all(gate_equal.values()) and not any(bits_mism.values()),
+                  f"{name} gate bits differ from the LUT's: {bits_mism}, "
+                  f"{gate_equal}")
+            fwd["lut_b256_ms"] = wall_ms(lambda: fam.lut(luts, model, x), 10)
+            for form in ("dnf", "cnf"):
+                fwd[f"gates_{form}_b256_ms"] = wall_ms(
+                    lambda: fam.gate_device(gdevs[form], model, x), 10)
+        for k in list(fwd):
+            fwd[k.replace("_b256_ms", "_img_s")] = B / fwd[k] * 1e3
+        res.update(fwd)
+        # (c) main --mode eval: conv (the switch on), LUT, gates
+        base = ["--mode", "eval", "--model", name, "--shards_dir",
+                str(mwork / "shards"), "--eval_batch_size", str(B),
+                "--ckpt", str(weights), "--root_dir", str(mwork / "logs")]
+        batches = -(-n // B)
+        blocks = len(model.blocks)
+        k1 = sum(2 if b.cfg.fuse else 1 for b in model.blocks)
+        runs = [("conv_fused", [], True,
+                 {"fused_pointwise_block": k1 * batches} if k1 else {})]
+        if tables:
+            # heads 1 and 2 share a launch where their kernels are equal
+            windows = sum(len(lut.merged) + (lut.convf is not None)
+                          for lut in luts)
+            cubes = sum(len(g.heads) + (g.convf is not None) for g in gnets)
+            runs += [("lut", ["--lut"], False,
+                      {"lut_window_bits": windows * batches}
+                      if blocks else {}),
+                     ("gates_dnf", ["--gates", "dnf"], False,
+                      {"gate_cubes": cubes * batches} if blocks else {}),
+                     ("gates_cnf", ["--gates", "cnf"], False,
+                      {"gate_cubes": cubes * batches} if blocks else {})]
+        evals = {}
+        for run, extra, fused, want in runs:
+            evals[run] = main_eval(base + extra, fused, images=n)
+            emit("fhe_eval", model=name, run=run, fused=fused, images=n,
+                 **evals[run])
+            launched = {k: v for k, v in evals[run]["launches"].items()
+                        if v}
+            check(launched == want, f"{name} eval {run} launched "
+                                    f"{launched}, expected {want}")
+        check(evals["conv_fused"]["top1"] >= 99.0,
+              f"{name} conv eval top-1 {evals['conv_fused']['top1']} < 99")
+        if tables:
+            check(evals["lut"]["top1"] >= 99.0,
+                  f"{name} LUT eval top-1 {evals['lut']['top1']} < 99")
+            for run in ("gates_dnf", "gates_cnf"):
+                check(all(evals[run][k] == evals["lut"][k]
+                          for k in ("top1", "top5", "loss")),
+                      f"{name} eval {run} differs from the LUT's")
+        res["evals"] = evals
+        # (d) main --mode serve (tables where there are, else conv): each
+        # answer's top-5 equal to the direct forward's
+        flags = ["--lut"] if tables else []
+        answers, health, counts = serve_requests(
+            ["--model", name, "--ckpt", str(weights), *flags], reqs,
+            batch=8)
+        smodel = md.init(seed=args.seed, device=dev)
+        cli.load_checkpoint(smodel, str(weights))
+        direct = fam.lut(fam.lut_compile(smodel), smodel, reqs.to(dev)) \
+            if tables else fam.conv(smodel, reqs.to(dev))
+        direct = torch.topk(torch.softmax(direct, -1), 5).indices.tolist()
+        agree = sum(a["top5"] == d for a, d in zip(answers, direct))
+        res["serve"] = {"requests": len(answers), "top5_equal": agree,
+                        "launches": counts}
+        check(agree == len(answers), f"{name} serve: top-5 of "
+                                     f"{len(answers) - agree} answers differ")
+        # (e) main --mode compile --verilog: its circuits' gate count equals
+        # the in-process circuits'
+        if tables:
+            summary = cli.main(["--mode", "compile", "--model", name,
+                                "--ckpt", str(weights), "--compile_out",
+                                str(mwork / "compile"), "--verilog"])
+            res["compile"] = {"blocks": sorted(summary["blocks"]),
+                              "total_gates": summary["total_gates"],
+                              "verilog_total_gates":
+                                  summary["verilog"]["total_gates"]}
+            check(summary["verilog"]["total_gates"] == total_gates(gnets),
+                  f"{name} --mode compile: Verilog "
+                  f"{summary['verilog']['total_gates']} gates, circuits "
+                  f"{total_gates(gnets)}")
+        emit("fhe_model", model=name, batch=B, **{
+            k: v for k, v in res.items() if k != "evals"})
+        results[name] = res
+        shutil.rmtree(mwork)
+        del model
+    (out_dir / "fhe_cases.json").write_text(json.dumps(cases, indent=1))
+    shutil.rmtree(work)
+    return {"models": results, **cases}
 
 
 def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
@@ -1813,6 +2299,19 @@ def run(args) -> int:
     vgg = vgg_stem_phase(args, out_dir)
     torch.cuda.synchronize()
 
+    # --------------------------------------------------------------- v2
+    v2 = v2_phase(args, out_dir)
+    torch.cuda.synchronize()
+
+    # ------------------------------------------------- VGG-stem training
+    with torch.enable_grad():
+        vgg_train_phase(args, out_dir)
+    torch.cuda.synchronize()
+
+    # ------------------------------------------------------ TT_FHE family
+    fhe = fhe_phase(args, out_dir)
+    torch.cuda.synchronize()
+
     # ------------------------------------------------------------ train
     with torch.enable_grad():
         train_phase(args, model, out_dir)
@@ -1863,21 +2362,38 @@ def run(args) -> int:
         return out
 
     def entry(name, source, replaces, by_path, rows, vgg_rows=(),
-              err="max_abs_err", library=True):
+              err="max_abs_err", library=True, more=()):
         """One kernel's line: ``launches`` the sum over the paths that
         launch it, each counted from 0 over its run (``launches_by_path``);
-        the times a flagship forward's launches take, and the VGG stem's
-        under ``vgg_stem_*``; the worst error over every case."""
+        the times a flagship forward's launches take, the VGG stem's under
+        ``vgg_stem_*`` and those of ``more``'s ``(prefix, rows)``; the
+        worst error over every case."""
+        extra = [r for _, rs in more for r in rs]
         line = {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
-                "max_abs_err": max(r[err] for r in [*rows, *vgg_rows]),
+                "max_abs_err": max(r[err] for r in [*rows, *vgg_rows,
+                                                    *extra]),
                 **sums(rows)}
         if not library:
             line["library_ms"] = None
         if vgg_rows:
             line.update(sums(vgg_rows, "vgg_stem_"))
+        for prefix, rs in more:
+            line.update(sums(rs, prefix))
         return line
+
+    fhe_models = fhe["models"]
+
+    def fhe_paths(kernel, runs):
+        """This kernel's launches in each TT_FHE model's eval runs."""
+        return {f"eval_fhe_{m}_{run}": res["evals"][run]["launches"][kernel]
+                for m, res in fhe_models.items() for run in runs
+                if run in res["evals"]}
+
+    def by_model(rows):
+        return [(f"fhe_{m}_", [r for r in rows if r["model"] == m])
+                for m in FHE_CASES]
 
     vgg_evals = vgg["evals"]
     kernels = [
@@ -1888,8 +2404,10 @@ def run(args) -> int:
                "serve_vgg_stem": vgg["serve_launches"]["lut"][
                    "lut_window_bits"],
                "eval_vgg_stem_lut": vgg_evals["lut_write"]["launches"][
-                   "lut_window_bits"]},
-              cases["bits"], vgg["windows"]),
+                   "lut_window_bits"],
+               **fhe_paths("lut_window_bits", ("lut",))},
+              cases["bits"], vgg["windows"],
+              more=by_model(fhe["windows"])),
         entry("lut_window_float",
               "scale_imagenet_tpu_torch/csrc/lut_gather.cu",
               "scale_imagenet_tpu/pallas/lut_gather.py:107",
@@ -1904,9 +2422,15 @@ def run(args) -> int:
                **{f"eval_{k}": v["launches"]["fused_pointwise_block"]
                   for k, v in transforms["evals"].items()},
                "eval_vgg_stem_conv_fused": vgg_evals["conv_fused"][
-                   "launches"]["fused_pointwise_block"]},
+                   "launches"]["fused_pointwise_block"],
+               "eval_v2_conv_fused": v2["evals"]["conv_fused"]["launches"][
+                   "fused_pointwise_block"],
+               "serve_v2_fused": v2["serve_launches"][
+                   "fused_pointwise_block"],
+               **fhe_paths("fused_pointwise_block", ("conv_fused",))},
               fused_rows, vgg["fused"], err="max_abs_err_float32",
-              library=False),
+              library=False,
+              more=[("v2_", v2["fused"]), *by_model(fhe["fused"])]),
         entry("gate_cubes", "scale_imagenet_tpu_torch/csrc/gate_cubes.cu",
               "scale_imagenet_tpu/compile/gate_device.py:195 (XLA ops; no "
               "Pallas kernel)",
@@ -1914,9 +2438,12 @@ def run(args) -> int:
                "serve_vgg_stem_gates_dnf": vgg["serve_launches"][
                    "gates_dnf"]["gate_cubes"],
                **{f"eval_vgg_stem_{k}": vgg_evals[k]["launches"][
-                   "gate_cubes"] for k in ("gates_dnf", "gates_cnf")}},
+                   "gate_cubes"] for k in ("gates_dnf", "gates_cnf")},
+               **fhe_paths("gate_cubes", ("gates_dnf", "gates_cnf"))},
               gates["dnf_cases"], [r for r in vgg["gates"]
-                                   if not r["invert"]], library=False),
+                                   if not r["invert"]], library=False,
+              more=[(p, [r for r in rs if not r["invert"]])
+                    for p, rs in by_model(fhe["gates"])]),
     ]
     # the cases under the serving transforms: bf16 x, folded biases
     fused_line = kernels[2]
@@ -1928,7 +2455,8 @@ def run(args) -> int:
                              if r["transform"] == t]).items()})
     # every gate case, CNF included, counts towards the worst error
     kernels[3]["max_abs_err"] = max(
-        r["max_abs_err"] for r in [*gates["cases"], *vgg["gates"]])
+        r["max_abs_err"] for r in [*gates["cases"], *vgg["gates"],
+                                   *fhe["gates"]])
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,10 @@ from ..layers.pool import constant_pad2d
 from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair
 from ..models.multihead import MultiHeadConfig, channel_interleave, \
     reconcile_heads
+from ..models.tt_fhe import TTFHE, TTFHEAlexnet
 from ..models.ttnet_imagenet import TTnetImageNet, TTnetVGGStem
 from .gate_net import BlockGates, MultiHeadGates, _fuse, \
+    tt_fhe_alexnet_gate_forward, tt_fhe_gate_forward, \
     ttnet_gate_forward, vgg_stem_gate_forward
 
 
@@ -220,3 +222,22 @@ def gate_ttnet_vgg_stem_apply_device(gdevs: list[MultiHeadGatesDev],
     (``gate_device.py:305``; mirror of ``gate_ttnet_vgg_stem_apply``)."""
     return vgg_stem_gate_forward(
         model, x, lambda block, h: gate_multihead_apply_device(gdevs[0], h))
+
+
+@torch.no_grad()
+def gate_tt_fhe_apply_device(gdevs: list[MultiHeadGatesDev], model: TTFHE,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Device gate-circuit forward of a TT_FHE model (``gate_device.py:283``;
+    mirror of ``gate_tt_fhe_apply``)."""
+    return tt_fhe_gate_forward(
+        model, x, lambda i, h: gate_multihead_apply_device(gdevs[i], h))
+
+
+@torch.no_grad()
+def gate_tt_fhe_alexnet_apply_device(gdevs: list[MultiHeadGatesDev],
+                                     model: TTFHEAlexnet,
+                                     x: torch.Tensor) -> torch.Tensor:
+    """Device gate-circuit forward of ``TT_FHE_XSMALL_vAlexnet``
+    (``gate_device.py:327``)."""
+    return tt_fhe_alexnet_gate_forward(
+        model, x, lambda i, h: gate_multihead_apply_device(gdevs[i], h))

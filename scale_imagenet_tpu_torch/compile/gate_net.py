@@ -10,6 +10,9 @@ bit-identical to the LUT forward and to the float block.  The CNF form
 evaluates NOT(minimized complement cover), De Morgan, the clause set
 ``logic._terms_to_cnf`` prints.
 
+The TT_FHE family runs its float stem and head around the same circuit
+blocks (``gate_tt_fhe_apply``, ``gate_tt_fhe_alexnet_apply``).
+
 Float parts (stem, classifier, the last block's float/ReLU fuse head) run
 as the float ops they are, as in the LUT forward: the fuse head through the
 port's ``block_tt`` (the fused pointwise kernel when
@@ -33,6 +36,8 @@ from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair, block_tt
 from ..models.classifier import classifier_scale
 from ..models.multihead import MultiHeadBlock, MultiHeadConfig, \
     channel_interleave, reconcile_heads
+from ..models.tt_fhe import TTFHE, TTFHEAlexnet, tt_fhe_alexnet_stem, \
+    tt_fhe_head, tt_fhe_stem
 from ..models.ttnet_imagenet import TTnetImageNet, TTnetVGGStem, _nchw, \
     stem, vgg_stem
 from ..native import eval_covers, pack_table_bits
@@ -275,3 +280,53 @@ def gate_ttnet_vgg_stem_apply(gnets: list[MultiHeadGates],
     return vgg_stem_gate_forward(
         model, x, lambda block, h: gate_multihead_apply(gnets[0], h,
                                                         form=form))
+
+
+@torch.no_grad()
+def compile_tt_fhe_gates(model: TTFHE,
+                         threads: int | None = None) -> list[MultiHeadGates]:
+    """A TT_FHE model's blocks as gate circuits (``gate_net.py:227``)."""
+    if model.cfg.spec.get("act") == "bireal":
+        raise ValueError(
+            f"{model.cfg.name}: the Bi-Real stem activation emits scaled "
+            "sign values, not {0,1} bits — gate blocks cannot consume them")
+    return compile_ttnet_gates(model, threads)
+
+
+def tt_fhe_gate_forward(model: TTFHE, x: torch.Tensor,
+                        block_apply) -> torch.Tensor:
+    """A TT_FHE model's float stem, ``block_apply(i, h)`` for each block,
+    and its float head.  Bits flow as the LUT forward's do."""
+    h = _bits(tt_fhe_stem(model, _nchw(x, model)), None)
+    for i in range(model.n_blocks):
+        h = block_apply(i, h)
+    return tt_fhe_head(model, h.to(model.stem_conv.weight.dtype))
+
+
+def tt_fhe_alexnet_gate_forward(model: TTFHEAlexnet, x: torch.Tensor,
+                                block_apply) -> torch.Tensor:
+    """``TT_FHE_XSMALL_vAlexnet``'s float stem, ``block_apply(0, h)`` on
+    its block, flatten and the float classifier."""
+    h = block_apply(0, _bits(tt_fhe_alexnet_stem(model, _nchw(x, model)),
+                             None))
+    return classifier_scale(model.classifier,
+                            flatten(h).to(model.stem_conv.weight.dtype))
+
+
+@torch.no_grad()
+def gate_tt_fhe_apply(gnets: list[MultiHeadGates], model: TTFHE,
+                      x: torch.Tensor, *, form: str = "dnf") -> torch.Tensor:
+    """Host gate-circuit forward of a TT_FHE model (``gate_net.py:333``):
+    NHWC images -> logits."""
+    return tt_fhe_gate_forward(model, x, lambda i, h: gate_multihead_apply(
+        gnets[i], h, form=form))
+
+
+@torch.no_grad()
+def gate_tt_fhe_alexnet_apply(gnets: list[MultiHeadGates],
+                              model: TTFHEAlexnet, x: torch.Tensor, *,
+                              form: str = "dnf") -> torch.Tensor:
+    """Host gate-circuit forward of ``TT_FHE_XSMALL_vAlexnet``
+    (``gate_net.py:311``); compile with ``compile_ttnet_gates``."""
+    return tt_fhe_alexnet_gate_forward(
+        model, x, lambda i, h: gate_multihead_apply(gnets[i], h, form=form))

@@ -22,6 +22,9 @@ The routing mirrors the TPU path:
   (``_bits``); bits, pooled quarter-means and the indices are exact in both;
 * a block without a fuse head (``MultiHeadConfig.fuse`` off: the VGG-stem
   variant, ``lut_ttnet_vgg_stem_apply``) ends at the raw 4-head concat.
+
+The TT_FHE family (``lut_tt_fhe_apply``, ``lut_tt_fhe_alexnet_apply``) runs
+its float stem and classifier around the same table blocks.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from ..models.block_tt import BlockTT, BlockTTConfig, _as_pair, block_tt
 from ..models.classifier import classifier_scale
 from ..models.multihead import MultiHeadBlock, MultiHeadConfig, \
     channel_interleave, reconcile_heads
+from ..models.tt_fhe import TTFHE, TTFHEAlexnet, tt_fhe_alexnet_stem, \
+    tt_fhe_head, tt_fhe_stem
 from ..models.ttnet_imagenet import TTnetImageNet, TTnetVGGStem, _nchw, \
     stem, vgg_stem
 from .truth_table import block_truth_table
@@ -171,6 +176,18 @@ def compile_ttnet_lut(model) -> list[MultiHeadLUT]:
     return [compile_multihead_lut(b) for b in model.blocks]
 
 
+@torch.no_grad()
+def compile_tt_fhe_lut(model: TTFHE) -> list[MultiHeadLUT]:
+    """A TT_FHE model's blocks as tables (``lut_eval.py:283``).  The
+    Bi-Real stem emits scaled signs, which no table can index; JAX's other
+    refusal, of a noisy T != 0 model, cannot arise (the port has none)."""
+    if model.cfg.spec.get("act") == "bireal":
+        raise ValueError(
+            f"{model.cfg.name}: the Bi-Real stem activation emits scaled "
+            "sign values, not {0,1} bits — LUT blocks cannot index them")
+    return compile_ttnet_lut(model)
+
+
 def _bits(h: torch.Tensor, bits_dtype) -> torch.Tensor:
     """Cast fresh {0,1} bits to the serving bit dtype: bf16 on the card
     (halves the bytes of the pads, pools and gather outputs around the
@@ -215,6 +232,31 @@ def lut_ttnet_vgg_stem_apply(luts: list[MultiHeadLUT], model: TTnetVGGStem,
     merged launch, head 3 in another), ending at the raw concat.  NHWC
     images -> logits.  Compile with ``compile_ttnet_lut``."""
     h = _bits(vgg_stem(model, _nchw(x, model)), bits_dtype)
+    h = lut_multihead_apply(luts[0], h)
+    return classifier_scale(model.classifier,
+                            flatten(h).to(model.stem_conv.weight.dtype))
+
+
+@torch.no_grad()
+def lut_tt_fhe_apply(luts: list[MultiHeadLUT], model: TTFHE,
+                     x: torch.Tensor, bits_dtype=None) -> torch.Tensor:
+    """LUT-mode forward of a TT_FHE model (``lut_eval.py:375``): the float
+    stem and classifier head around the table blocks.  NHWC images ->
+    logits.  Compile with ``compile_tt_fhe_lut``."""
+    h = _bits(tt_fhe_stem(model, _nchw(x, model)), bits_dtype)
+    for lut in luts:
+        h = lut_multihead_apply(lut, h)
+    return tt_fhe_head(model, h.to(model.stem_conv.weight.dtype))
+
+
+@torch.no_grad()
+def lut_tt_fhe_alexnet_apply(luts: list[MultiHeadLUT], model: TTFHEAlexnet,
+                             x: torch.Tensor,
+                             bits_dtype=None) -> torch.Tensor:
+    """LUT-mode forward of ``TT_FHE_XSMALL_vAlexnet`` (``lut_eval.py:324``):
+    the float VGG stem and linear head, its block (no fuse head) as
+    tables.  Compile with ``compile_ttnet_lut``."""
+    h = _bits(tt_fhe_alexnet_stem(model, _nchw(x, model)), bits_dtype)
     h = lut_multihead_apply(luts[0], h)
     return classifier_scale(model.classifier,
                             flatten(h).to(model.stem_conv.weight.dtype))

@@ -16,6 +16,15 @@ The VGG-stem variant's map is the reference's too
 BN, ``features.7`` the stem activation, ``features.8`` the block (heads
 ``Block_conv{1,2,3}``, no fuse head), ``features.10`` the classifier.
 
+The TT_FHE family's map is ``convert/torch_export.py::export_tt_fhe``'s
+(``torch_export.py:88-150``; ``models/tt_fhe.py``): ``features.0`` the stem
+conv, ``.1`` its BN, ``.2`` the stem activation (``grad_scale``, or the
+Bi-Real ``alpha_a``/``beta_a``), ``.3…`` the blocks (no block-level
+activation), then the classifier after the pool and flatten.
+``TT_FHE_XSMALL_vAlexnet``'s is ``import_tt_fhe_alexnet``'s
+(``torch_import.py:190``): ``features.0`` the conv with bias, ``.2`` the
+BN, ``.4`` the activation, ``.5`` the block, ``.7`` the classifier.
+
 ``jax_trees`` is the inverse map, from a port model back to the JAX
 layout (``compile/lut_store.py`` hashes it).  The trees are nested dicts of
 numpy arrays; nothing here imports JAX.
@@ -26,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.tt_fhe import TTFHEAlexnetConfig, TTFHEConfig
 from ..models.ttnet_imagenet import TTnetVGGStemConfig
 
 _HEADS = (("conv1", "Block_conv1"), ("conv2", "Block_conv2"),
@@ -65,9 +75,82 @@ def _layout(cfg) -> tuple[int, int]:
     return 4, 4 + n_blocks + 2                    # after AvgPool + Flatten
 
 
+def _blocks_to_sd(sd: dict, params: dict, state: dict, cfg, first: int,
+                  block_act: bool) -> None:
+    for i, bcfg in enumerate(cfg.block_configs()):
+        base = f"features.{first + i}"
+        bp, bs = params[f"block{i}"], state[f"block{i}"]
+        for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
+            prefix = f"{base}.{name}"
+            sd[f"{prefix}.conv1.weight"] = _conv(bp[ours]["conv1"]["weight"])
+            _bn(sd, f"{prefix}.bn1", bp[ours]["bn1"], bs[ours]["bn1"])
+            sd[f"{prefix}.conv2.weight"] = _conv(bp[ours]["conv2"]["weight"])
+            _bn(sd, f"{prefix}.bn2", bp[ours]["bn2"], bs[ours]["bn2"])
+            _act(sd, f"{prefix}.act")
+        if block_act:
+            _act(sd, f"{base}.act")
+
+
+def _lin(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["weight"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _fhe_head_cls(cfg) -> int:
+    return 3 + len(cfg.block_configs()) + 2       # after pool + flatten
+
+
+def _tt_fhe_sd(params: dict, state: dict, cfg: TTFHEConfig) -> dict:
+    """``export_tt_fhe``'s keys (``torch_export.py:88``), as tensors."""
+    sd = {"features.0.weight": _conv(params["stem_conv"]["weight"])}
+    _bn(sd, "features.1", params["stem_bn"], state["stem_bn"])
+    if "stem_act" in params:
+        sd["features.2.alpha_a"] = _t(params["stem_act"]["alpha"])
+        sd["features.2.beta_a"] = _t(params["stem_act"]["beta"])
+    else:
+        _act(sd, "features.2")
+    _blocks_to_sd(sd, params, state, cfg, 3, block_act=False)
+    cls = _fhe_head_cls(cfg)
+    style = cfg.spec["classifier"]
+    if style == "scale_new":
+        cp, cs = params["classifier"], state["classifier"]
+        for lin in ("lin1", "lin2", "linvf"):
+            _lin(sd, f"features.{cls}.{lin}", cp[lin])
+        for theirs, ours in (("BN1", "bn1"), ("BN2", "bn2"),
+                             ("BNvf", "bnvf")):
+            _bn(sd, f"features.{cls}.{theirs}", cp[ours], cs[ours])
+    elif style == "scale":
+        _lin(sd, f"features.{cls}.lin1", params["lin1"])
+        _bn(sd, f"features.{cls}.BN2", params["bn1"], state["bn1"])
+        _lin(sd, f"features.{cls}.lin2", params["lin2"])
+    else:                                   # flat lin, bn, lin, bn
+        _lin(sd, f"features.{cls}", params["lin1"])
+        _bn(sd, f"features.{cls + 1}", params["bn1"], state["bn1"])
+        _lin(sd, f"features.{cls + 2}", params["lin2"])
+        _bn(sd, f"features.{cls + 3}", params["bn2"], state["bn2"])
+    return sd
+
+
+def _tt_fhe_alexnet_sd(params: dict, state: dict, cfg) -> dict:
+    sd = {"features.0.weight": _conv(params["vgg_conv1"]["weight"]),
+          "features.0.bias": _t(params["vgg_conv1"]["bias"])}
+    _bn(sd, "features.2", params["stem_bn"], state["stem_bn"])
+    _act(sd, "features.4")
+    _blocks_to_sd(sd, params, state, cfg, 5, block_act=False)
+    _lin(sd, "features.7.lin1", params["lin1"])
+    _bn(sd, "features.7.BN2", params["bn1"], state["bn1"])
+    _lin(sd, "features.7.lin2", params["lin2"])
+    return sd
+
+
 def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
-    """``cfg``: the port's ``TTnetImageNetConfig`` or
-    ``TTnetVGGStemConfig`` of the same model."""
+    """``cfg``: the port's config of the same model (``TTnetImageNetConfig``,
+    ``TTnetVGGStemConfig``, ``TTFHEConfig`` or ``TTFHEAlexnetConfig``)."""
+    if isinstance(cfg, TTFHEConfig):
+        return _tt_fhe_sd(params, state, cfg)
+    if isinstance(cfg, TTFHEAlexnetConfig):
+        return _tt_fhe_alexnet_sd(params, state, cfg)
     sd: dict = {}
     if _is_vgg(cfg):
         for key, name in (("features.1", "vgg_conv1"),
@@ -81,17 +164,7 @@ def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
         _bn(sd, "features.2", params["stem_bn"], state["stem_bn"])
         _act(sd, "features.3")
     first, cls = _layout(cfg)
-    for i, bcfg in enumerate(cfg.block_configs()):
-        base = f"features.{first + i}"
-        bp, bs = params[f"block{i}"], state[f"block{i}"]
-        for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
-            prefix = f"{base}.{name}"
-            sd[f"{prefix}.conv1.weight"] = _conv(bp[ours]["conv1"]["weight"])
-            _bn(sd, f"{prefix}.bn1", bp[ours]["bn1"], bs[ours]["bn1"])
-            sd[f"{prefix}.conv2.weight"] = _conv(bp[ours]["conv2"]["weight"])
-            _bn(sd, f"{prefix}.bn2", bp[ours]["bn2"], bs[ours]["bn2"])
-            _act(sd, f"{prefix}.act")
-        _act(sd, f"{base}.act")
+    _blocks_to_sd(sd, params, state, cfg, first, block_act=True)
     cls = f"features.{cls}"
     cp, cs = params["classifier"], state["classifier"]
     sd[f"{cls}.lin1.weight"] = _t(np.asarray(cp["lin1"]["weight"]).T)
@@ -116,12 +189,79 @@ def _bn_trees(sd: dict, prefix: str) -> tuple[dict, dict]:
              "running_var": _np(sd[f"{prefix}.running_var"])})
 
 
+def _blocks_to_trees(sd: dict, params: dict, state: dict, cfg,
+                     first: int) -> None:
+    for i, bcfg in enumerate(cfg.block_configs()):
+        base = f"features.{first + i}"
+        bp, bs = params.setdefault(f"block{i}", {}), \
+            state.setdefault(f"block{i}", {})
+        for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
+            prefix = f"{base}.{name}"
+            bn1, bn1_s = _bn_trees(sd, f"{prefix}.bn1")
+            bn2, bn2_s = _bn_trees(sd, f"{prefix}.bn2")
+            bp[ours] = {"conv1": {"weight": _hwio(sd[f"{prefix}.conv1.weight"])},
+                        "bn1": bn1,
+                        "conv2": {"weight": _hwio(sd[f"{prefix}.conv2.weight"])},
+                        "bn2": bn2}
+            bs[ours] = {"bn1": bn1_s, "bn2": bn2_s}
+
+
+def _lin_tree(sd: dict, prefix: str) -> dict:
+    p = {"weight": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T)}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _fhe_trees(model) -> tuple[dict, dict]:
+    sd = model.state_dict()
+    cfg = model.cfg
+    params: dict = {}
+    state: dict = {}
+    if isinstance(cfg, TTFHEAlexnetConfig):
+        params["vgg_conv1"] = {"bias": _np(sd["features.0.bias"]),
+                               "weight": _hwio(sd["features.0.weight"])}
+        params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.2")
+        _blocks_to_trees(sd, params, state, cfg, 5)
+        params["lin1"] = _lin_tree(sd, "features.7.lin1")
+        params["bn1"], state["bn1"] = _bn_trees(sd, "features.7.BN2")
+        params["lin2"] = _lin_tree(sd, "features.7.lin2")
+        return params, state
+    params["stem_conv"] = {"weight": _hwio(sd["features.0.weight"])}
+    params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.1")
+    if "features.2.alpha_a" in sd:
+        params["stem_act"] = {"alpha": _np(sd["features.2.alpha_a"]),
+                              "beta": _np(sd["features.2.beta_a"])}
+    _blocks_to_trees(sd, params, state, cfg, 3)
+    cls = _fhe_head_cls(cfg)
+    style = cfg.spec["classifier"]
+    if style == "scale_new":
+        cp, cs = {}, {}
+        for lin in ("lin1", "lin2", "linvf"):
+            cp[lin] = _lin_tree(sd, f"features.{cls}.{lin}")
+        for theirs, ours in (("BN1", "bn1"), ("BN2", "bn2"),
+                             ("BNvf", "bnvf")):
+            cp[ours], cs[ours] = _bn_trees(sd, f"features.{cls}.{theirs}")
+        params["classifier"], state["classifier"] = cp, cs
+    elif style == "scale":
+        params["lin1"] = _lin_tree(sd, f"features.{cls}.lin1")
+        params["bn1"], state["bn1"] = _bn_trees(sd, f"features.{cls}.BN2")
+        params["lin2"] = _lin_tree(sd, f"features.{cls}.lin2")
+    else:
+        params["lin1"] = _lin_tree(sd, f"features.{cls}")
+        params["bn1"], state["bn1"] = _bn_trees(sd, f"features.{cls + 1}")
+        params["lin2"] = _lin_tree(sd, f"features.{cls + 2}")
+        params["bn2"], state["bn2"] = _bn_trees(sd, f"features.{cls + 3}")
+    return params, state
+
+
 def jax_trees(model) -> tuple[dict, dict]:
-    """The inverse of ``state_dict_from_jax``: a port ``TTnetImageNet`` or
-    ``TTnetVGGStem`` as the JAX package's ``(params, state)`` nested dicts
-    of numpy arrays (conv weights OIHW -> HWIO, linear weights ``(out,
-    in)`` -> ``(in, out)``, the buffers inference does not read left out),
-    in the model's dtype."""
+    """The inverse of ``state_dict_from_jax``: a port model as the JAX
+    package's ``(params, state)`` nested dicts of numpy arrays (conv
+    weights OIHW -> HWIO, linear weights ``(out, in)`` -> ``(in, out)``,
+    the buffers inference does not read left out), in the model's dtype."""
+    if isinstance(model.cfg, (TTFHEConfig, TTFHEAlexnetConfig)):
+        return _fhe_trees(model)
     sd = model.state_dict()
     cfg = model.cfg
     params: dict = {}
@@ -136,19 +276,7 @@ def jax_trees(model) -> tuple[dict, dict]:
         params["stem_conv"] = {"weight": _hwio(sd["features.1.weight"])}
         params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.2")
     first, cls = _layout(cfg)
-    for i, bcfg in enumerate(cfg.block_configs()):
-        base = f"features.{first + i}"
-        bp, bs = params.setdefault(f"block{i}", {}), \
-            state.setdefault(f"block{i}", {})
-        for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
-            prefix = f"{base}.{name}"
-            bn1, bn1_s = _bn_trees(sd, f"{prefix}.bn1")
-            bn2, bn2_s = _bn_trees(sd, f"{prefix}.bn2")
-            bp[ours] = {"conv1": {"weight": _hwio(sd[f"{prefix}.conv1.weight"])},
-                        "bn1": bn1,
-                        "conv2": {"weight": _hwio(sd[f"{prefix}.conv2.weight"])},
-                        "bn2": bn2}
-            bs[ours] = {"bn1": bn1_s, "bn2": bn2_s}
+    _blocks_to_trees(sd, params, state, cfg, first)
     cls = f"features.{cls}"
     bn, bn_s = _bn_trees(sd, f"{cls}.BN2")
     params["classifier"] = {

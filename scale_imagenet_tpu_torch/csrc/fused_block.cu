@@ -35,6 +35,12 @@
 // transpose, and the (N, G*ci) row contract is the same kernel with other
 // strides.  ci and co are template parameters (registers need fixed sizes);
 // m, the dtype and the activation are run-time.
+//
+// The v2 variant's k=1 heads have ci = 32 (co = 32 for head 3 and the last
+// fuse head, 16 for the others) at m = 256: x[32] and y[32] stay in
+// registers, and the group's W1 and W2 take 64 KB (co = 32) or 48 KB
+// (co = 16) of shared memory with the affines, so the launch opts in above
+// 48 KB and three 128-thread blocks fit an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -250,10 +256,20 @@ int dispatch_co(const Args& a, int G, int co, cudaStream_t s) {
   }
 }
 
+// ci = 32: the v2 variant's heads, co 16 or 32 only
+int dispatch_co32(const Args& a, int G, int co, cudaStream_t s) {
+  switch (co) {
+    case 16: return launch<32, 16>(a, G, s);
+    case 32: return launch<32, 32>(a, G, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // The (ci, co) pairs instantiated: ci, co in {1, 2, 4, 8, 16}, which covers
-// every k=1 block of the ttnet_imagenet variants (kernels/fused_block.py
+// every k=1 block of the ttnet_imagenet variants but v2 and of the TT_FHE
+// family, and ci = 32 with co in {16, 32}, v2's (kernels/fused_block.py
 // checks the shape before the call).  Returns cudaGetLastError() after the
 // launch (0: ok), or cudaErrorInvalidValue for a shape not instantiated.
 extern "C" int fused_pointwise_launch(
@@ -294,6 +310,7 @@ extern "C" int fused_pointwise_launch(
     case 4: return dispatch_co<4>(a, G, co, s);
     case 8: return dispatch_co<8>(a, G, co, s);
     case 16: return dispatch_co<16>(a, G, co, s);
+    case 32: return dispatch_co32(a, G, co, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

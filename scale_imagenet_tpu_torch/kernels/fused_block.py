@@ -46,10 +46,14 @@ import torch
 from ..ops.binarize import heaviside01
 from ..ops.gelu import fast_gelu
 
-#: the (ci, co) the kernel is instantiated for: every k=1 block of the
-#: ttnet_imagenet variants (ci = 16, 8 or 4 groups of channels; co up to 16)
-SUPPORTED_CI = (1, 2, 4, 8, 16)
-SUPPORTED_CO = (1, 2, 4, 8, 16)
+#: the (ci, co) pairs the kernel is instantiated for: every k=1 block of
+#: the ttnet_imagenet variants and of the TT_FHE family (ci and co in
+#: {1, .., 16}), and v2's (ci = 32, co 16 or 32)
+SUPPORTED_CI = (1, 2, 4, 8, 16, 32)
+SUPPORTED_CO = (1, 2, 4, 8, 16, 32)
+SUPPORTED_PAIRS = frozenset(
+    [(ci, co) for ci in SUPPORTED_CI[:-1] for co in SUPPORTED_CO[:-1]]
+    + [(32, 16), (32, 32)])
 ACTS = ("heaviside", "relu")
 
 _count_lock = threading.Lock()
@@ -128,6 +132,12 @@ def _check(x: torch.Tensor, params: tuple, act: str, channels: int):
     if channels != g * ci:
         raise ValueError(f"x has {channels} channels, the weights "
                          f"G*ci = {g * ci}")
+    # the plain version holds the kernel's contract too: no shape runs on
+    # the CPU that the card would refuse
+    if (ci, co) not in SUPPORTED_PAIRS:
+        raise ValueError(f"the fused kernel covers ci and co in "
+                         f"{SUPPORTED_CI[:-1]}, and ci = 32 with co 16 or "
+                         f"32, not ci={ci} co={co}")
     if any(t.device != x.device for t in params):
         raise ValueError(f"x on {x.device}, weights on "
                          f"{[str(t.device) for t in params]}")
@@ -193,9 +203,6 @@ def _launch(x4: torch.Tensor, params: tuple, act: str,
     g, ci, m, co = _check(x4, params, act, x4.shape[1])
     if x4.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x4.dtype}")
-    if ci not in SUPPORTED_CI or co not in SUPPORTED_CO:
-        raise ValueError(f"the fused kernel covers ci in {SUPPORTED_CI} and "
-                         f"co in {SUPPORTED_CO}, not ci={ci} co={co}")
     w1, s1, b1, w2, s2, b2 = params
     if any(t.dtype != torch.float32 for t in params) or \
             not all(t.is_contiguous() for t in params[1:]):
@@ -285,4 +292,5 @@ __all__ = ["block_tt_pointwise_params", "fused_pointwise_block",
            "fused_pointwise_preact_plain",
            "fused_pointwise_block_v2_plain", "fused_pointwise_nchw",
            "fused_block_tt_pointwise", "fused_block_tt_pointwise_v2",
-           "reset_launches", "SUPPORTED_CI", "SUPPORTED_CO"]
+           "reset_launches", "SUPPORTED_CI", "SUPPORTED_CO",
+           "SUPPORTED_PAIRS"]

@@ -11,6 +11,8 @@ export`` and single-device ``--mode train`` subsets, and ``--list_models``.
         [--ckpt X.pth]
     python -m scale_imagenet_tpu_torch.main --model ttnet_imagenet_vgg_stem \\
         --mode eval --shards_dir D [--lut | --gates cnf]
+    python -m scale_imagenet_tpu_torch.main --model TT_FHE_SMALL \\
+        --mode eval --shards_dir D32 [--lut | --gates dnf]
     python -m scale_imagenet_tpu_torch.main --mode compile \\
         --compile_out D [--verilog] [--ckpt X.pth]
     python -m scale_imagenet_tpu_torch.main --mode train --shards_dir T \\
@@ -42,9 +44,14 @@ buffers to bfloat16, then ``--lut`` or ``--gates`` compile the network
 (which refuse both transforms, with the JAX CLI's messages).  ``--mode
 export`` writes the unmodified weights as a reference-layout ``.pth``
 (``--export_out``, ``convert/export.py``).  ``--list_models`` prints the
-registry's names.  The VGG-stem variant (``--model
-ttnet_imagenet_vgg_stem``) runs in eval, serve and compile, as its conv,
-LUT or gate forward (``_family_forwards``).
+registry's names.  The families dispatch their conv, LUT and gate forwards
+through ``_family``: the ttnet_imagenet variants (``v2`` among them, whose
+n = 30 heads have no tables, so its ``--lut``, ``--gates`` and ``--mode
+compile`` refuse with the JAX package's enumeration error), the VGG-stem
+variant, and the TT_FHE family (``--model TT_FHE_SMALL`` and the rest of
+its T = 0 models, 32x32 CIFAR-size inputs: eval from shards, serve,
+compile and, for ``TTFHEConfig``, export; no ``--fold_bn``, as in JAX, and
+no training yet).
 ``--mode train`` trains with SGD + momentum from shards (the full
 augmentation on the card from pre-crop shards, a random flip from
 same-size ones) or from ``--data_dir``/train (the PIL train transform),
@@ -74,10 +81,13 @@ from datetime import datetime
 import torch
 
 from .compile.gate_device import build_device_gates, \
+    gate_tt_fhe_alexnet_apply_device, gate_tt_fhe_apply_device, \
     gate_ttnet_apply_device, gate_ttnet_vgg_stem_apply_device
-from .compile.gate_net import compile_ttnet_gates, gate_ttnet_apply, \
+from .compile.gate_net import compile_tt_fhe_gates, compile_ttnet_gates, \
+    gate_tt_fhe_alexnet_apply, gate_tt_fhe_apply, gate_ttnet_apply, \
     gate_ttnet_vgg_stem_apply, total_gates
-from .compile.lut_eval import compile_ttnet_lut, lut_ttnet_apply, \
+from .compile.lut_eval import compile_tt_fhe_lut, compile_ttnet_lut, \
+    lut_tt_fhe_alexnet_apply, lut_tt_fhe_apply, lut_ttnet_apply, \
     lut_ttnet_vgg_stem_apply
 from .compile.lut_store import load_luts, save_luts
 from .compile.truth_table import compile_model_truth_tables, \
@@ -93,6 +103,8 @@ from .data import DataLoader, ImageFolder, IMAGENET_MEAN, IMAGENET_STD, \
 from .device import resolve_device
 from .models import get_model, list_models
 from .models.multihead import MultiHeadBlock
+from .models.tt_fhe import TTFHEAlexnetConfig, TTFHEConfig, \
+    tt_fhe_alexnet_apply, tt_fhe_apply
 from .models.ttnet_imagenet import TTnetImageNetConfig, \
     TTnetVGGStemConfig, ttnet_imagenet_apply, ttnet_vgg_stem_apply
 from .runtime.checkpoint import MODEL_FILE, CheckpointManager, \
@@ -212,6 +224,10 @@ _COMPILE_CACHE = ("--compile_cache is the JAX package's persistent XLA "
                   "compilation cache; the port runs no XLA programs (its "
                   "CUDA kernels are built once into build/kernels/) — drop "
                   "the flag")
+
+# ``scale_imagenet_tpu/main.py:1222-1229``
+_REMAT_FAMILY = ("--remat rematerializes the ttnet_imagenet block stack, "
+                 "not {}")
 
 _MODES = ("eval", "serve", "train", "compile", "export")
 
@@ -432,20 +448,53 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
                  if isinstance(m, MultiHeadBlock) and not m.cfg.fuse)
     if dead:
         sd = {k: v for k, v in sd.items() if not k.startswith(dead)}
+    if isinstance(model.cfg, TTFHEAlexnetConfig):
+        # no exporter writes this model (JAX exports TTFHEConfig only) and
+        # its importer reads weights and BN statistics only
+        # (``torch_import.py:190``): the buffers inference never reads may
+        # be absent or extra
+        own = model.state_dict()
+        optional = ("grad_scale", "num_batches_tracked")
+        sd = {**{k: v for k, v in own.items() if k.endswith(optional)},
+              **{k: v for k, v in sd.items()
+                 if k in own or not k.endswith(optional)}}
     model.load_state_dict(sd, strict=True)
 
 
-def _family_forwards(config) -> tuple:
-    """``(conv, lut, gate host, gate device)`` forwards of a config's
-    family (the dispatch of ``scale_imagenet_tpu/main.py:345,420``): the
-    VGG-stem variant's, or the rest of the ttnet_imagenet family's.  Both
-    compile their tables and covers with the generic block walk
-    (``compile_ttnet_lut``, ``compile_ttnet_gates``)."""
-    if isinstance(config, TTnetVGGStemConfig):
-        return (ttnet_vgg_stem_apply, lut_ttnet_vgg_stem_apply,
-                gate_ttnet_vgg_stem_apply, gate_ttnet_vgg_stem_apply_device)
-    return (ttnet_imagenet_apply, lut_ttnet_apply, gate_ttnet_apply,
-            gate_ttnet_apply_device)
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """A config's family: its conv forward, table compiler and LUT
+    forward, circuit compiler and host and device gate forwards (the
+    dispatch of ``scale_imagenet_tpu/main.py:345,420``)."""
+    conv: object
+    lut_compile: object
+    lut: object
+    gate_compile: object
+    gate_host: object
+    gate_device: object
+
+
+_FAMILIES = {
+    TTnetImageNetConfig: Family(
+        ttnet_imagenet_apply, compile_ttnet_lut, lut_ttnet_apply,
+        compile_ttnet_gates, gate_ttnet_apply, gate_ttnet_apply_device),
+    # the generic block walk compiles the single-block variants too
+    TTnetVGGStemConfig: Family(
+        ttnet_vgg_stem_apply, compile_ttnet_lut, lut_ttnet_vgg_stem_apply,
+        compile_ttnet_gates, gate_ttnet_vgg_stem_apply,
+        gate_ttnet_vgg_stem_apply_device),
+    TTFHEConfig: Family(
+        tt_fhe_apply, compile_tt_fhe_lut, lut_tt_fhe_apply,
+        compile_tt_fhe_gates, gate_tt_fhe_apply, gate_tt_fhe_apply_device),
+    TTFHEAlexnetConfig: Family(
+        tt_fhe_alexnet_apply, compile_ttnet_lut, lut_tt_fhe_alexnet_apply,
+        compile_ttnet_gates, gate_tt_fhe_alexnet_apply,
+        gate_tt_fhe_alexnet_apply_device),
+}
+
+
+def _family(config) -> Family:
+    return _FAMILIES[type(config)]
 
 
 def load_or_compile_luts(model, lut_path: str | None = None):
@@ -457,7 +506,7 @@ def load_or_compile_luts(model, lut_path: str | None = None):
         print(f"loading LUTs from {lut_path}")
         return load_luts(lut_path, model)
     print("compiling truth tables (2^n patterns per head)...")
-    luts = compile_ttnet_lut(model)
+    luts = _family(model.cfg).lut_compile(model)
     if lut_path:
         save_luts(lut_path, luts, model)
         print(f"saved LUTs -> {lut_path}")
@@ -472,10 +521,11 @@ def _as_gate_model(model, form: str, gnets=None):
     fit ``config.performance.gates_device_budget``, else on the host
     native evaluator.  Either way it is bit-identical to the
     LUT forward on the boolean blocks."""
-    host_apply, device_apply = _family_forwards(model.cfg)[2:]
+    family = _family(model.cfg)
+    host_apply, device_apply = family.gate_host, family.gate_device
     if gnets is None:
         print("compiling gate circuits (truth tables -> verified covers)...")
-        gnets = compile_ttnet_gates(model)
+        gnets = family.gate_compile(model)
     print(f"circuit size: {total_gates(gnets):,} gates ({form} form)")
     budget = performance.gates_device_budget
     try:
@@ -512,8 +562,8 @@ def _compile(cfg, md, model) -> dict:
         print(f"total gates: {summary['total_gates']:,}")
         if cfg.verilog:
             vdir = os.path.join(cfg.compile_out, "verilog")
-            manifest = export_model_verilog(compile_ttnet_gates(model), vdir,
-                                            model_name=md.name,
+            gnets = _family(md.config).gate_compile(model)
+            manifest = export_model_verilog(gnets, vdir, model_name=md.name,
                                             include_cnf=True)
             summary["verilog"] = manifest
             print(f"verilog: {len(manifest['modules'])} modules, "
@@ -676,6 +726,7 @@ def _train(cfg, md, model, device):
     # best tracking lives at the stable <root>/ckpt/<log_name>/ parent, so
     # it runs across resumed runs
     ckpt = CheckpointManager(ckpt_dir, best_root=os.path.dirname(ckpt_dir))
+    conv_apply = _family(model.cfg).conv
     metadata = {"model_name": md.name,
                 "config": dataclasses.asdict(model.cfg)}
     generator = torch.Generator(device)
@@ -704,7 +755,7 @@ def _train(cfg, md, model, device):
             if validate is not None:
                 row = {"epoch": epoch, "step": ts.step}
                 top1, top5, vloss = validate(
-                    lambda x: ttnet_imagenet_apply(model, x), epoch)
+                    lambda x: conv_apply(model, x), epoch)
                 print(f"epoch {epoch} val: top1 {top1:.3f}% "
                       f"top5 {top5:.3f}% loss {vloss:.4f}")
                 logger.add_scalar("Accuracy/val", top1, epoch)
@@ -758,9 +809,11 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
                    layers=cfg.layers)
     model = md.init(seed=cfg.seed, device=device)
     if cfg.mode == "train":
-        if not isinstance(md.config, TTnetImageNetConfig):
+        if isinstance(md.config, (TTFHEConfig, TTFHEAlexnetConfig)):
             raise ValueError(f"--mode train of {md.name} is not ported yet "
                              "(see ROADMAP.md)")
+        if cfg.remat and not isinstance(md.config, TTnetImageNetConfig):
+            raise ValueError(_REMAT_FAMILY.format(type(md.config).__name__))
         return _train(cfg, md, model, device)
     if cfg.ckpt:
         load_checkpoint(model, cfg.ckpt)
@@ -772,7 +825,8 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         return path
     apply_serving_transforms(cfg, model)
     name = md.name
-    conv_apply, lut_apply = _family_forwards(model.cfg)[:2]
+    family = _family(model.cfg)
+    conv_apply, lut_apply = family.conv, family.lut
     if cfg.gates:
         apply, on_device = _as_gate_model(model, cfg.gates)
         name += "+gates"

@@ -4,7 +4,9 @@ Three Block_TT heads and a pooled raw-input head over the same input, shape-
 reconciled by the reference's pad table (``FIXUP_RULES``), channel-
 interleaved and fused by a 1x1 Block_TT.  The pad *corner* (top-left for
 the first 56x56 stage, bottom-right elsewhere) is part of the trained
-models' semantics.  NCHW inside.
+models' semantics.  NCHW inside.  The tables are those of the
+ttnet_imagenet variants (``v2small``, its VGG-stem row, ``v2``) and of the
+TT_FHE family (``fhe_v3``, ``fhe_valexnet``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ _PAD2 = (0, 1, 0, 1)    # +1 bottom-right
 _PAD3 = (0, 2, 0, 2)    # +2 bottom-right
 _PAD21 = (0, 0, 0, 1)   # +1 bottom
 _PAD31 = (0, 1, 0, 0)   # +1 right
+_PAD_B2 = (0, 0, 0, 2)  # +2 bottom
+_PAD_R2 = (0, 2, 0, 0)  # +2 right
 
 
 def _fixup_v2small(xw: int, out1w: int) -> dict:
@@ -48,9 +52,58 @@ def _fixup_v2small_alexnet(xw: int, out1w: int) -> dict:
     return _fixup_v2small(xw, out1w)
 
 
+def _fixup_v2(xw: int, out1w: int) -> dict:
+    """The reference ``TT_general_imagenet_v2`` chain (``multihead.py:49``):
+    the (6,5)/(5,6) heads 1 and 2 need their own one-pixel pads at 56 and
+    29."""
+    if xw == 56 and out1w == 58:
+        return {1: _PAD21, 2: _PAD31, 3: _PAD3, 4: _PAD3}
+    if xw == 56:
+        return {3: _PAD0, 4: _PAD0}
+    if xw == 29:
+        return {1: _PAD21, 2: _PAD31, 3: _PAD3, 4: _PAD3}
+    if xw == 16:
+        return {3: _PAD2, 4: _PAD2}
+    if xw == 9 and out1w == 6:
+        return {1: _PAD21, 2: _PAD31, 3: _PAD3, 4: _PAD3}
+    if xw in (58, 30):
+        return {3: _PAD2, 4: _PAD2}
+    return {}
+
+
+def _fixup_fhe_v3(xw: int, out1w: int) -> dict:
+    """The reference ``TT_FHE_SMALL`` v3 block's chain (``multihead.py:67``)."""
+    if xw == 16 and out1w == 17:
+        return {3: _PAD2, 4: _PAD2}
+    if xw == 17:
+        return {3: _PAD2, 4: _PAD2}
+    if xw == 4 and out1w == 4:
+        return {1: _PAD_B2, 2: _PAD_R2}
+    if xw in (9, 7):
+        return {3: _PAD2, 4: _PAD2}
+    return {}
+
+
+def _fixup_fhe_valexnet(xw: int, out1w: int) -> dict:
+    """The ``TT_FHE_XSMALL_vAlexnet`` file's own v3 block
+    (``multihead.py:103``): (3,2)/(2,3) heads, a chain of its own."""
+    if xw == 16 and out1w == 17:
+        return {3: _PAD2, 4: _PAD2}
+    if xw == 4 and out1w == 4:
+        return {1: _PAD_B2, 2: _PAD_R2}
+    if xw == 10:
+        return {1: _PAD21, 2: _PAD31, 3: _PAD2, 4: _PAD2}
+    if xw in (17, 9, 8, 6):
+        return {3: _PAD2, 4: _PAD2}
+    return {}
+
+
 # the other families' tables come with those families
 FIXUP_RULES = {"v2small": _fixup_v2small,
-               "v2small_alexnet": _fixup_v2small_alexnet}
+               "v2small_alexnet": _fixup_v2small_alexnet,
+               "v2": _fixup_v2,
+               "fhe_v3": _fixup_fhe_v3,
+               "fhe_valexnet": _fixup_fhe_valexnet}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,16 +123,38 @@ class MultiHeadConfig:
     # False: the block returns the raw 4-head concat, with no interleave and
     # no fuse head (the VGG-stem variant's block, ``multihead.py:150``)
     fuse: bool = True
+    # True (the v2 variant only, whose reference crashes as shipped at
+    # p = 64): where ``int(cin / g)`` groups do not divide the channel
+    # counts, step down to the nearest divisor (``multihead.py:151-178``);
+    # otherwise such a width raises
+    repair_groups: bool = False
 
     def _groupsici(self, g: int, cin: int, cout: int) -> int:
         """``int(cin / g)`` like the reference, which crashes constructing
-        a width whose group counts do not divide the channel counts."""
+        a width whose group counts do not divide the channel counts;
+        ``repair_groups`` steps down instead."""
         gi = max(cin // g, 1)
-        if cin % gi or cout % gi or (self.t * cin) % gi:
+        if not (cin % gi or cout % gi or (self.t * cin) % gi):
+            return gi
+        if not self.repair_groups:
             raise ValueError(
                 f"invalid group math: int({cin}/{g})={gi} groups does not "
-                f"divide cin={cin}/cout={cout}/t*cin={self.t * cin}")
+                f"divide cin={cin}/cout={cout}/t*cin={self.t * cin} — the "
+                "reference crashes constructing this width; pass a width "
+                "whose group counts divide the channel counts (or set "
+                "repair_groups=True to reproduce a documented "
+                "crashes-as-shipped config with stepped-down groups)")
+        while gi > 1 and (cin % gi or cout % gi or (self.t * cin) % gi):
+            gi -= 1
         return gi
+
+    def __post_init__(self):
+        # ``multihead.py:180-192``: every head always exists
+        if any(g is None for g in self.groups):
+            raise ValueError(
+                "MultiHeadConfig does not support disabled heads "
+                f"(groups={self.groups}); the reference v2 families "
+                "hardcode all four heads")
 
     def head_cfgs(self) -> dict:
         """BlockTTConfig per conv head (1-indexed)."""
@@ -118,15 +193,16 @@ class MultiHeadConfig:
 class MultiHeadBlock(nn.Module):
     """Heads under the reference names ``Block_conv{1,2,3}`` and
     ``Block_convf`` (``None`` without ``cfg.fuse``), plus the block-level
-    re-binarize ``act``."""
+    re-binarize ``act`` where the reference has one (the ttnet_imagenet
+    blocks; the TT_FHE blocks have none, ``torch_export.py:88-150``)."""
 
-    def __init__(self, cfg: MultiHeadConfig):
+    def __init__(self, cfg: MultiHeadConfig, act: bool = True):
         super().__init__()
         self.cfg = cfg
         for i, hcfg in cfg.head_cfgs().items():
             self.add_module(f"Block_conv{i}", BlockTT(hcfg))
         self.Block_convf = BlockTT(cfg.convf_cfg()) if cfg.fuse else None
-        self.act = Binarize01Act()
+        self.act = Binarize01Act() if act else None
 
     def head(self, i: int) -> BlockTT:
         return getattr(self, f"Block_conv{i}")

@@ -1,8 +1,9 @@
 """Model registry (counterpart of ``scale_imagenet_tpu/models/registry.py:311-326``).
 
-The ``ttnet_imagenet`` entries ported so far and their reference aliases,
-the VGG-stem variant among them (``registry.py:148-160``); the rest of the
-JAX registry follows its families (``ROADMAP.md``).
+The ``ttnet_imagenet`` entries and their reference aliases (the v2 and
+VGG-stem variants among them, ``registry.py:148-160,314,325``) and the
+deterministic TT_FHE models (``registry.py:131-173``); the rest of the JAX
+registry follows its families (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -11,25 +12,30 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch import nn
 
-from .ttnet_imagenet import TTnetImageNet, TTnetImageNetConfig, \
-    TTnetVGGStem, TTnetVGGStemConfig, build_ttnet_imagenet, \
-    build_ttnet_vgg_stem
+from .tt_fhe import FHE_MODELS, TTFHEAlexnetConfig, TTFHEConfig, \
+    build_tt_fhe
+from .ttnet_imagenet import TTnetImageNetConfig, TTnetVGGStemConfig, \
+    build_ttnet_imagenet, build_ttnet_vgg_stem
+
+_BUILD_FNS = {TTnetImageNetConfig: build_ttnet_imagenet,
+             TTnetVGGStemConfig: build_ttnet_vgg_stem,
+             TTFHEConfig: build_tt_fhe, TTFHEAlexnetConfig: build_tt_fhe}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     name: str
-    config: TTnetImageNetConfig | TTnetVGGStemConfig
+    config: TTnetImageNetConfig | TTnetVGGStemConfig | TTFHEConfig \
+        | TTFHEAlexnetConfig
 
     def init(self, seed: int = 0, device=None,
-             dtype: torch.dtype = torch.float32) \
-            -> TTnetImageNet | TTnetVGGStem:
+             dtype: torch.dtype = torch.float32) -> nn.Module:
         """The model on ``device`` (the card unless the caller asks for the
         CPU), in eval mode, weights from ``seed``."""
-        build = build_ttnet_vgg_stem if isinstance(
-            self.config, TTnetVGGStemConfig) else build_ttnet_imagenet
-        return build(self.config, seed=seed, device=device, dtype=dtype)
+        return _BUILD_FNS[type(self.config)](self.config, seed=seed,
+                                            device=device, dtype=dtype)
 
 
 def _ttnet_imagenet(name: str, variant: str):
@@ -50,6 +56,19 @@ def _vgg_stem(name: str):
     return build
 
 
+def _tt_fhe(name: str):
+    def build(nfilter=8, tfilter=8, num_classes=10, **_):
+        return ModelDef(name=name, config=TTFHEConfig(
+            name=name, nfilter=nfilter, tfilter=tfilter,
+            num_classes=num_classes))
+    return build
+
+
+def _tt_fhe_alexnet(num_classes=10, maxpool=3, **_):
+    return ModelDef(name="TT_FHE_XSMALL_vAlexnet", config=TTFHEAlexnetConfig(
+        num_classes=num_classes, maxpool=maxpool))
+
+
 MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     # the shipped TTnet-Small
     "ttnet_imagenet_small": _ttnet_imagenet("ttnet_imagenet_small", "small"),
@@ -67,10 +86,28 @@ MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     "TT_vf_19lv3_imgnet_xsmall_VGG": _vgg_stem(
         "TT_vf_19lv3_imgnet_xsmall_VGG"),
     "ttnet_imagenet_vgg_stem": _vgg_stem("TT_vf_19lv3_imgnet_xsmall_VGG"),
+    # TT_vf_19lv3_imgnet: (6,5)/(5,6) heads, groups stepped down at p = 64
+    "ttnet_imagenet_v2": _ttnet_imagenet("ttnet_imagenet_v2", "v2"),
+    "TT_vf_19lv3_imgnet": _ttnet_imagenet("TT_vf_19lv3_imgnet", "v2"),
+    # the TT_FHE family (CIFAR, 32x32); tt_fhe_small is TT_FHE_SMALL's
+    # alias, as in the JAX registry
+    **{name: _tt_fhe(name) for name in FHE_MODELS},
+    "tt_fhe_small": _tt_fhe("TT_FHE_SMALL"),
+    "TT_FHE_XSMALL_vAlexnet": _tt_fhe_alexnet,
+}
+
+
+# JAX registry entries whose semantics the port does not have yet
+_NOT_PORTED = {
+    "TT_FHE_small": "TT_FHE_small (T = 0.03, T_block = 0.1) needs the noisy "
+                    "dead-zone Heaviside, which the port does not have yet "
+                    "(ROADMAP.md queue A)",
 }
 
 
 def get_model(name: str, **kwargs) -> ModelDef:
+    if name in _NOT_PORTED:
+        raise ValueError(_NOT_PORTED[name])
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; the port has "
                        f"{sorted(MODEL_REGISTRY)} (the rest: ROADMAP.md)")

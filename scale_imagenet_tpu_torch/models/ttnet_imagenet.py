@@ -17,8 +17,9 @@ a ``stats`` dict, which then receives every BN's new running statistics
 The VGG-stem variant (``TTnetVGGStem``, ``ttnet_imagenet.py:199-277``)
 follows the family: AvgPool(4) -> two 3x3 convs with bias and ReLU -> BN
 -> MaxPool(5) -> Heaviside -> one xsmall multi-head block that returns its
-raw 4-head concat -> Flatten -> Classifier_scale.  It runs in eval only.
-The ``v2`` variant comes later (``ROADMAP.md``).
+raw 4-head concat -> Flatten -> Classifier_scale.  It takes ``stats`` too;
+the JAX package keeps no ``remat`` for it (its CLI refuses ``--remat``
+there).
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ BLOCK_VARIANTS = {
     # truth tables there instead of n=16
     "small_g8": dict(k12=(4, 4), pad12=(2, 2), groups=(1, 1, 8, 1),
                      groupvf=8, fixup="v2small"),
+    # ``TT_vf_19lv3_imgnet`` (``ttnet_imagenet.py:57-58``): (6,5)/(5,6)
+    # depthwise heads 1 and 2 (n = 30 bits: no truth table), head 3 and the
+    # fuse head grouped at 30; the reference crashes as shipped at p = 64
+    # (int(512/30) = 17 groups on 512 channels), so its group counts step
+    # down to the nearest divisor (``repair_groups``)
+    "v2": dict(k12=((6, 5), (5, 6)), pad12=(3, 3), groups=(1, 1, 30, 1),
+               groupvf=30, fixup="v2", repair_groups=True),
 }
 
 
@@ -320,8 +328,9 @@ class TTnetVGGStem(nn.Module):
     def classifier(self) -> ClassifierScale:
         return self.features[-1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ttnet_vgg_stem_apply(self, x)
+    def forward(self, x: torch.Tensor,
+                stats: dict | None = None) -> torch.Tensor:
+        return ttnet_vgg_stem_apply(self, x, stats)
 
 
 def build_ttnet_vgg_stem(cfg: TTnetVGGStemConfig, seed: int = 0,
@@ -337,7 +346,8 @@ def build_ttnet_vgg_stem(cfg: TTnetVGGStemConfig, seed: int = 0,
     return model.to(device=dev, dtype=dtype).eval()
 
 
-def vgg_stem(model: TTnetVGGStem, x: torch.Tensor) -> torch.Tensor:
+def vgg_stem(model: TTnetVGGStem, x: torch.Tensor,
+             stats: dict | None = None) -> torch.Tensor:
     """The float stem on NCHW images -> {0,1} bits (NCHW, 11x11 at 224):
     AvgPool(4) -> conv3x3 + bias -> ReLU -> conv3x3 + bias -> ReLU -> BN
     -> MaxPool(5) -> Heaviside."""
@@ -345,12 +355,14 @@ def vgg_stem(model: TTnetVGGStem, x: torch.Tensor) -> torch.Tensor:
     h = avg_pool(x, 4)
     h = torch.relu(conv2d(h, c1.weight, c1.bias, padding=1))
     h = torch.relu(conv2d(h, c2.weight, c2.bias, padding=1))
-    h = batch_norm(model.stem_bn, h)
+    h = batch_norm(model.stem_bn, h, stats)
     return heaviside01(max_pool(h, 5))
 
 
-def ttnet_vgg_stem_apply(model: TTnetVGGStem,
-                         x: torch.Tensor) -> torch.Tensor:
-    """Eval forward (``ttnet_imagenet.py:259``): NHWC images -> logits."""
-    h = model.blocks[0](vgg_stem(model, _nchw(x, model)))
-    return classifier_scale(model.classifier, flatten(h))
+def ttnet_vgg_stem_apply(model: TTnetVGGStem, x: torch.Tensor,
+                         stats: dict | None = None) -> torch.Tensor:
+    """Forward (``ttnet_imagenet.py:259``): NHWC images -> logits; eval, or
+    training when ``stats`` is given (the stem BN, the block and the
+    classifier take their batch statistics, as in the JAX package)."""
+    h = model.blocks[0](vgg_stem(model, _nchw(x, model), stats), stats)
+    return classifier_scale(model.classifier, flatten(h), stats)

@@ -1,6 +1,7 @@
-from .binarize import Binarize01Act, binarize01_act, heaviside01
+from .binarize import Binarize01Act, BinaryActivation, binarize01_act, \
+    bireal_act, heaviside01
 from .gelu import gelu
 from .poly import polynome_act
 
-__all__ = ["Binarize01Act", "binarize01_act", "heaviside01", "gelu",
-           "polynome_act"]
+__all__ = ["Binarize01Act", "BinaryActivation", "binarize01_act",
+           "bireal_act", "heaviside01", "gelu", "polynome_act"]

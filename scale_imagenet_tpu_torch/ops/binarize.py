@@ -10,7 +10,9 @@ scale is ``None``; the surrogate is computed in ``x``'s dtype (bf16
 under ``--amp``).  Where no gradient is wanted (eval, serving, the
 truth-table compiler) the forward runs as one comparison, outside autograd.
 The noisy dead-zone (T != 0) comes with the families that use it
-(``ROADMAP.md``).
+(``ROADMAP.md``).  ``bireal_act`` is the Bi-Real sign stem activation of the
+TT_FHE family (``binarize.py:130``), forward only: its surrogate backward
+comes with FHE training (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -71,3 +73,24 @@ class Binarize01Act(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return heaviside01(x)
+
+
+def bireal_act(x: torch.Tensor, alpha: torch.Tensor,
+               beta: torch.Tensor) -> torch.Tensor:
+    """``alpha * (sign((x - beta) / alpha) + beta)`` (``BinaryActivation``,
+    ``binarize.py:130``), in ``x``'s dtype."""
+    return alpha * (torch.sign((x - beta) / alpha) + beta)
+
+
+class BinaryActivation(nn.Module):
+    """The Bi-Real stem activation with its learnable ``alpha_a``/``beta_a``
+    (reference names; 1 and 0 at init, 0-d as the JAX exporter writes
+    them)."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha_a = nn.Parameter(torch.tensor(1.0))
+        self.beta_a = nn.Parameter(torch.tensor(0.0))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bireal_act(x, self.alpha_a, self.beta_a)

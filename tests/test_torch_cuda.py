@@ -228,12 +228,9 @@ FUSED_SHAPES = [(4, 16, 128, 16, 5000), (16, 16, 128, 8, 3001),
                 (4, 8, 64, 8, 513), (3, 2, 16, 1, 100)]
 
 
-@pytest.mark.parametrize("g,ci,m,co,n", FUSED_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("act", ["heaviside", "relu"])
-def test_fused_kernel_matches_plain_on_card(cuda, g, ci, m, co, n, dtype,
-                                            act):
+def _fused_check(cuda, g, ci, m, co, n, dtype, act):
+    """The kernel against its plain version on seeded inputs: ReLU to 1e-5
+    (f32) or 1e-2 (bf16), Heaviside flips only near the threshold."""
     args = _fused_inputs(g, ci, m, co, n, dtype, g * ci + co, cuda)
     before = FB.fused_pointwise_block.launches
     got = FB.fused_pointwise_block(*args, act=act)
@@ -252,6 +249,45 @@ def test_fused_kernel_matches_plain_on_card(cuda, g, ci, m, co, n, dtype,
         assert flips.float().mean() <= 1e-4
         pre = FB.fused_pointwise_preact_plain(*args)
         assert bool((pre[flips].abs() < 1e-4).all())
+
+
+@pytest.mark.parametrize("g,ci,m,co,n", FUSED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ["heaviside", "relu"])
+def test_fused_kernel_matches_plain_on_card(cuda, g, ci, m, co, n, dtype,
+                                            act):
+    _fused_check(cuda, g, ci, m, co, n, dtype, act)
+
+
+# the v2 variant's six k=1 launches at p = 64 as (G, ci, m, co, act), their
+# pixels cut to a few thousand: head 3 and the fuse head of blocks 0, 1, 2
+V2_FUSED = [(2, 32, 256, 32, "heaviside"), (8, 32, 256, 16, "heaviside"),
+            (4, 32, 256, 32, "heaviside"), (16, 32, 256, 16, "heaviside"),
+            (8, 32, 256, 32, "heaviside"), (32, 32, 256, 32, "relu")]
+
+
+@pytest.mark.parametrize("case", V2_FUSED,
+                         ids=lambda c: "G{}ci{}m{}co{}{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_kernel_matches_plain_on_v2_shapes(cuda, case, dtype):
+    g, ci, m, co, act = case
+    _fused_check(cuda, g, ci, m, co, 1000 + 333 * g, dtype, act)
+
+
+# the TT_FHE family's k=1 launches at p = 64 and B = 256: the fhe_v3 head 3
+# (16x16) and fuse head (17x17), and TT_FHE_XSMALL_vAlexnet's head 3 (10x10)
+FHE_FUSED = [(16, 4, 32, 4, 256 * 16 * 16), (64, 4, 32, 4, 256 * 17 * 17),
+             (8, 8, 64, 8, 256 * 10 * 10)]
+
+
+@pytest.mark.parametrize("g,ci,m,co,n", FHE_FUSED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_kernel_matches_plain_on_fhe_shapes(cuda, g, ci, m, co, n,
+                                                  dtype):
+    _fused_check(cuda, g, ci, m, co, n, dtype, "heaviside")
 
 
 def test_fused_kernel_reads_nchw_through_strides(cuda):
@@ -648,3 +684,84 @@ def test_vgg_stem_forwards_through_the_kernels(cuda, monkeypatch):
     assert all(torch.equal(g, got) for g in gates)
     monkeypatch.setattr(lut_eval, "lut_window_bits", K.lut_window_bits_plain)
     assert torch.equal(lut_eval.lut_ttnet_vgg_stem_apply(luts, model, x), got)
+
+
+# ---------------------------------------------- the v2 and TT_FHE families
+
+# the TT_FHE window launches at p = 64 and B = 256: TT_FHE_SMALL's heads
+# 1 and 2 merged (k = 2, pad 1, n = 4), head 3 and fuse head (n = 4);
+# TT_FHE_XSMALL_vAlexnet's (3,2) and (2,3) heads (n = 6) and head 3 (n = 8)
+FHE_BITS = [((256, 64, 16, 16), 2, 1, 1, 64, 1, 2, False),
+            ((256, 64, 16, 16), 1, 1, 0, 16, 4, 1, False),
+            ((256, 256, 17, 17), 1, 1, 0, 64, 4, 1, False),
+            ((256, 64, 10, 10), (3, 2), 1, 1, 64, 1, 1, False),
+            ((256, 64, 10, 10), (2, 3), 1, 1, 64, 1, 1, False),
+            ((256, 64, 10, 10), 1, 1, 0, 8, 8, 1, False)]
+# and their cube launches' (G, F, n, W)
+FHE_GATES = [(64, 1, 4, 2312), (16, 4, 4, 2048), (64, 4, 4, 2312),
+             (64, 1, 6, 880), (8, 8, 8, 800)]
+
+
+@pytest.mark.parametrize("case", FHE_BITS,
+                         ids=lambda c: f"{c[0][2]}k{c[1]}G{c[4]}F{c[5]}K"
+                                       f"{c[6]}")
+def test_bit_kernel_matches_plain_on_fhe_shapes(cuda, case):
+    _bits_case(cuda, *case, seed=sum(case[0]) + case[4])
+
+
+@pytest.mark.parametrize("case", FHE_GATES,
+                         ids=lambda c: "G{}F{}n{}W{}".format(*c))
+def test_gate_cubes_matches_plain_on_fhe_shapes(cuda, case):
+    _gate_case(cuda, *case, t_max=2 ** (case[2] - 1), seed=sum(case))
+
+
+@pytest.mark.parametrize("name", ["TT_FHE_SMALL", "TT_FHE_XSMALL_vAlexnet"])
+def test_fhe_forwards_through_the_kernels(cuda, name, monkeypatch):
+    """A TT_FHE model at p = 64 on the card: its LUT forward through the
+    window kernel equals the plain versions', its DNF and CNF circuits
+    equal the LUT forward, and its conv forward with the switch on launches
+    the fused kernel once a k=1 block and keeps the unfused argmax."""
+    from scale_imagenet_tpu_torch import main as cli
+
+    model = get_model(name).init(seed=0, device=cuda)
+    fam = cli._family(model.cfg)
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator()
+                   .manual_seed(4)).to(cuda)
+    luts = fam.lut_compile(model)
+    gnets = fam.gate_compile(model)
+    K.reset_launches()
+    GC.reset_launches()
+    FB.reset_launches()
+    got = fam.lut(luts, model, x)
+    gates = [fam.gate_device(gate_device.build_device_gates(
+        gnets, form, device=cuda), model, x) for form in ("dnf", "cnf")]
+    ref = fam.conv(model, x)
+    with fused_on():
+        fused = fam.conv(model, x)
+    torch.cuda.synchronize()
+    # TT_FHE_SMALL: heads 1+2 merged, head 3, fuse head; vAlexnet: heads
+    # 1 and 2 apart ((3,2) and (2,3)), head 3, no fuse head
+    k1 = 2 if name == "TT_FHE_SMALL" else 1      # head 3 (and the fuse head)
+    assert (K.lut_window_bits.launches, GC.gate_cubes.launches,
+            FB.fused_pointwise_block.launches) == (3, 2 * (2 + k1), k1)
+    assert all(torch.equal(g, got) for g in gates)
+    assert torch.equal(fused.argmax(1), ref.argmax(1))
+    assert torch.equal(ref.argmax(1), got.argmax(1))
+    monkeypatch.setattr(lut_eval, "lut_window_bits", K.lut_window_bits_plain)
+    assert torch.equal(fam.lut(luts, model, x), got)
+
+
+def test_v2_conv_forward_through_the_fused_kernel(cuda):
+    """The v2 variant at p = 64 with the switch on: each of its 6 k=1
+    blocks (ci = 32) launches the fused kernel, and the argmax is the
+    unfused forward's."""
+    model = get_model("ttnet_imagenet_v2").init(seed=0, device=cuda)
+    x = torch.rand((4, 224, 224, 3), generator=torch.Generator()
+                   .manual_seed(5)).to(cuda)
+    ref = ttnet_imagenet_apply(model, x)
+    FB.reset_launches()
+    with fused_on():
+        got = ttnet_imagenet_apply(model, x)
+    torch.cuda.synchronize()
+    assert FB.fused_pointwise_block.launches == 6
+    assert torch.equal(got.argmax(1), ref.argmax(1))

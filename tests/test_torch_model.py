@@ -54,15 +54,23 @@ def test_registry_and_shapes():
     assert {"ttnet_imagenet_small", "ttnet_imagenet_xsmall",
             "ttnet_imagenet_small_g8", "TT_vf_19lv3_imgnet_small",
             "TT_vf_19lv3_imgnet_xsmall", "ttnet_imagenet_vgg_stem",
-            "TT_vf_19lv3_imgnet_xsmall_VGG"} == set(list_models())
+            "TT_vf_19lv3_imgnet_xsmall_VGG", "ttnet_imagenet_v2",
+            "TT_vf_19lv3_imgnet", "TT_FHE_SMALL", "tt_fhe_small",
+            "TT_FHE_XSMALL", "TT_FHE_ref", "TT_FHE_SMALL_polyhead",
+            "TT_FHE_SMALL_bireal",
+            "TT_FHE_XSMALL_vAlexnet"} == set(list_models())
     for name in list_models():
         for layers in range(5):
             cfg = get_model(name, layers=layers).config
             jcfg = jget(name, layers=layers).config
-            assert cfg.feature_shape() == jcfg.feature_shape()
+            # the vAlexnet configs have no feature_shape in either package
+            if hasattr(jcfg, "feature_shape"):
+                assert cfg.feature_shape() == jcfg.feature_shape()
             assert cfg.fcsize == jcfg.fcsize
     with pytest.raises(KeyError, match="ROADMAP"):
         get_model("resnet18")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        get_model("TT_FHE_small")
 
 
 def test_seeded_init_is_deterministic():
