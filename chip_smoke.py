@@ -16,9 +16,13 @@ TT_FHE family at full width on 32x32 inputs as conv, tables and circuit
 (eval, serve, compile).  It holds every CUDA kernel against its plain
 PyTorch version.  Phases, each printing one line of its numbers:
 
-1. setup:  build every CUDA source (one nvcc each, all started together),
-           build the flagship from --seed with its BN running statistics
-           perturbed, compile its truth tables;
+1. setup:  build every CUDA source (one nvcc each, all started together);
+           ptxas's registers, spills and shared memory for every
+           instantiation of the fused kernel, and the HMMA instructions
+           of each in ``cuobjdump -sass`` (every tensor-core
+           instantiation must have them); build the flagship from --seed
+           with its BN running statistics perturbed, compile its truth
+           tables;
 2. kernels: every LUT window launch of one B=256 table-exact LUT forward
            (8 ``lut_window_bits``, 1 ``lut_window_float``), captured with
            its real input bits, through the kernel and the plain version:
@@ -39,8 +43,11 @@ PyTorch version.  Phases, each printing one line of its numbers:
            within 1e-5 in f32 and one bf16 step in bf16; Heaviside flips in
            at most 1e-4 of the outputs, each within 1e-4 of the threshold
            in the plain version), flips against the exact-erf unfused
-           chain, times of the kernel, the plain version and the chain,
-           the bound;
+           chain, times of the kernel, the plain version and the chain;
+           the body the launcher took (tensor-core or FMA) and its launch
+           plan; the bound of that body (bytes, CUDA-core ops and 3xTF32
+           tensor-core flops, each term printed) and ``bound_fma_ms``,
+           the bound with the products on the CUDA cores;
 6. eval:   5,000 seeded uint8 images labelled by the unfused conv
            forward's argmax (the classifier BN's statistics set from the
            first batch, so that the labels spread over many classes),
@@ -177,6 +184,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
 # int32 logic on the CUDA cores: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz
 # (the H100 SXM's boost clock; the data sheet gives no int32 rate)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -442,9 +450,37 @@ def fused_ops(e: int, g: int, ci: int, m: int, co: int) -> int:
     return e * g * (m * (2 * ci + 2 + GELU_OPS + 2 * co) + 3 * co)
 
 
+def fused_bounds(e, g, ci, m, co, nbytes, body, bf16) -> dict:
+    """The launch's least times: bytes over the memory rate; the FMA
+    body's f32 operations over 67 T (``bound_fma_ms``, every launch);
+    the tensor-core body's CUDA-core operations over 67 T and its 3xTF32
+    flops over 495 T.  ``bound_ms`` is the bound of the body the launcher
+    took."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fma_ops = fused_ops(e, g, ci, m, co)
+    # the tensor-core body's CUDA-core ops: per hidden unit the BN1 FMA
+    # and the GELU, per output the BN2 FMA and the activation
+    cc_ops = e * g * (m * (2 + GELU_OPS) + 3 * co)
+    # its tensor flops: each group product as three TF32 products (GEMM 1
+    # two on a bf16 x, exact in TF32)
+    tflops = e * g * 2 * m * ((2 if bf16 else 3) * ci + 3 * co)
+    row = {"bytes": nbytes, "ops": fma_ops, "cuda_core_ops": cc_ops,
+           "tensor_flops": tflops, "bytes_ms": bytes_ms,
+           "fma_ops_ms": fma_ops / OPS_PER_S * 1e3,
+           "cuda_core_ms": cc_ops / OPS_PER_S * 1e3,
+           "tensor_core_ms": tflops / TF32_FLOPS_PER_S * 1e3}
+    row["bound_fma_ms"] = max(bytes_ms, row["fma_ops_ms"])
+    terms = [bytes_ms, row["cuda_core_ms"], row["tensor_core_ms"]] \
+        if body == "tensor_core" else [bytes_ms, row["fma_ops_ms"]]
+    row["bound_ms"] = max(terms)
+    row["bound_by"] = "bytes" if bytes_ms >= max(terms) else "operations"
+    return row
+
+
 def fused_case(block, x, FB):
     """Kernel vs plain (f32 and bf16) and vs the exact-erf unfused chain at
-    one captured launch of the fused pointwise block; times and bound."""
+    one captured launch of the fused pointwise block; the body the
+    launcher took, times and bounds."""
     from scale_imagenet_tpu_torch.models.block_tt import block_tt
 
     params = FB.block_tt_pointwise_params(block)
@@ -458,6 +494,15 @@ def fused_case(block, x, FB):
         return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])
 
     row = {"G": g, "ci": ci, "m": m, "co": co, "E": b * h * w, "act": act}
+    # the body by shape: the wrapper's query and the launcher's own plan
+    # on this card agree
+    body = FB.fused_body(ci, m, co)
+    plan = FB.launch_plan(ci, m, co, x.dtype)
+    check(plan["body"] == body,
+          f"fused body at {where}: {body} vs the launcher's {plan}")
+    row.update(body=body, threads=plan["threads"],
+               smem_bytes=plan["smem_bytes"],
+               ctas_per_sm=plan["ctas_per_sm"])
     for dt in (torch.float32, torch.bfloat16):
         xd = x.to(dt)
         got = rows(FB.fused_pointwise_nchw(xd, params, act))
@@ -511,12 +556,10 @@ def fused_case(block, x, FB):
     # the output is stored in x's dtype; the params are f32
     nbytes = (x.numel() * x.element_size() + b * h * w * g * co
               * x.element_size() + sum(t.numel() * 4 for t in params))
-    ops = fused_ops(b * h * w, g, ci, m, co)
     row.update(ms=time_ms(run), plain_ms=time_ms(plain),
-               chain_ms=time_ms(chain), bytes=nbytes, ops=ops,
-               bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3,
-               bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-               >= ops / OPS_PER_S else "operations")
+               chain_ms=time_ms(chain),
+               **fused_bounds(b * h * w, g, ci, m, co, nbytes, body,
+                              x.dtype == torch.bfloat16))
     return row
 
 
@@ -1603,9 +1646,10 @@ def vgg_stem_phase(args, out_dir: Path) -> dict:
 
 
 def ptxas_report(log: str, marker: str) -> list:
-    """``[{function, registers, spill_stores, spill_loads}]`` of the entry
-    functions whose name holds ``marker``, from an ``nvcc -Xptxas -v``
-    log."""
+    """``[{function, registers, spill_stores, spill_loads, smem_bytes}]``
+    of the entry functions whose name holds ``marker``, from an ``nvcc
+    -Xptxas -v`` log (``smem_bytes`` the static shared memory; the
+    kernels' own is dynamic, in each launch's plan)."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1623,6 +1667,51 @@ def ptxas_report(log: str, marker: str) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
+def sass_hmma(lib: Path) -> dict:
+    """``{function: HMMA instructions}`` of a built library, from
+    ``cuobjdump -sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    exe = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(exe) if exe.exists() else "cuobjdump",
+                           "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
+def fused_build_report(lib: Path, out_dir: Path) -> list:
+    """Every instantiation of the fused kernel: its body, ptxas's
+    registers, spills and static shared memory, and its HMMA count.  Every
+    tensor-core instantiation must hold HMMA, and every FMA one none."""
+    log = out_dir / "ptxas_fused_block.log"
+    rows = ptxas_report(log.read_text() if log.exists() else "",
+                        "fused_pointwise")
+    hmma = sass_hmma(lib)
+    for r in rows:
+        r["body"] = "tensor_core" if "fused_pointwise_tc_kernel" in \
+            r["function"] else "fma"
+        r["hmma"] = hmma.get(r["function"], 0)
+    tc = [r for r in rows if r["body"] == "tensor_core"]
+    # five pairs, f32 and bf16 x
+    check(len(tc) == 10, f"{len(tc)} tensor-core instantiations, "
+                         "expected 10")
+    check(all(r["hmma"] > 0 for r in tc),
+          f"a tensor-core instantiation without HMMA: {tc}")
+    check(all(r["hmma"] == 0 for r in rows if r["body"] == "fma"),
+          "an FMA-body instantiation with HMMA")
     return rows
 
 
@@ -1681,7 +1770,7 @@ def v2_phase(args, out_dir: Path) -> dict:
     x = torch.rand((B, 224, 224, 3), generator=gen).to(dev)
     log = (out_dir / "ptxas_fused_block.log")
     ptxas = ptxas_report(log.read_text() if log.exists() else "",
-                         "fused_pointwise_kernelILi32")
+                         "ILi32E")
     emit("v2_setup", blocks=[[b.head_cfgs()[3].groupsici,
                               b.convf_cfg().groupsici, b.out_channels]
                              for b in md.config.block_configs()],
@@ -2157,6 +2246,11 @@ def run(args) -> int:
         log = path.with_suffix(".log")
         if log.exists():
             (out_dir / f"ptxas_{name}.log").write_text(log.read_text())
+    fused_build = fused_build_report(libs["fused_block"], out_dir)
+    for r in fused_build:
+        r["function"] = re.sub(r"^_ZN\w*?_GLOBAL__N_\w*?\d+(fused)",
+                               r"\1", r["function"])
+    emit("fused_build", instantiations=fused_build)
     md = get_model("ttnet_imagenet_small", nfilter=8, tfilter=8, layers=1)
     model = md.init(seed=args.seed, device=dev)
     perturb_bn(model, args.seed)
@@ -2352,8 +2446,8 @@ def run(args) -> int:
         """A forward's launches summed: ms, plain, bound (and the library
         lookup and chain where the rows have them)."""
         out = {f"{prefix}{k}": sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                         "chain_ms") if k in rows[0]}
+               for k in ("ms", "plain_ms", "bound_ms", "bound_fma_ms",
+                         "library_ms", "chain_ms") if k in rows[0]}
         # the kind that bounds the larger part of the summed bound
         share = {kind: sum(r["bound_ms"] for r in rows
                            if r["bound_by"] == kind)

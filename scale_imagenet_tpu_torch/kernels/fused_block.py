@@ -5,7 +5,12 @@ Counterpart of ``scale_imagenet_tpu/pallas/fused_block.py``.  One CUDA
 kernel written for Hopper (``csrc/fused_block.cu``, whose header says what
 bounds it on the card and how the design meets it) replaces both TPU
 kernels, ``_kernel`` (``fused_block.py:41``) and ``_kernel_v2``
-(``fused_block.py:191``): they compute one function, per pixel and group
+(``fused_block.py:191``).  Its launcher picks one of two bodies by shape
+alone (``fused_body``): the tensor-core body (both group products as
+error-compensated TF32 on the tensor cores) for the pairs of
+``TENSOR_CORE_PAIRS`` at m a multiple of ``TC_CHUNK``, the FMA body (CUDA
+cores only) for the rest.  Both compute one function, per pixel and
+group
 
     y = act(A2(W2_g @ gelu(A1(W1_g @ x_g))))
 
@@ -55,6 +60,12 @@ SUPPORTED_PAIRS = frozenset(
     [(ci, co) for ci in SUPPORTED_CI[:-1] for co in SUPPORTED_CO[:-1]]
     + [(32, 16), (32, 32)])
 ACTS = ("heaviside", "relu")
+#: the pairs the tensor-core body takes (every flagship and v2 launch, and
+#: vAlexnet's head 3), when m is a multiple of ``TC_CHUNK``, the hidden
+#: units it walks at a time; every other pair takes the FMA body
+TENSOR_CORE_PAIRS = frozenset([(8, 8), (16, 8), (16, 16), (32, 16),
+                               (32, 32)])
+TC_CHUNK = 16
 
 _count_lock = threading.Lock()
 
@@ -144,6 +155,18 @@ def _check(x: torch.Tensor, params: tuple, act: str, channels: int):
     return g, ci, m, co
 
 
+def fused_body(ci: int, m: int, co: int) -> str:
+    """The body the kernel's launcher takes for ``(ci, m, co)``:
+    ``"tensor_core"`` or ``"fma"`` (the rule of ``fused_body`` in
+    ``csrc/fused_block.cu``; a query, not a switch).  A pair the kernel
+    does not cover raises."""
+    if (ci, co) not in SUPPORTED_PAIRS or m <= 0:
+        raise ValueError(f"the fused kernel does not cover ci={ci} m={m} "
+                         f"co={co}")
+    return "tensor_core" if (ci, co) in TENSOR_CORE_PAIRS and \
+        m % TC_CHUNK == 0 else "fma"
+
+
 # ------------------------------------------------------- plain versions
 
 def fused_pointwise_preact_plain(x, w1, s1, b1, w2, s2, b2) \
@@ -192,6 +215,8 @@ def _library():
             lib.fused_pointwise_launch.argtypes = (
                 [p] * 8 + [ll] * 11 + [i] * 6 + [p])
             lib.fused_pointwise_launch.restype = i
+            lib.fused_pointwise_plan.argtypes = [i, i, i, i, p]
+            lib.fused_pointwise_plan.restype = i
             _lib = lib
     return _lib
 
@@ -224,6 +249,23 @@ def _launch(x4: torch.Tensor, params: tuple, act: str,
         raise RuntimeError(f"fused_pointwise_block launch failed: CUDA "
                            f"error {err}")
     _count()
+
+
+def launch_plan(ci: int, m: int, co: int, dtype=torch.float32) -> dict:
+    """What the launcher does for ``(ci, m, co)`` and x's dtype on the
+    current card: ``{body, threads, smem_bytes, ctas_per_sm}`` as the
+    launcher itself reports them (``ctas_per_sm``: the tensor-core body's
+    resident CTAs an SM, which size its persistent grid; 0 for the FMA
+    body).  Needs the card."""
+    plan = (ctypes.c_int * 4)()
+    err = _library().fused_pointwise_plan(
+        ci, m, co, int(dtype == torch.bfloat16), ctypes.addressof(plan))
+    if err:
+        raise RuntimeError(f"fused_pointwise_plan({ci}, {m}, {co}) failed: "
+                           f"CUDA error {err}")
+    body = {1: "tensor_core", 0: "fma"}[plan[0]]
+    return {"body": body, "threads": plan[1], "smem_bytes": plan[2],
+            "ctas_per_sm": plan[3]}
 
 
 def fused_pointwise_block(x, w1, s1, b1, w2, s2, b2,
@@ -292,5 +334,6 @@ __all__ = ["block_tt_pointwise_params", "fused_pointwise_block",
            "fused_pointwise_preact_plain",
            "fused_pointwise_block_v2_plain", "fused_pointwise_nchw",
            "fused_block_tt_pointwise", "fused_block_tt_pointwise_v2",
-           "reset_launches", "SUPPORTED_CI", "SUPPORTED_CO",
-           "SUPPORTED_PAIRS"]
+           "reset_launches", "fused_body", "launch_plan", "SUPPORTED_CI",
+           "SUPPORTED_CO", "SUPPORTED_PAIRS", "TENSOR_CORE_PAIRS",
+           "TC_CHUNK"]

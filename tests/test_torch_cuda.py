@@ -9,9 +9,10 @@ repo's ``conftest.py`` (which configures JAX) left out:
 Bits and gathered floats are exact: the window kernels and their plain
 versions (which compute the index with a conv) must be equal.
 The fused pointwise block sums in another order than the plain version
-and contracts multiply-adds: ReLU outputs agree to 1e-5 (f32), and a
-Heaviside bit may flip only where the plain pre-activation is within 1e-4
-of the threshold, in at most 1e-4 of the outputs.  The cube evaluation
+and contracts multiply-adds, and its tensor-core body takes each group
+product as three TF32 products (a split f32): ReLU outputs agree to 1e-5
+(f32), and a Heaviside bit may flip only where the plain pre-activation is
+within 1e-4 of the threshold, in at most 1e-4 of the outputs.  The cube evaluation
 (``gate_cubes``) is integer logic: its words equal the plain version's.
 """
 
@@ -209,9 +210,12 @@ def test_flagship_lut_forward_through_the_kernel(cuda, monkeypatch):
 
 # ---------------------------------------------------- fused pointwise block
 
-def _fused_inputs(g, ci, m, co, n, dtype, seed, device):
+def _fused_inputs(g, ci, m, co, n, dtype, seed, device, continuous=False):
+    """Seeded inputs of one launch: x {0,1} bits, or, ``continuous``, a
+    Gaussian (a pooled head's input may be fractional)."""
     gen = torch.Generator().manual_seed(seed)
-    x = (torch.rand((n, g * ci), generator=gen) < 0.5).to(dtype)
+    x = torch.randn((n, g * ci), generator=gen).to(dtype) if continuous \
+        else (torch.rand((n, g * ci), generator=gen) < 0.5).to(dtype)
     w1 = torch.randn((g, ci, m), generator=gen) / ci ** 0.5
     w2 = torch.randn((g, m, co), generator=gen) / m ** 0.5
     s1, s2 = 1 + 0.1 * torch.randn((g, m), generator=gen), \
@@ -228,10 +232,11 @@ FUSED_SHAPES = [(4, 16, 128, 16, 5000), (16, 16, 128, 8, 3001),
                 (4, 8, 64, 8, 513), (3, 2, 16, 1, 100)]
 
 
-def _fused_check(cuda, g, ci, m, co, n, dtype, act):
+def _fused_check(cuda, g, ci, m, co, n, dtype, act, continuous=False):
     """The kernel against its plain version on seeded inputs: ReLU to 1e-5
     (f32) or 1e-2 (bf16), Heaviside flips only near the threshold."""
-    args = _fused_inputs(g, ci, m, co, n, dtype, g * ci + co, cuda)
+    args = _fused_inputs(g, ci, m, co, n, dtype, g * ci + co, cuda,
+                         continuous)
     before = FB.fused_pointwise_block.launches
     got = FB.fused_pointwise_block(*args, act=act)
     torch.cuda.synchronize()
@@ -288,6 +293,63 @@ FHE_FUSED = [(16, 4, 32, 4, 256 * 16 * 16), (64, 4, 32, 4, 256 * 17 * 17),
 def test_fused_kernel_matches_plain_on_fhe_shapes(cuda, g, ci, m, co, n,
                                                   dtype):
     _fused_check(cuda, g, ci, m, co, n, dtype, "heaviside")
+
+
+# a flagship and a v2 shape on continuous x: the split's x_lo product
+# runs on values that are not exact in TF32
+CONTINUOUS_FUSED = [(4, 16, 128, 16, 5000), (2, 32, 256, 32, 3000)]
+
+
+@pytest.mark.parametrize("g,ci,m,co,n", CONTINUOUS_FUSED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ["heaviside", "relu"])
+def test_fused_kernel_matches_plain_on_continuous_x(cuda, g, ci, m, co, n,
+                                                    dtype, act):
+    _fused_check(cuda, g, ci, m, co, n, dtype, act, continuous=True)
+
+
+# every pair of the tensor-core body at a pixel count that ends inside a
+# 16-pixel warp tile
+RAGGED_TC = [(3, 8, 64, 8, 1001), (2, 16, 128, 8, 2003),
+             (2, 16, 128, 16, 4099), (2, 32, 256, 16, 3005),
+             (2, 32, 256, 32, 1337)]
+
+
+@pytest.mark.parametrize("g,ci,m,co,n", RAGGED_TC)
+@pytest.mark.parametrize("act", ["heaviside", "relu"])
+def test_fused_tensor_core_pairs_on_ragged_pixels(cuda, g, ci, m, co, n,
+                                                  act):
+    assert FB.fused_body(ci, m, co) == "tensor_core"
+    _fused_check(cuda, g, ci, m, co, n, torch.float32, act, continuous=True)
+
+
+# one launch a body, as (G, ci, m, co, N): the tensor-core pairs, a
+# tensor-core pair whose m is not a multiple of 16, and small pairs
+FUSED_BODIES = [((4, 16, 128, 16, 700), "tensor_core"),
+                ((2, 32, 256, 32, 700), "tensor_core"),
+                ((8, 8, 64, 8, 700), "tensor_core"),
+                ((4, 16, 40, 16, 700), "fma"),
+                ((8, 8, 24, 8, 700), "fma"),
+                ((16, 4, 32, 4, 700), "fma")]
+
+
+@pytest.mark.parametrize("case,body", FUSED_BODIES,
+                         ids=lambda c: "x".join(map(str, c))
+                         if isinstance(c, tuple) else c)
+def test_fused_launcher_picks_the_body_by_shape(cuda, case, body):
+    """The body the C launcher takes for (ci, m, co), as its launch plan
+    reports it, is the wrapper's ``fused_body``, and the launch matches
+    plain; a pair neither body covers is refused."""
+    g, ci, m, co, n = case
+    assert FB.fused_body(ci, m, co) == body
+    plan = FB.launch_plan(ci, m, co)
+    assert plan["body"] == body
+    assert (plan["ctas_per_sm"] > 0) == (body == "tensor_core")
+    _fused_check(cuda, g, ci, m, co, n, torch.float32, "relu",
+                 continuous=True)
+    with pytest.raises(RuntimeError, match="plan"):
+        FB.launch_plan(3, 24, 3)
 
 
 def test_fused_kernel_reads_nchw_through_strides(cuda):
