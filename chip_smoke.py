@@ -11,9 +11,11 @@ evaluated as them (``--mode compile``, ``--mode eval --gates dnf|cnf``) and
 trained from uint8 pre-crop shards (``--mode train``); the VGG16-stem
 variant at full width as conv, tables and gate circuit (eval, serve,
 compile) and in training; the v2 variant at full width (eval, serve,
-train; its k=1 blocks through the fused kernel at ci = 32); and the
-TT_FHE family at full width on 32x32 inputs as conv, tables and circuit
-(eval, serve, compile).  It holds every CUDA kernel against its plain
+train; its k=1 blocks through the fused kernel at ci = 32); the TT_FHE
+family at full width on 32x32 inputs as conv, tables and circuit (eval,
+serve, compile) and in training, the noisy ``TT_FHE_small`` among them;
+and the v1 family's ``TT_vf_19lv2_imgnet`` at full width (eval, serve,
+train) with one forward of each other v1 model.  It holds every CUDA kernel against its plain
 PyTorch version.  Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together);
@@ -120,9 +122,9 @@ PyTorch version.  Phases, each printing one line of its numbers:
            switch on, no fused launch): step ms and peak device memory;
 11. vgg_train: ten f32 steps of the VGG-stem variant on one B=256 batch:
            the loss falls; step ms, peak memory and a step's profile;
-12. fhe:   each deterministic TT_FHE model (``TT_FHE_SMALL``,
-           ``TT_FHE_XSMALL``, ``TT_FHE_ref``, ``TT_FHE_SMALL_polyhead``,
-           ``TT_FHE_SMALL_bireal``, ``TT_FHE_XSMALL_vAlexnet``) at full
+12. fhe:   each TT_FHE model (``TT_FHE_SMALL``, ``TT_FHE_XSMALL``,
+           ``TT_FHE_ref``, ``TT_FHE_SMALL_polyhead``, ``TT_FHE_SMALL_bireal``,
+           the noisy ``TT_FHE_small``, ``TT_FHE_XSMALL_vAlexnet``) at full
            width (p = 64, 32², B = 256), BN statistics perturbed: (a) for
            ``TT_FHE_SMALL`` and ``TT_FHE_XSMALL_vAlexnet``, every window,
            cube (DNF and CNF) and fused launch of a forward against its
@@ -135,8 +137,31 @@ PyTorch version.  Phases, each printing one line of its numbers:
            (d) ``main --mode serve`` (``--lut``, or conv for the Bi-Real
            stem, which has no tables), top-5 equal to the direct forward's;
            (e) ``main --mode compile --verilog``, its Verilog gate count
-           equal to the in-process circuits';
-13. train: (a) one f32 step of the flagship at B=256, no augmentation, on
+           equal to the in-process circuits'.  ``TT_FHE_small`` (its
+           forward keyed from --seed, fresh coin flips a batch) has no
+           tables or circuit: its eval runs twice with the same --seed and
+           gives equal metrics, the fused switch launches nothing in it,
+           its served answers are finite, well-formed top-5, and ``--lut``
+           and ``--gates`` refuse;
+13. fhe_train: each model of phase 12 at full width: (a) ``main --mode
+           train`` from 2,560 seeded 32² uint8 shards (the flip on the
+           card), B = 256, one epoch of 10 steps: step ms and img/s over
+           steps 2-10, the idle share, peak device memory, no launch of
+           the port's kernels; (b) ten steps on one batch lower the loss
+           (the Bi-Real stem's ``alpha_a`` and ``beta_a`` get non-zero
+           gradients); (c) one f32 step on the card and on the CPU from
+           the same weights, batch and coin flips (drawn on the CPU), in
+           the bounds of the flagship's (phase 15 (a));
+14. v1:    ``TT_vf_19lv2_imgnet`` at full width (p = 64, 224²), BN
+           statistics perturbed: (a) forward ms at B = 256 and B = 1 and
+           the device time by kernel (``profile_v1``); (b) ``main --mode
+           eval`` over 2,560 seeded images labelled by its forward, top-1
+           >= 99.9 %, img/s and idle share; (c) ``main --mode serve``,
+           top-5 equal to the direct forward's; (d) three f32 train steps
+           at B = 256 (128 if 256 does not fit; the line says which): ms
+           and peak memory; (e) each of the other nine v1 stage tables
+           gives finite (16, 1000) logits from one forward at full width;
+15. train: (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -149,7 +174,7 @@ PyTorch version.  Phases, each printing one line of its numbers:
            memory, first and last loss, validation top-1, no launch of the
            port's kernels; (d) a resume from the recipe run's ``last``
            checkpoint continues at step 11 with a finite loss;
-14. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
+16. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -200,6 +225,10 @@ EVAL_IMAGES = 5000
 V2_EVAL_IMAGES = 2560              # 10 batches of B = 256
 V2_TRAIN_STEPS = 3
 FHE_EVAL_IMAGES = 5000
+FHE_TRAIN_IMAGES = 2560            # 10 steps of B = 256 a model
+V1_NAME = "TT_vf_19lv2_imgnet"     # the reference's "BEST" v1 model
+V1_EVAL_IMAGES = 2560              # 10 batches of B = 256
+V1_TRAIN_STEPS = 3
 TRAIN_IMAGES = 2560                # 10 steps of B = 256 an epoch
 # one f32 step of the flagship, card against CPU (PERF.md states these):
 # relative loss gap, cosine of the parameter updates, flipped Heavisides
@@ -993,27 +1022,34 @@ def gates_phase(args, md, model, luts, x, out_dir: Path) -> dict:
 @contextlib.contextmanager
 def heaviside_outputs(sink: list):
     """Every Heaviside output of the forwards run inside, appended to
-    ``sink`` as a bool tensor on its device (the stem's, each Block_TT's and
-    each pooled head 4's)."""
-    from scale_imagenet_tpu_torch.models import block_tt, ttnet_imagenet
+    ``sink`` as a bool tensor on its device (the stem's, each Block_TT's,
+    each pooled head 4's; the dead-zone ones of ``TT_FHE_small`` too)."""
+    from scale_imagenet_tpu_torch.models import tt_fhe, ttnet_imagenet, \
+        ttnet_imagenet_v1
     from scale_imagenet_tpu_torch.ops import binarize
 
-    real = binarize.heaviside01
+    def recorder(real):
+        def rec(x, *a, **k):
+            out = real(x, *a, **k)
+            sink.append(out.detach() > 0)
+            return out
+        return rec
 
-    def rec(x, *a, **k):
-        out = real(x, *a, **k)
-        sink.append(out.detach() > 0)
-        return out
-
+    rec = recorder(binarize.heaviside01)
+    # the blocks reach them through ``binarize01_act``
     with mock.patch.object(binarize, "heaviside01", rec), \
-            mock.patch.object(block_tt, "heaviside01", rec), \
-            mock.patch.object(ttnet_imagenet, "heaviside01", rec):
+            mock.patch.object(binarize, "heaviside01_noisy",
+                              recorder(binarize.heaviside01_noisy)), \
+            mock.patch.object(ttnet_imagenet, "heaviside01", rec), \
+            mock.patch.object(tt_fhe, "heaviside01", rec), \
+            mock.patch.object(ttnet_imagenet_v1, "heaviside01", rec):
         yield
 
 
-def one_train_step(model, x, y, sink: list) -> float:
+def one_train_step(model, x, y, sink: list, noise=None) -> float:
     """One plain f32 step (SGD, lr 0.1) of ``model`` in place, recording
-    its Heaviside outputs into ``sink``; returns the loss."""
+    its Heaviside outputs into ``sink``; returns the loss.  ``noise``
+    keys a stochastic model's coin flips."""
     from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
         make_train_step
 
@@ -1021,32 +1057,30 @@ def one_train_step(model, x, y, sink: list) -> float:
     ts = TrainState(model, opt.init(dict(model.named_parameters())))
     step = make_train_step(model, opt)
     with heaviside_outputs(sink):
-        _, metrics = step(ts, x, y)
+        _, metrics = step(ts, x, y, noise=noise)
     return float(metrics["loss"])
 
 
-def step_parity(model, B: int, seed: int) -> dict:
-    """13(a): one f32 step of the seeded flagship without augmentation on
-    the card, with the fused switch on (training must not take the eval
-    kernel), and on the CPU (the plain path), from the same weights and
-    batch: the relative loss gap, the cosine between the two parameter
-    updates and the share of Heaviside outputs that flipped."""
+def card_cpu_step(model, x, y, noise=None) -> dict:
+    """One f32 step of ``model`` (on the card) with the fused switch on
+    (training must not take the eval kernel), and of its copy on the CPU
+    (the plain path), from the same weights, batch and coin flips: the
+    relative loss gap, the cosine between the two parameter updates and
+    the share of Heaviside outputs that flipped."""
     from scale_imagenet_tpu_torch.kernels import fused_block as FB
 
-    gen = torch.Generator().manual_seed(seed + 5)
-    x = torch.randn((B, 224, 224, 3), generator=gen)
-    y = torch.randint(0, 1000, (B,), generator=gen)
     cpu_model = copy.deepcopy(model).cpu()
     start = [p.detach().cpu().clone() for p in model.parameters()]
     card_bits, cpu_bits = [], []
     FB.reset_launches()
     with fused_blocks(True):
-        card_loss = one_train_step(model, x.cuda(), y.cuda(), card_bits)
+        card_loss = one_train_step(model, x.cuda(), y.cuda(), card_bits,
+                                   noise)
     torch.cuda.synchronize()
     fused_launches = FB.fused_pointwise_block.launches
     card_bits = [b.cpu() for b in card_bits]
     t = time.perf_counter()
-    cpu_loss = one_train_step(cpu_model, x, y, cpu_bits)
+    cpu_loss = one_train_step(cpu_model, x, y, cpu_bits, noise)
     cpu_s = time.perf_counter() - t
     du = torch.cat([(p.detach().cpu() - s).double().ravel()
                     for p, s in zip(model.parameters(), start)])
@@ -1057,12 +1091,36 @@ def step_parity(model, B: int, seed: int) -> dict:
         "the card and CPU steps ran different Heavisides")
     flips = sum(int((a != b).sum()) for a, b in zip(card_bits, cpu_bits))
     outputs = sum(a.numel() for a in card_bits)
-    return {"batch": B, "card_loss": card_loss, "cpu_loss": cpu_loss,
+    return {"batch": len(x), "card_loss": card_loss, "cpu_loss": cpu_loss,
             "rel_loss_gap": abs(card_loss - cpu_loss) / abs(cpu_loss),
             "update_cosine": float(du @ dv / (du.norm() * dv.norm())),
             "heaviside_outputs": outputs, "heaviside_flipped": flips,
             "flip_share": flips / outputs, "heavisides": len(card_bits),
             "fused_launches_in_training": fused_launches, "cpu_step_s": cpu_s}
+
+
+def step_parity(model, B: int, seed: int) -> dict:
+    """15(a): ``card_cpu_step`` of the seeded flagship without
+    augmentation, on a seeded batch."""
+    gen = torch.Generator().manual_seed(seed + 5)
+    x = torch.randn((B, 224, 224, 3), generator=gen)
+    y = torch.randint(0, 1000, (B,), generator=gen)
+    return card_cpu_step(model, x, y)
+
+
+def check_parity(parity: dict, what: str) -> None:
+    """The bounds of a card/CPU step (PERF.md §2)."""
+    check(parity["rel_loss_gap"] <= TRAIN_LOSS_GAP,
+          f"{what}: card/CPU loss gap {parity['rel_loss_gap']} > "
+          f"{TRAIN_LOSS_GAP}")
+    check(parity["update_cosine"] >= TRAIN_UPDATE_COSINE,
+          f"{what}: card/CPU update cosine {parity['update_cosine']} < "
+          f"{TRAIN_UPDATE_COSINE}")
+    check(parity["flip_share"] <= TRAIN_FLIP_SHARE,
+          f"{what}: card/CPU Heaviside flip share {parity['flip_share']} > "
+          f"{TRAIN_FLIP_SHARE}")
+    check(parity["fused_launches_in_training"] == 0,
+          f"{what}: a training forward launched the eval-only fused kernel")
 
 
 class StepTimer:
@@ -1080,7 +1138,7 @@ class StepTimer:
     def wrap(self, step):
         from torch.profiler import ProfilerActivity, profile
 
-        def timed(ts, images, labels, generator=None):
+        def timed(ts, images, labels, generator=None, noise=None):
             i = self.calls
             self.calls += 1
             if i == 1:
@@ -1088,7 +1146,7 @@ class StepTimer:
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
                 self.prof.__enter__()
                 self.t0 = time.perf_counter()
-            ts, metrics = step(ts, images, labels, generator)
+            ts, metrics = step(ts, images, labels, generator, noise)
             self.losses.append(metrics["loss"])
             if i == self.steps - 1:
                 torch.cuda.synchronize()
@@ -1101,7 +1159,7 @@ class StepTimer:
 
 
 def train_phase(args, model, out_dir: Path) -> dict:
-    """13(a)-(d): the step against the CPU, an overfit check on one batch,
+    """15(a)-(d): the step against the CPU, an overfit check on one batch,
     ``main --mode train`` from seeded 256x256 pre-crop shards (f32, then
     the README's recipe), and a resume from the recipe's ``last``
     checkpoint."""
@@ -1117,16 +1175,7 @@ def train_phase(args, model, out_dir: Path) -> dict:
     # (a) one step, card against CPU
     parity = step_parity(copy.deepcopy(model), B, args.seed)
     emit("train_step_parity", **parity)
-    check(parity["rel_loss_gap"] <= TRAIN_LOSS_GAP,
-          f"card/CPU loss gap {parity['rel_loss_gap']} > {TRAIN_LOSS_GAP}")
-    check(parity["update_cosine"] >= TRAIN_UPDATE_COSINE,
-          f"card/CPU update cosine {parity['update_cosine']} < "
-          f"{TRAIN_UPDATE_COSINE}")
-    check(parity["flip_share"] <= TRAIN_FLIP_SHARE,
-          f"card/CPU Heaviside flip share {parity['flip_share']} > "
-          f"{TRAIN_FLIP_SHARE}")
-    check(parity["fused_launches_in_training"] == 0,
-          "a training forward launched the eval-only fused kernel")
+    check_parity(parity, "flagship")
 
     # (b) ten steps on one fixed batch lower the loss
     net = copy.deepcopy(model)
@@ -1947,7 +1996,7 @@ def vgg_train_phase(args, out_dir: Path) -> dict:
 
 
 FHE_NAMES = ("TT_FHE_SMALL", "TT_FHE_XSMALL", "TT_FHE_ref",
-             "TT_FHE_SMALL_polyhead", "TT_FHE_SMALL_bireal",
+             "TT_FHE_SMALL_polyhead", "TT_FHE_SMALL_bireal", "TT_FHE_small",
              "TT_FHE_XSMALL_vAlexnet")
 # the models whose launches are each held against the plain version: they
 # cover every FHE launch shape (XSMALL and polyhead have SMALL's heads)
@@ -1982,17 +2031,28 @@ def fhe_phase(args, out_dir: Path) -> dict:
         model = md.init(seed=args.seed, device=dev)
         perturb_bn(model, args.seed + 42 + mi)
         fam = cli._family(md.config)
-        tables = md.config.spec.get("act") != "bireal" \
-            if hasattr(md.config, "spec") else True
+        # neither the Bi-Real stem nor a dead zone has tables or a circuit
+        tables = not md.stochastic and (
+            md.config.spec.get("act") != "bireal"
+            if hasattr(md.config, "spec") else True)
+
+        def conv():
+            """The conv forward as ``main`` runs it: a stochastic model
+            draws fresh flips a call, keyed from --seed."""
+            return cli._keyed(lambda xb, **k: fam.conv(model, xb, **k),
+                              md.stochastic, args.seed)
+
         res = {"fcsize": md.config.fcsize, "params": sum(
             p.numel() for p in model.parameters())}
         mwork = work / name
-        labels = self_labelled_shards(lambda xb: fam.conv(model, xb), imgs,
-                                      B, mwork / "shards")
+        # labelled by the forward ``main --mode eval --seed`` runs, batch
+        # by batch the same flips
+        labels = self_labelled_shards(conv(), imgs, B, mwork / "shards")
         weights = mwork / "weights.pth"
         torch.save(model.state_dict(), weights)
         res["classes_hit"] = int(np.unique(labels).size)
-        ref = fam.conv(model, x)
+        fwd_conv = conv()
+        ref = fwd_conv(x)
         check(ref.shape == (B, 10) and bool(torch.isfinite(ref).all()),
               f"{name} logits non-finite or misshapen")
         t = time.perf_counter()
@@ -2038,10 +2098,9 @@ def fhe_phase(args, out_dir: Path) -> dict:
                 emit("fhe_kernels", kernel="fused_pointwise_block", **row)
             del captured
         # (b) conv against tables and circuits at B = 256
-        fwd = {"conv_b256_ms": wall_ms(lambda: fam.conv(model, x), 10)}
+        fwd = {"conv_b256_ms": wall_ms(lambda: fwd_conv(x), 10)}
         with fused_blocks(True):
-            fwd["conv_fused_b256_ms"] = wall_ms(lambda: fam.conv(model, x),
-                                                10)
+            fwd["conv_fused_b256_ms"] = wall_ms(lambda: fwd_conv(x), 10)
         if tables:
             got = fam.lut(luts, model, x)
             top1 = float((ref.argmax(1) == got.argmax(1)).float().mean())
@@ -2078,12 +2137,18 @@ def fhe_phase(args, out_dir: Path) -> dict:
         # (c) main --mode eval: conv (the switch on), LUT, gates
         base = ["--mode", "eval", "--model", name, "--shards_dir",
                 str(mwork / "shards"), "--eval_batch_size", str(B),
-                "--ckpt", str(weights), "--root_dir", str(mwork / "logs")]
+                "--ckpt", str(weights), "--root_dir", str(mwork / "logs"),
+                "--seed", str(args.seed)]
         batches = -(-n // B)
         blocks = len(model.blocks)
-        k1 = sum(2 if b.cfg.fuse else 1 for b in model.blocks)
+        # the switch takes no block with a dead zone
+        k1 = 0 if md.stochastic else sum(2 if b.cfg.fuse else 1
+                                         for b in model.blocks)
         runs = [("conv_fused", [], True,
                  {"fused_pointwise_block": k1 * batches} if k1 else {})]
+        if md.stochastic:
+            # the same --seed again: the same flips, the same metrics
+            runs.append(("conv_fused_again", [], True, {}))
         if tables:
             # heads 1 and 2 share a launch where their kernels are equal
             windows = sum(len(lut.merged) + (lut.convf is not None)
@@ -2107,6 +2172,19 @@ def fhe_phase(args, out_dir: Path) -> dict:
                                     f"{launched}, expected {want}")
         check(evals["conv_fused"]["top1"] >= 99.0,
               f"{name} conv eval top-1 {evals['conv_fused']['top1']} < 99")
+        if md.stochastic:
+            check(all(evals["conv_fused_again"][k] == evals["conv_fused"][k]
+                      for k in ("top1", "top5", "loss")),
+                  f"{name}: two evals with --seed {args.seed} differ")
+            # no table or circuit represents a dead zone: refused
+            res["refusals"] = {}
+            for flag in (["--lut"], ["--gates", "dnf"]):
+                try:
+                    cli.main(base + flag)
+                except ValueError as e:
+                    res["refusals"][flag[0]] = str(e)
+                check("stochastic at inference" in res["refusals"].get(
+                    flag[0], ""), f"{name} {flag[0]} was not refused")
         if tables:
             check(evals["lut"]["top1"] >= 99.0,
                   f"{name} LUT eval top-1 {evals['lut']['top1']} < 99")
@@ -2124,13 +2202,24 @@ def fhe_phase(args, out_dir: Path) -> dict:
         smodel = md.init(seed=args.seed, device=dev)
         cli.load_checkpoint(smodel, str(weights))
         direct = fam.lut(fam.lut_compile(smodel), smodel, reqs.to(dev)) \
-            if tables else fam.conv(smodel, reqs.to(dev))
+            if tables else cli._keyed(
+                lambda xb, **k: fam.conv(smodel, xb, **k), md.stochastic,
+                args.seed)(reqs.to(dev))
         direct = torch.topk(torch.softmax(direct, -1), 5).indices.tolist()
         agree = sum(a["top5"] == d for a, d in zip(answers, direct))
         res["serve"] = {"requests": len(answers), "top5_equal": agree,
                         "launches": counts}
-        check(agree == len(answers), f"{name} serve: top-5 of "
-                                     f"{len(answers) - agree} answers differ")
+        if md.stochastic:
+            # each batch draws its own flips, and the batcher decides which
+            # requests share one: finite, well-formed answers
+            check(len(answers) == len(reqs) and all(
+                len(set(a["top5"])) == 5 and all(0 <= c < 10
+                                                 for c in a["top5"])
+                and np.isfinite(a["probs"]).all() for a in answers),
+                f"{name} serve: malformed answers {answers}")
+        else:
+            check(agree == len(answers), f"{name} serve: top-5 of "
+                  f"{len(answers) - agree} answers differ")
         # (e) main --mode compile --verilog: its circuits' gate count equals
         # the in-process circuits'
         if tables:
@@ -2153,6 +2242,276 @@ def fhe_phase(args, out_dir: Path) -> dict:
     (out_dir / "fhe_cases.json").write_text(json.dumps(cases, indent=1))
     shutil.rmtree(work)
     return {"models": results, **cases}
+
+
+def fhe_train_phase(args, out_dir: Path) -> dict:
+    """Training of the TT_FHE family at full width (module docstring,
+    phase 13)."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.data import ArrayDataset, write_shards
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    class CpuDrawnKey(NoiseKey):
+        """Coin flips drawn on the CPU and moved to the input's device, so
+        that a step on the card and one on the CPU see the same flips (the
+        card's generator draws other bits than the CPU's)."""
+
+        def draw(self, x: torch.Tensor) -> torch.Tensor:
+            return super().draw(torch.empty(x.shape, dtype=x.dtype)).to(
+                x.device)
+
+    B, n = args.batch, FHE_TRAIN_IMAGES
+    work = Path("build") / "chip_smoke_fhe_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(args.seed + 50)
+    write_shards(ArrayDataset(
+        rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8),
+        rng.integers(0, 10, n).astype(np.int32)), str(work / "shards"),
+        shard_size=B)
+    steps = n // B
+    gen = torch.Generator().manual_seed(args.seed + 51)
+    x = torch.randn((B, 32, 32, 3), generator=gen)
+    y = torch.randint(0, 10, (B,), generator=gen)
+    real_make = cli.make_train_step
+    results = {}
+    for name in FHE_NAMES:
+        md = get_model(name)
+        # (a) main --mode train, one epoch from the 32x32 shards (the flip
+        # on the card)
+        timer = StepTimer(steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        K.reset_launches()
+        FB.reset_launches()
+        t = time.perf_counter()
+        with mock.patch.object(
+                cli, "make_train_step",
+                lambda *a, **k: timer.wrap(real_make(*a, **k))):
+            summary = cli.main(["--mode", "train", "--model", name,
+                                "--shards_dir", str(work / "shards"),
+                                "--train_batch_size", str(B), "--seed",
+                                str(args.seed), "--root_dir",
+                                str(work / name), "--max_epochs", "1"])
+        torch.cuda.synchronize()
+        losses = [float(v) for v in timer.losses]
+        wall = timer.t1 - timer.t0
+        run = {"steps": timer.calls, "timed_steps": steps - 1,
+               "step_ms": wall * 1e3 / (steps - 1),
+               "train_img_s": (steps - 1) * B / wall,
+               "device_idle_share": 1 - timer.busy_s / wall,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "resident_before_gb": resident / 1e9,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "run_s": time.perf_counter() - t,
+               "launches": {"fused_pointwise_block":
+                            FB.fused_pointwise_block.launches,
+                            "lut_window_bits": K.lut_window_bits.launches}}
+        check(timer.calls == steps and summary["step"] == steps,
+              f"{name} train: {timer.calls} steps, expected {steps}")
+        check(all(np.isfinite(losses)), f"{name} train losses {losses}")
+        check(not any(run["launches"].values()),
+              f"{name} train launched {run['launches']}")
+        # (b) ten steps on one batch lower the loss; the Bi-Real stem's
+        # alpha and beta get gradients
+        model = md.init(seed=args.seed, device="cuda")
+        opt, _ = make_optimizer(0.1)
+        ts = TrainState(model, opt.init(dict(model.named_parameters())))
+        step = make_train_step(model, opt)
+        root = NoiseKey(args.seed) if md.stochastic else None
+        xb, yb = x.cuda(), y.cuda()
+        overfit, stem_grads = [], None
+        for i in range(10):
+            ts, m = step(ts, xb, yb,
+                         noise=None if root is None else root.child(i))
+            overfit.append(m["loss"])
+            if i == 0 and name == "TT_FHE_SMALL_bireal":
+                act = model.stem_act
+                stem_grads = {"alpha_a": float(act.alpha_a.grad),
+                              "beta_a": float(act.beta_a.grad)}
+        overfit = [float(v) for v in overfit]
+        check(all(np.isfinite(overfit)) and overfit[-1] < overfit[0],
+              f"{name}: ten steps on one batch did not lower the loss: "
+              f"{overfit}")
+        if name == "TT_FHE_SMALL_bireal":
+            check(all(g != 0.0 for g in stem_grads.values()),
+                  f"{name}: stem gradients {stem_grads}")
+        del model, ts, step, opt
+        # (c) one f32 step on the card and on the CPU, the same weights,
+        # batch and flips
+        parity = card_cpu_step(
+            md.init(seed=args.seed, device="cuda"), x, y,
+            CpuDrawnKey(args.seed + 52) if md.stochastic else None)
+        check_parity(parity, f"{name} step")
+        results[name] = {"train": run, "overfit": overfit,
+                         "stem_grads": stem_grads, "parity": parity}
+        emit("fhe_train", model=name, batch=B, images=n, **run,
+             overfit_losses=overfit, stem_grads=stem_grads,
+             step_parity=parity)
+        shutil.rmtree(work / name)
+    shutil.rmtree(work)
+    return results
+
+
+def v1_phase(args, out_dir: Path) -> dict:
+    """The v1 ImageNet family at full width (module docstring, phase 14)."""
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet_v1 import \
+        V1_STAGES, ttnet_v1_apply
+    from scale_imagenet_tpu_torch.train import TrainState, \
+        make_input_pipeline, make_optimizer, make_train_step
+
+    B, n = args.batch, V1_EVAL_IMAGES
+    work = Path("build") / "chip_smoke_v1"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device("cuda")
+    md = get_model(V1_NAME)
+    model = md.init(seed=args.seed, device=dev)
+    perturb_bn(model, args.seed + 60)
+    gen = torch.Generator().manual_seed(args.seed + 61)
+    x = torch.rand((B, 224, 224, 3), generator=gen).to(dev)
+
+    # (a) the forward at B and at 1, and where its device time goes
+    ref = ttnet_v1_apply(model, x)
+    check(ref.shape == (B, 1000) and bool(torch.isfinite(ref).all()),
+          "v1 logits non-finite or misshapen")
+    x1 = x[:1].contiguous()
+    fwd = {"b256_ms": wall_ms(lambda: ttnet_v1_apply(model, x), 5),
+           "b1_ms": wall_ms(lambda: ttnet_v1_apply(model, x1), 20)}
+    fwd["b256_img_s"] = B / fwd["b256_ms"] * 1e3
+    emit("v1_model", model=V1_NAME, batch=B, fcsize=md.config.fcsize,
+         params=sum(p.numel() for p in model.parameters()),
+         blocks=[[b.in_planes, b.out_planes, b.stride]
+                 for b in md.config.block_configs()], **fwd)
+    convs = profile_forward("v1", lambda: ttnet_v1_apply(model, x), B,
+                            out_dir)
+    del ref
+
+    # (b) main --mode eval over shards labelled by its own forward.  With
+    # the init's BN statistics every 2-bit quantizer of a random network
+    # saturates and every image gets one label: the statistics are set
+    # from the first batch's (the momentum update of one training-mode
+    # forward inverted), and the Linear's rows scaled and shifted to
+    # standardize its logits over that batch, so that the labels spread
+    imgs = np.random.default_rng(args.seed + 62).integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    first = prepare(torch.from_numpy(imgs[:B]).cuda())
+    stats: dict = {}
+    ttnet_v1_apply(model, first, stats)
+    for bn, (mean, var) in stats.items():
+        # ``stats`` holds 0.9 * running + 0.1 * batch
+        bn.running_mean.copy_((mean - 0.9 * bn.running_mean) / 0.1)
+        bn.running_var.copy_(((var - 0.9 * bn.running_var) / 0.1)
+                             .clamp(min=0.0))
+    z = ttnet_v1_apply(model, first)
+    std = z.std(0)
+    spread = std > 1e-3           # a class whose logit varies at all
+    scale = torch.where(spread, 1.0 / std, torch.ones_like(std))
+    model.fc.weight.mul_(scale[:, None])
+    model.fc.bias.sub_(torch.where(spread, z.mean(0), torch.zeros_like(std)))
+    model.fc.bias.mul_(scale)
+    labels = self_labelled_shards(lambda xb: ttnet_v1_apply(model, xb), imgs,
+                                  B, work / "shards")
+    del imgs
+    weights = work / "weights.pth"
+    torch.save(model.state_dict(), weights)
+    ev = main_eval(["--mode", "eval", "--model", V1_NAME, "--shards_dir",
+                    str(work / "shards"), "--eval_batch_size", str(B),
+                    "--ckpt", str(weights), "--root_dir",
+                    str(work / "logs")], False, images=n)
+    emit("v1_eval", images=n, classes_hit=int(np.unique(labels).size),
+         convolutions_per_forward=convs, **ev)
+    check(ev["top1"] >= 99.9, f"v1 eval top-1 {ev['top1']} < 99.9")
+    check(not any(ev["launches"].values()),
+          f"v1 eval launched {ev['launches']}")
+
+    # (c) main --mode serve: each answer's top-5 equal to the direct
+    # forward's at the server's padded batch
+    reqs = torch.rand((8, 224, 224, 3), generator=gen)
+    answers, health, launches = serve_requests(
+        ["--model", V1_NAME, "--ckpt", str(weights)], reqs, batch=8)
+    direct = torch.topk(torch.softmax(ttnet_v1_apply(model, reqs.to(dev)),
+                                      -1), 5).indices.tolist()
+    agree = sum(a["top5"] == d for a, d in zip(answers, direct))
+    emit("v1_serve", requests=len(answers), top5_equal=agree,
+         launches=launches, healthz=health)
+    check(agree == len(answers),
+          f"v1 serve: top-5 of {len(answers) - agree} answers differ")
+
+    # (d) three f32 train steps at B (B / 2 if B does not fit): ms and
+    # peak device memory
+    yt = torch.randint(0, 1000, (B,), generator=gen).to(dev)
+    xt = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
+    train = None
+    for tb in (B, B // 2):
+        opt, _ = make_optimizer(0.1)
+        net = copy.deepcopy(model)
+        ts = TrainState(net, opt.init(dict(net.named_parameters())))
+        step = make_train_step(net, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, oom = [], False
+        try:
+            with torch.enable_grad():
+                ts, m = step(ts, xt[:tb], yt[:tb])
+                losses.append(m["loss"])
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(V1_TRAIN_STEPS - 1):
+                    ts, m = step(ts, xt[:tb], yt[:tb])
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+        if oom:
+            # outside the handler, so that its traceback frees the tensors
+            del net, ts, step, opt, losses
+            torch.cuda.empty_cache()
+            continue
+        step_ms = (time.perf_counter() - t) * 1e3 / (V1_TRAIN_STEPS - 1)
+        train = {"batch": tb, "fits_b256": tb == B, "steps": V1_TRAIN_STEPS,
+                 "losses": [float(v) for v in losses], "step_ms": step_ms,
+                 "train_img_s": tb / step_ms * 1e3,
+                 "max_memory_allocated_gb":
+                     torch.cuda.max_memory_allocated() / 1e9}
+        del net, ts, step, opt
+        break
+    check(train is not None, f"v1 training fits neither B={B} nor {B // 2}")
+    emit("v1_train", **train)
+    check(all(np.isfinite(train["losses"])), f"v1 train {train['losses']}")
+    del xt, yt
+    torch.cuda.empty_cache()
+
+    # (e) the other nine stage tables at full width: one B = 16 forward
+    x16 = x[:16]
+    others = {}
+    for name in V1_STAGES:
+        if name == V1_NAME:
+            continue
+        m = get_model(name).init(seed=args.seed, device=dev)
+        out = ttnet_v1_apply(m, x16)
+        torch.cuda.synchronize()
+        others[name] = {"shape": list(out.shape),
+                        "finite": bool(torch.isfinite(out).all()),
+                        "fcsize": m.cfg.fcsize}
+        check(others[name]["shape"] == [len(x16), 1000]
+              and others[name]["finite"], f"v1 {name}: logits "
+                                          f"{others[name]}")
+        del m, out
+    emit("v1_others", batch=16, models=others)
+    shutil.rmtree(work)
+    return {"model": fwd, "eval": ev, "serve_launches": launches,
+            "train": train, "others": others}
 
 
 def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
@@ -2404,6 +2763,15 @@ def run(args) -> int:
 
     # ------------------------------------------------------ TT_FHE family
     fhe = fhe_phase(args, out_dir)
+    torch.cuda.synchronize()
+
+    # ---------------------------------------------- TT_FHE training
+    with torch.enable_grad():
+        fhe_train_phase(args, out_dir)
+    torch.cuda.synchronize()
+
+    # -------------------------------------------------------- v1 family
+    v1_phase(args, out_dir)
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ train

@@ -196,7 +196,7 @@ def gate_multihead_apply_device(mdev: MultiHeadGatesDev,
     outs = {i: gate_block_apply_device(mdev.heads[i], x_bits)
             for i in sorted(mdev.heads)}
     cat = reconcile_heads(outs, cfg, x_bits,
-                          lambda pooled: (pooled >= 0.5).to(x_bits.dtype))
+                          lambda pooled, _: (pooled >= 0.5).to(x_bits.dtype))
     if not cfg.fuse:
         return cat
     cat = channel_interleave(cat, cfg.cpt)

@@ -216,7 +216,7 @@ def gate_multihead_apply(mg: MultiHeadGates, x_bits: torch.Tensor, *,
             for i in sorted(mg.heads)}
     # heaviside(avgpool2(bits) - 0.5) == [mean of the 4 bits >= 0.5]
     cat = reconcile_heads(outs, cfg, x_bits,
-                          lambda pooled: (pooled >= 0.5).to(x_bits.dtype))
+                          lambda pooled, _: (pooled >= 0.5).to(x_bits.dtype))
     if not cfg.fuse:
         return cat
     cat = channel_interleave(cat, cfg.cpt)
@@ -285,8 +285,15 @@ def gate_ttnet_vgg_stem_apply(gnets: list[MultiHeadGates],
 @torch.no_grad()
 def compile_tt_fhe_gates(model: TTFHE,
                          threads: int | None = None) -> list[MultiHeadGates]:
-    """A TT_FHE model's blocks as gate circuits (``gate_net.py:227``)."""
-    if model.cfg.spec.get("act") == "bireal":
+    """A TT_FHE model's blocks as gate circuits (``gate_net.py:227``), with
+    the refusals of ``compile_tt_fhe_lut``."""
+    spec = model.cfg.spec
+    if model.cfg.stochastic:
+        raise ValueError(
+            f"{model.cfg.name}: noisy dead-zone Heaviside (T={spec['T']}, "
+            f"T_block={spec['T_block']}) is stochastic at inference — a "
+            "gate circuit cannot represent it; needs a T=0 config")
+    if spec.get("act") == "bireal":
         raise ValueError(
             f"{model.cfg.name}: the Bi-Real stem activation emits scaled "
             "sign values, not {0,1} bits — gate blocks cannot consume them")

@@ -158,7 +158,7 @@ def lut_multihead_apply(lut: MultiHeadLUT, x_bits: torch.Tensor,
                 [lut.heads[i] for i in ids], words, x_bits)))
     # heaviside(avgpool2(bits) - 0.5) == [mean of the 4 bits >= 0.5]
     cat = reconcile_heads(outs, lut.cfg, x_bits,
-                          lambda pooled: (pooled >= 0.5).to(x_bits.dtype))
+                          lambda pooled, _: (pooled >= 0.5).to(x_bits.dtype))
     if not lut.cfg.fuse:
         return cat
     cat = channel_interleave(cat, lut.cfg.cpt)
@@ -178,10 +178,17 @@ def compile_ttnet_lut(model) -> list[MultiHeadLUT]:
 
 @torch.no_grad()
 def compile_tt_fhe_lut(model: TTFHE) -> list[MultiHeadLUT]:
-    """A TT_FHE model's blocks as tables (``lut_eval.py:283``).  The
-    Bi-Real stem emits scaled signs, which no table can index; JAX's other
-    refusal, of a noisy T != 0 model, cannot arise (the port has none)."""
-    if model.cfg.spec.get("act") == "bireal":
+    """A TT_FHE model's blocks as tables (``lut_eval.py:283``), with the
+    JAX package's two refusals: a dead zone is stochastic, and the Bi-Real
+    stem emits scaled signs, which no table can index."""
+    spec = model.cfg.spec
+    if model.cfg.stochastic:
+        raise ValueError(
+            f"{model.cfg.name}: noisy dead-zone Heaviside (T={spec['T']}, "
+            f"T_block={spec['T_block']}) is stochastic at inference — a "
+            "truth table cannot represent it; compiled-LUT serving needs "
+            "a T=0 config")
+    if spec.get("act") == "bireal":
         raise ValueError(
             f"{model.cfg.name}: the Bi-Real stem activation emits scaled "
             "sign values, not {0,1} bits — LUT blocks cannot index them")

@@ -25,6 +25,12 @@ activation), then the classifier after the pool and flatten.
 (``torch_import.py:190``): ``features.0`` the conv with bias, ``.2`` the
 BN, ``.4`` the activation, ``.5`` the block, ``.7`` the classifier.
 
+The v1 family's is ``import_ttnet_v1``'s (``torch_import.py:424-445``):
+``features.1`` the stem conv, ``.2`` its BN, ``.3`` the activation,
+``.{4+i}`` the blocks (``Block_conv{j}`` for each conv head and
+``Block_convf``, each ``conv1``/``bn1``/``conv2``/``bn2``), the Linear
+``fc`` after the pool and the flatten.
+
 ``jax_trees`` is the inverse map, from a port model back to the JAX
 layout (``compile/lut_store.py`` hashes it).  The trees are nested dicts of
 numpy arrays; nothing here imports JAX.
@@ -37,6 +43,7 @@ import torch
 
 from ..models.tt_fhe import TTFHEAlexnetConfig, TTFHEConfig
 from ..models.ttnet_imagenet import TTnetVGGStemConfig
+from ..models.ttnet_imagenet_v1 import TTnetV1Config
 
 _HEADS = (("conv1", "Block_conv1"), ("conv2", "Block_conv2"),
           ("conv3", "Block_conv3"), ("convf", "Block_convf"))
@@ -75,6 +82,15 @@ def _layout(cfg) -> tuple[int, int]:
     return 4, 4 + n_blocks + 2                    # after AvgPool + Flatten
 
 
+def _cell_sd(sd: dict, prefix: str, p: dict, s: dict) -> None:
+    """A cell's ``conv1``/``bn1``/``conv2``/``bn2`` (a Block_TT's, or a
+    resnet cell's)."""
+    sd[f"{prefix}.conv1.weight"] = _conv(p["conv1"]["weight"])
+    _bn(sd, f"{prefix}.bn1", p["bn1"], s["bn1"])
+    sd[f"{prefix}.conv2.weight"] = _conv(p["conv2"]["weight"])
+    _bn(sd, f"{prefix}.bn2", p["bn2"], s["bn2"])
+
+
 def _blocks_to_sd(sd: dict, params: dict, state: dict, cfg, first: int,
                   block_act: bool) -> None:
     for i, bcfg in enumerate(cfg.block_configs()):
@@ -82,10 +98,7 @@ def _blocks_to_sd(sd: dict, params: dict, state: dict, cfg, first: int,
         bp, bs = params[f"block{i}"], state[f"block{i}"]
         for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
             prefix = f"{base}.{name}"
-            sd[f"{prefix}.conv1.weight"] = _conv(bp[ours]["conv1"]["weight"])
-            _bn(sd, f"{prefix}.bn1", bp[ours]["bn1"], bs[ours]["bn1"])
-            sd[f"{prefix}.conv2.weight"] = _conv(bp[ours]["conv2"]["weight"])
-            _bn(sd, f"{prefix}.bn2", bp[ours]["bn2"], bs[ours]["bn2"])
+            _cell_sd(sd, prefix, bp[ours], bs[ours])
             _act(sd, f"{prefix}.act")
         if block_act:
             _act(sd, f"{base}.act")
@@ -124,11 +137,31 @@ def _tt_fhe_sd(params: dict, state: dict, cfg: TTFHEConfig) -> dict:
         _lin(sd, f"features.{cls}.lin1", params["lin1"])
         _bn(sd, f"features.{cls}.BN2", params["bn1"], state["bn1"])
         _lin(sd, f"features.{cls}.lin2", params["lin2"])
-    else:                                   # flat lin, bn, lin, bn
+    else:                                   # flat lin, bn, lin[, bn]
         _lin(sd, f"features.{cls}", params["lin1"])
         _bn(sd, f"features.{cls + 1}", params["bn1"], state["bn1"])
         _lin(sd, f"features.{cls + 2}", params["lin2"])
-        _bn(sd, f"features.{cls + 3}", params["bn2"], state["bn2"])
+        if "bn2" in params:
+            _bn(sd, f"features.{cls + 3}", params["bn2"], state["bn2"])
+    return sd
+
+
+def _v1_heads(bcfg) -> list[tuple[str, str]]:
+    return [(f"conv{j}", f"Block_conv{j}") for j in bcfg.conv_heads] + [
+        ("convf", "Block_convf")]
+
+
+def _v1_sd(params: dict, state: dict, cfg: TTnetV1Config) -> dict:
+    """``import_ttnet_v1``'s keys (``torch_import.py:424``), as tensors."""
+    sd = {"features.1.weight": _conv(params["stem_conv"]["weight"])}
+    _bn(sd, "features.2", params["stem_bn"], state["stem_bn"])
+    _act(sd, "features.3")
+    blocks = cfg.block_configs()
+    for i, bcfg in enumerate(blocks):
+        bp, bs = params[f"block{i}"], state[f"block{i}"]
+        for ours, name in _v1_heads(bcfg):
+            _cell_sd(sd, f"features.{4 + i}.{name}", bp[ours], bs[ours])
+    _lin(sd, f"features.{4 + len(blocks) + 2}", params["fc"])
     return sd
 
 
@@ -146,7 +179,10 @@ def _tt_fhe_alexnet_sd(params: dict, state: dict, cfg) -> dict:
 
 def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
     """``cfg``: the port's config of the same model (``TTnetImageNetConfig``,
-    ``TTnetVGGStemConfig``, ``TTFHEConfig`` or ``TTFHEAlexnetConfig``)."""
+    ``TTnetVGGStemConfig``, ``TTFHEConfig``, ``TTFHEAlexnetConfig`` or
+    ``TTnetV1Config``)."""
+    if isinstance(cfg, TTnetV1Config):
+        return _v1_sd(params, state, cfg)
     if isinstance(cfg, TTFHEConfig):
         return _tt_fhe_sd(params, state, cfg)
     if isinstance(cfg, TTFHEAlexnetConfig):
@@ -189,6 +225,17 @@ def _bn_trees(sd: dict, prefix: str) -> tuple[dict, dict]:
              "running_var": _np(sd[f"{prefix}.running_var"])})
 
 
+def _cell_trees(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """The inverse of ``_cell_sd``."""
+    bn1, bn1_s = _bn_trees(sd, f"{prefix}.bn1")
+    bn2, bn2_s = _bn_trees(sd, f"{prefix}.bn2")
+    return ({"conv1": {"weight": _hwio(sd[f"{prefix}.conv1.weight"])},
+             "bn1": bn1,
+             "conv2": {"weight": _hwio(sd[f"{prefix}.conv2.weight"])},
+             "bn2": bn2},
+            {"bn1": bn1_s, "bn2": bn2_s})
+
+
 def _blocks_to_trees(sd: dict, params: dict, state: dict, cfg,
                      first: int) -> None:
     for i, bcfg in enumerate(cfg.block_configs()):
@@ -196,14 +243,7 @@ def _blocks_to_trees(sd: dict, params: dict, state: dict, cfg,
         bp, bs = params.setdefault(f"block{i}", {}), \
             state.setdefault(f"block{i}", {})
         for ours, name in _HEADS if bcfg.fuse else _HEADS[:3]:
-            prefix = f"{base}.{name}"
-            bn1, bn1_s = _bn_trees(sd, f"{prefix}.bn1")
-            bn2, bn2_s = _bn_trees(sd, f"{prefix}.bn2")
-            bp[ours] = {"conv1": {"weight": _hwio(sd[f"{prefix}.conv1.weight"])},
-                        "bn1": bn1,
-                        "conv2": {"weight": _hwio(sd[f"{prefix}.conv2.weight"])},
-                        "bn2": bn2}
-            bs[ours] = {"bn1": bn1_s, "bn2": bn2_s}
+            bp[ours], bs[ours] = _cell_trees(sd, f"{base}.{name}")
 
 
 def _lin_tree(sd: dict, prefix: str) -> dict:
@@ -251,7 +291,24 @@ def _fhe_trees(model) -> tuple[dict, dict]:
         params["lin1"] = _lin_tree(sd, f"features.{cls}")
         params["bn1"], state["bn1"] = _bn_trees(sd, f"features.{cls + 1}")
         params["lin2"] = _lin_tree(sd, f"features.{cls + 2}")
-        params["bn2"], state["bn2"] = _bn_trees(sd, f"features.{cls + 3}")
+        if style == "two_bn":
+            params["bn2"], state["bn2"] = _bn_trees(
+                sd, f"features.{cls + 3}")
+    return params, state
+
+
+def _v1_trees(model) -> tuple[dict, dict]:
+    sd = model.state_dict()
+    params = {"stem_conv": {"weight": _hwio(sd["features.1.weight"])}}
+    state: dict = {}
+    params["stem_bn"], state["stem_bn"] = _bn_trees(sd, "features.2")
+    blocks = model.cfg.block_configs()
+    for i, bcfg in enumerate(blocks):
+        bp = params.setdefault(f"block{i}", {})
+        bs = state.setdefault(f"block{i}", {})
+        for ours, name in _v1_heads(bcfg):
+            bp[ours], bs[ours] = _cell_trees(sd, f"features.{4 + i}.{name}")
+    params["fc"] = _lin_tree(sd, f"features.{4 + len(blocks) + 2}")
     return params, state
 
 
@@ -260,6 +317,8 @@ def jax_trees(model) -> tuple[dict, dict]:
     package's ``(params, state)`` nested dicts of numpy arrays (conv
     weights OIHW -> HWIO, linear weights ``(out, in)`` -> ``(in, out)``,
     the buffers inference does not read left out), in the model's dtype."""
+    if isinstance(model.cfg, TTnetV1Config):
+        return _v1_trees(model)
     if isinstance(model.cfg, (TTFHEConfig, TTFHEAlexnetConfig)):
         return _fhe_trees(model)
     sd = model.state_dict()

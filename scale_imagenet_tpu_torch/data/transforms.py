@@ -1,11 +1,14 @@
-"""ImageNet transforms with torchvision-matching numerics, PIL-backed
-(counterpart of ``scale_imagenet_tpu/data/transforms.py``).
+"""ImageNet and CIFAR transforms with torchvision-matching numerics,
+PIL-backed (counterpart of ``scale_imagenet_tpu/data/transforms.py``).
 
 Eval: Resize(256) + CenterCrop(224) (+ Normalize).  Train:
 RandomResizedCrop(224) + HFlip + ColorJitter(0.5, 0.5, 0.3) + Normalize,
 drawn from an explicit ``random.Random``, and the 256x256 pre-crop that
 train shards store for the on-device augmentation (``train/augment.py``).
-HWC layout as in the JAX package.  Pillow is imported inside the functions
+The 32x32 models' pipeline (``transforms.py:132-150``): eval ToTensor +
+Normalize with the CIFAR statistics; train HFlip + reflect-pad 4 +
+RandomCrop(32) + Normalize with the ImageNet statistics, as the reference
+does.  HWC layout as in the JAX package.  Pillow is imported inside the functions
 that use it, so the package imports where Pillow is absent (the shard path
 needs numpy only).
 """
@@ -19,6 +22,8 @@ import numpy as np
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
 
 
 def _to_float_chw_last(img) -> np.ndarray:
@@ -122,3 +127,26 @@ def imagenet_train_transform(img, rng: random.Random | None = None) \
         mag, enhancer = jitters[i]
         img = enhancer(img).enhance(rng.uniform(max(0.0, 1 - mag), 1 + mag))
     return _normalize(_to_float_chw_last(img), IMAGENET_MEAN, IMAGENET_STD)
+
+
+def cifar_eval_transform(img) -> np.ndarray:
+    """ToTensor + Normalize with the CIFAR statistics; HWC float32."""
+    return _normalize(_to_float_chw_last(img), CIFAR_MEAN, CIFAR_STD)
+
+
+def cifar_train_transform(img, rng: random.Random | None = None) \
+        -> np.ndarray:
+    """HFlip -> reflect-pad 4 -> RandomCrop(32) -> Normalize with the
+    ImageNet statistics (the reference's choice); HWC float32, every
+    choice drawn from ``rng`` in the JAX package's order."""
+    from PIL import Image
+
+    rng = rng or random
+    if rng.random() < 0.5:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    arr = np.pad(_to_float_chw_last(img), ((4, 4), (4, 4), (0, 0)),
+                 mode="reflect")
+    top = rng.randint(0, arr.shape[0] - 32)
+    left = rng.randint(0, arr.shape[1] - 32)
+    return _normalize(arr[top:top + 32, left:left + 32], IMAGENET_MEAN,
+                      IMAGENET_STD)

@@ -13,6 +13,10 @@ export`` and single-device ``--mode train`` subsets, and ``--list_models``.
         --mode eval --shards_dir D [--lut | --gates cnf]
     python -m scale_imagenet_tpu_torch.main --model TT_FHE_SMALL \\
         --mode eval --shards_dir D32 [--lut | --gates dnf]
+    python -m scale_imagenet_tpu_torch.main --model TT_FHE_small \\
+        --mode eval --shards_dir D32 --seed S
+    python -m scale_imagenet_tpu_torch.main --model TT_vf_19lv2_imgnet \\
+        --mode eval|serve|train ...
     python -m scale_imagenet_tpu_torch.main --mode compile \\
         --compile_out D [--verilog] [--ckpt X.pth]
     python -m scale_imagenet_tpu_torch.main --mode train --shards_dir T \\
@@ -49,9 +53,15 @@ through ``_family``: the ttnet_imagenet variants (``v2`` among them, whose
 n = 30 heads have no tables, so its ``--lut``, ``--gates`` and ``--mode
 compile`` refuse with the JAX package's enumeration error), the VGG-stem
 variant, and the TT_FHE family (``--model TT_FHE_SMALL`` and the rest of
-its T = 0 models, 32x32 CIFAR-size inputs: eval from shards, serve,
-compile and, for ``TTFHEConfig``, export; no ``--fold_bn``, as in JAX, and
-no training yet).
+its models, 32x32 CIFAR-size inputs: eval, serve, train, compile and, for
+``TTFHEConfig``, export; no ``--fold_bn``, as in JAX; ``TT_FHE_small``,
+whose dead zones draw coin flips, has no tables or circuit and takes a
+``NoiseKey`` from ``--seed``: fresh flips for every batch, the same
+flips for the same seed), and the v1 ImageNet family (``V1_STAGES`` and
+their ``_cifar`` clones) as its conv network only: eval, serve and train,
+with ``--lut``, ``--gates``, ``--mode compile`` and ``--mode export``
+refused as the JAX CLI refuses them.  32x32 models read an ImageFolder
+through the CIFAR transforms (``_pick_transforms``).
 ``--mode train`` trains with SGD + momentum from shards (the full
 augmentation on the card from pre-crop shards, a random flip from
 same-size ones) or from ``--data_dir``/train (the PIL train transform),
@@ -73,6 +83,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import random
@@ -97,9 +108,9 @@ from .config import performance
 from .convert.bn_fold import fold_model_bns
 from .convert.export import save_torch_checkpoint
 from .data import DataLoader, ImageFolder, IMAGENET_MEAN, IMAGENET_STD, \
-    device_prefetch, imagenet_eval_crop_u8, imagenet_eval_transform, \
-    imagenet_train_crop_u8, imagenet_train_transform, pad_batches, \
-    shard_loader, write_shards
+    cifar_eval_transform, cifar_train_transform, device_prefetch, \
+    imagenet_eval_crop_u8, imagenet_eval_transform, imagenet_train_crop_u8, \
+    imagenet_train_transform, pad_batches, shard_loader, write_shards
 from .device import resolve_device
 from .models import get_model, list_models
 from .models.multihead import MultiHeadBlock
@@ -107,6 +118,8 @@ from .models.tt_fhe import TTFHEAlexnetConfig, TTFHEConfig, \
     tt_fhe_alexnet_apply, tt_fhe_apply
 from .models.ttnet_imagenet import TTnetImageNetConfig, \
     TTnetVGGStemConfig, ttnet_imagenet_apply, ttnet_vgg_stem_apply
+from .models.ttnet_imagenet_v1 import TTnetV1Config, ttnet_v1_apply
+from .ops.binarize import NoiseKey
 from .runtime.checkpoint import MODEL_FILE, CheckpointManager, \
     load_train_state, train_payload
 from .runtime.evaluate import evaluate
@@ -228,6 +241,17 @@ _COMPILE_CACHE = ("--compile_cache is the JAX package's persistent XLA "
 # ``scale_imagenet_tpu/main.py:1222-1229``
 _REMAT_FAMILY = ("--remat rematerializes the ttnet_imagenet block stack, "
                  "not {}")
+# ``scale_imagenet_tpu/main.py:345-362,386-404``: the families without
+# tables or a circuit
+_SERVING_FAMILY = ("{} serving supports the ttnet_imagenet and TT_FHE "
+                   "families, not {}")
+# what ``scale_imagenet_tpu/main.py:809-854`` meets on a v1 model whose
+# first head has n <= 24 bits: the enumerator builds a Block_TT from a
+# resnet cell's config and fails with this AttributeError
+_V1_COMPILE = ("--mode compile: the v1 family's heads are Block_resnet_BN "
+               "cells, not Block_TT cells; the JAX package's truth-table "
+               "compiler fails on them ('BlockResnetConfig' object has no "
+               "attribute 'quant')")
 
 _MODES = ("eval", "serve", "train", "compile", "export")
 
@@ -448,11 +472,11 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
                  if isinstance(m, MultiHeadBlock) and not m.cfg.fuse)
     if dead:
         sd = {k: v for k, v in sd.items() if not k.startswith(dead)}
-    if isinstance(model.cfg, TTFHEAlexnetConfig):
-        # no exporter writes this model (JAX exports TTFHEConfig only) and
-        # its importer reads weights and BN statistics only
-        # (``torch_import.py:190``): the buffers inference never reads may
-        # be absent or extra
+    if isinstance(model.cfg, (TTFHEAlexnetConfig, TTnetV1Config)):
+        # no exporter writes these models (JAX exports the ttnet_imagenet
+        # family and TTFHEConfig only) and their importers read weights and
+        # BN statistics only (``torch_import.py:190,424``): the buffers
+        # inference never reads may be absent or extra
         own = model.state_dict()
         optional = ("grad_scale", "num_batches_tracked")
         sd = {**{k: v for k, v in own.items() if k.endswith(optional)},
@@ -490,6 +514,8 @@ _FAMILIES = {
         tt_fhe_alexnet_apply, compile_ttnet_lut, lut_tt_fhe_alexnet_apply,
         compile_ttnet_gates, gate_tt_fhe_alexnet_apply,
         gate_tt_fhe_alexnet_apply_device),
+    # the conv network only: no tables, no circuit
+    TTnetV1Config: Family(ttnet_v1_apply, None, None, None, None, None),
 }
 
 
@@ -497,16 +523,52 @@ def _family(config) -> Family:
     return _FAMILIES[type(config)]
 
 
+def _pick_transforms(image_size: int):
+    """``(eval, train)`` transforms of an ImageFolder
+    (``scale_imagenet_tpu/main.py:639-650``): the ImageNet 256 -> 224
+    pipeline for 224^2 models, the CIFAR one for the others."""
+    if image_size == 224:
+        return imagenet_eval_transform, imagenet_train_transform
+    return cifar_eval_transform, cifar_train_transform
+
+
+def _keyed(forward, stochastic: bool, seed: int):
+    """``forward(x, **kw)`` as ``x -> logits``.  A stochastic model
+    (``TT_FHE_small``) gets fresh coin flips at every call, the key
+    ``NoiseKey(seed).child(call index)``, as the JAX eval step folds a
+    per-call counter into ``PRNGKey(seed)`` (``main.py:1129-1138``): a run
+    repeats from its seed."""
+    if not stochastic:
+        return forward
+    root, calls = NoiseKey(seed), itertools.count()
+    return lambda x: forward(x, noise=root.child(next(calls)))
+
+
+def _refuse_v1_compile(config: TTnetV1Config):
+    """``--mode compile`` of a v1 model, as the JAX CLI ends it: its
+    enumeration error where the first head has more than 24 bits (every
+    variant but the two small ones), else ``_V1_COMPILE``."""
+    head = config.block_configs()[0].head_cfgs()[1]
+    n = head.k * head.k * (head.in_planes // head.groupsici)
+    if n > 24:
+        raise ValueError(f"n={n} bits: 2^n enumeration infeasible")
+    raise ValueError(_V1_COMPILE)
+
+
 def load_or_compile_luts(model, lut_path: str | None = None):
     """The model's truth tables: loaded from ``lut_path`` when it exists,
     else compiled (2^n patterns a head) and written there if given."""
+    family = _family(model.cfg)
+    if family.lut_compile is None:
+        raise ValueError(_SERVING_FAMILY.format(
+            "--lut", type(model.cfg).__name__))
     if lut_path and not lut_path.endswith(".npz"):
         lut_path += ".npz"
     if lut_path and os.path.exists(lut_path):
         print(f"loading LUTs from {lut_path}")
         return load_luts(lut_path, model)
     print("compiling truth tables (2^n patterns per head)...")
-    luts = _family(model.cfg).lut_compile(model)
+    luts = family.lut_compile(model)
     if lut_path:
         save_luts(lut_path, luts, model)
         print(f"saved LUTs -> {lut_path}")
@@ -522,6 +584,9 @@ def _as_gate_model(model, form: str, gnets=None):
     native evaluator.  Either way it is bit-identical to the
     LUT forward on the boolean blocks."""
     family = _family(model.cfg)
+    if family.gate_compile is None:
+        raise ValueError(_SERVING_FAMILY.format(
+            "--gates", type(model.cfg).__name__))
     host_apply, device_apply = family.gate_host, family.gate_device
     if gnets is None:
         print("compiling gate circuits (truth tables -> verified covers)...")
@@ -548,6 +613,8 @@ def _compile(cfg, md, model) -> dict:
     ``--compile_out`` and ``summary.json``; ``--verilog`` adds the gate
     circuits as Verilog modules.  A block without a fuse head (the VGG-stem
     variant) has no ``convf`` item."""
+    if isinstance(md.config, TTnetV1Config):
+        _refuse_v1_compile(md.config)
     items = model_block_items(model)
     with table_cache():   # --verilog reuses the tables and covers
         summary = compile_model_truth_tables(
@@ -592,16 +659,14 @@ def _run_dir(cfg, kind: str) -> str:
 
 def _val_loader(cfg, shards_dir: str | None, image_size: int):
     """``(loader, normalize)`` of an eval pass: uint8 shards (normalized
-    on the device), else the ImageFolder ``<data_dir>/val``."""
+    on the device with the ImageNet statistics, at every size, as in the
+    JAX package), else the ImageFolder ``<data_dir>/val`` through the
+    model's eval transform."""
     bs = cfg.eval_batch_size
     if shards_dir:
         return shard_loader(shards_dir, bs), (IMAGENET_MEAN, IMAGENET_STD)
-    if image_size != 224:
-        raise ValueError("the port's ImageFolder eval is the 256 -> 224 "
-                         "ImageNet pipeline; other resolutions: see "
-                         "ROADMAP.md")
     ds = ImageFolder(os.path.join(cfg.data_dir, "val"),
-                     imagenet_eval_transform)
+                     _pick_transforms(image_size)[0])
     return DataLoader(ds, bs, num_workers=cfg.num_workers), None
 
 
@@ -639,8 +704,9 @@ def _eval(cfg, apply, device, image_size: int):
 def _train_loader(cfg, image_size: int):
     """``(loader, train-step kwargs)``: shards, with the full augmentation
     on the card from pre-crop shards (stored larger than the model input)
-    and the flip alone from same-size ones; or ``<data_dir>/train`` through
-    the PIL train transform, drawn from a ``random.Random(seed)``."""
+    and the flip alone from same-size ones (the 32x32 models' shards); or
+    ``<data_dir>/train`` through the model's PIL train transform, drawn
+    from a ``random.Random(seed)``."""
     tbs = cfg.train_batch_size
     if cfg.shards_dir:
         loader = shard_loader(cfg.shards_dir, tbs, drop_last=True,
@@ -652,10 +718,7 @@ def _train_loader(cfg, image_size: int):
                   f"->{image_size}) + flip + ColorJitter")
         return loader, dict(normalize=(IMAGENET_MEAN, IMAGENET_STD),
                             augment="full" if full else True)
-    if image_size != 224:
-        raise ValueError("the port's ImageFolder training is the ImageNet "
-                         "224 pipeline; other resolutions: see ROADMAP.md")
-    transform = functools.partial(imagenet_train_transform,
+    transform = functools.partial(_pick_transforms(image_size)[1],
                                   rng=random.Random(cfg.seed))
     ds = ImageFolder(os.path.join(cfg.data_dir, "train"), transform)
     return DataLoader(ds, tbs, shuffle=True, num_workers=cfg.num_workers,
@@ -727,6 +790,7 @@ def _train(cfg, md, model, device):
     # it runs across resumed runs
     ckpt = CheckpointManager(ckpt_dir, best_root=os.path.dirname(ckpt_dir))
     conv_apply = _family(model.cfg).conv
+    noise_root = NoiseKey(cfg.seed) if md.stochastic else None
     metadata = {"model_name": md.name,
                 "config": dataclasses.asdict(model.cfg)}
     generator = torch.Generator(device)
@@ -739,7 +803,12 @@ def _train(cfg, md, model, device):
             try:
                 for i, (images, labels) in enumerate(feed):
                     generator.manual_seed(_step_seed(cfg.seed, ts.step))
-                    ts, metrics = train_step(ts, images, labels, generator)
+                    # the step's coin flips, keyed by the step: a resumed
+                    # run draws what an uninterrupted one would
+                    noise = None if noise_root is None else \
+                        noise_root.child(f"step{ts.step}")
+                    ts, metrics = train_step(ts, images, labels, generator,
+                                             noise)
                     if i % cfg.log_interval == 0:
                         loss = float(metrics["loss"])
                         top1 = float(metrics["top1"])
@@ -754,8 +823,9 @@ def _train(cfg, md, model, device):
             metric = None
             if validate is not None:
                 row = {"epoch": epoch, "step": ts.step}
-                top1, top5, vloss = validate(
-                    lambda x: conv_apply(model, x), epoch)
+                top1, top5, vloss = validate(_keyed(
+                    lambda x, **k: conv_apply(model, x, **k),
+                    md.stochastic, cfg.seed), epoch)
                 print(f"epoch {epoch} val: top1 {top1:.3f}% "
                       f"top5 {top5:.3f}% loss {vloss:.4f}")
                 logger.add_scalar("Accuracy/val", top1, epoch)
@@ -763,9 +833,10 @@ def _train(cfg, md, model, device):
                 metric = top1
                 ema = get_ema(ts.opt_state)
                 if ema is not None:
-                    e1, e5, eloss = validate(
-                        lambda x: torch.func.functional_call(model, ema,
-                                                             (x,)), epoch)
+                    e1, e5, eloss = validate(_keyed(
+                        lambda x, **k: torch.func.functional_call(
+                            model, ema, (x,), k), md.stochastic, cfg.seed),
+                        epoch)
                     print(f"epoch {epoch} val[ema]: top1 {e1:.3f}% "
                           f"top5 {e5:.3f}% loss {eloss:.4f}")
                     logger.add_scalar("Accuracy/val_ema", e1, epoch)
@@ -809,9 +880,6 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
                    layers=cfg.layers)
     model = md.init(seed=cfg.seed, device=device)
     if cfg.mode == "train":
-        if isinstance(md.config, (TTFHEConfig, TTFHEAlexnetConfig)):
-            raise ValueError(f"--mode train of {md.name} is not ported yet "
-                             "(see ROADMAP.md)")
         if cfg.remat and not isinstance(md.config, TTnetImageNetConfig):
             raise ValueError(_REMAT_FAMILY.format(type(md.config).__name__))
         return _train(cfg, md, model, device)
@@ -839,15 +907,17 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         def apply(x):
             return lut_apply(luts, model, x)
     else:
-        def apply(x):
-            return conv_apply(model, x)
+        # fresh coin flips a batch for a stochastic model, from --seed
+        apply = _keyed(lambda x, **k: conv_apply(model, x, **k),
+                       md.stochastic, cfg.seed)
     size = md.config.image_size
     if cfg.mode == "eval":
         return _eval(cfg, apply, device, size)
     return serve(apply, name, (size, size, 3), device=device,
                  host=cfg.serve_host, port=cfg.port,
                  batch_size=cfg.serve_batch, max_wait_ms=cfg.serve_wait_ms,
-                 ready_event=serve_ready, stop_event=serve_stop)
+                 ready_event=serve_ready, stop_event=serve_stop,
+                 transform=_pick_transforms(size)[0])
 
 
 if __name__ == "__main__":

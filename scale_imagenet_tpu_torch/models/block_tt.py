@@ -15,9 +15,12 @@ the gate of ``scale_imagenet_tpu/models/block_tt.py:94-100``; the GELU
 there is the polynomial erf).  The JAX gate also asks for a TPU backend; here the
 kernel's wrapper takes the CUDA kernel for a CUDA tensor and its plain
 version for a CPU one.  As there, the gate never fires in training, which
-keeps the exact erf and the batch statistics.  The BinConv2d first conv,
-the input fault mask and the noisy Heaviside come with the families that
-use them.
+keeps the exact erf and the batch statistics, and it takes only a float
+first conv (``quant == "float"``) and a deterministic output (``T == 0``):
+a block with a dead zone draws its coin flips from a ``NoiseKey``
+(``ops/binarize.py``) in eval too, which the kernel does not.  The
+BinConv2d first conv (``quant == "bin"``) and the input fault mask come
+with the families that use them.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..kernels.fused_block import block_tt_pointwise_params, \
 from ..layers.conv import conv2d
 from ..layers.norm import batch_norm
 from ..layers.pool import constant_pad2d
-from ..ops.binarize import Binarize01Act, heaviside01
+from ..ops.binarize import Binarize01Act, NoiseKey, binarize01_act
 from ..ops.gelu import gelu
 
 
@@ -50,6 +53,8 @@ class BlockTTConfig:
     padding: int = 1
     stride: int = 1
     groupsici: int = 1
+    quant: str = "float"       # "float" | "bin" (BinConv2d first conv)
+    T: float = 0.0             # Heaviside dead-zone width
     last: bool = False         # ReLU instead of Heaviside on the output
 
     @property
@@ -65,6 +70,11 @@ class BlockTT(nn.Module):
 
     def __init__(self, cfg: BlockTTConfig):
         super().__init__()
+        if cfg.quant != "float":
+            raise NotImplementedError(
+                f"Block_TT with quant={cfg.quant!r} (the BinConv2d first "
+                "conv) comes with the families that use it; see ROADMAP.md "
+                "queue A")
         self.cfg = cfg
         mid = cfg.t * cfg.in_planes
         self.conv1 = nn.Conv2d(cfg.in_planes, mid, _as_pair(cfg.k),
@@ -78,8 +88,8 @@ class BlockTT(nn.Module):
         self._folded = None            # (key, params): pointwise_params
 
     def forward(self, x: torch.Tensor, pre_padded: bool = False,
-                stats: dict | None = None):
-        return block_tt(self, x, pre_padded, stats)
+                stats: dict | None = None, noise: NoiseKey | None = None):
+        return block_tt(self, x, pre_padded, stats, noise)
 
     def pointwise_params(self) -> tuple:
         """``block_tt_pointwise_params`` folded once and kept: it is folded
@@ -101,16 +111,25 @@ class BlockTT(nn.Module):
         return self._folded[1]
 
 
+def takes_fused_kernel(cfg: BlockTTConfig, training: bool) -> bool:
+    """The gate of ``scale_imagenet_tpu/models/block_tt.py:94-97``, less its
+    TPU test: eval, the switch on, a k=1 stride-1 unpadded block with a
+    float first conv and a deterministic output."""
+    return (not training and performance.fused_pointwise_blocks
+            and _as_pair(cfg.k) == (1, 1) and cfg.stride == 1
+            and cfg.padding == 0 and cfg.quant == "float" and cfg.T == 0.0)
+
+
 def block_tt(block: BlockTT, x: torch.Tensor, pre_padded: bool = False,
-             stats: dict | None = None) -> torch.Tensor:
+             stats: dict | None = None,
+             noise: NoiseKey | None = None) -> torch.Tensor:
     """Forward on NCHW ``x``: eval, or training when ``stats`` is given (a
     dict that receives each BN's new running statistics,
     ``layers/norm.py``).  ``pre_padded`` skips the pad for callers that
-    already padded (the truth-table enumerator)."""
+    already padded (the truth-table enumerator).  ``noise`` is the key of
+    the output's coin flips, which a block with ``T != 0`` needs."""
     cfg = block.cfg
-    if (stats is None and performance.fused_pointwise_blocks
-            and _as_pair(cfg.k) == (1, 1) and cfg.stride == 1
-            and cfg.padding == 0):
+    if takes_fused_kernel(cfg, stats is not None):
         return fused_pointwise_nchw(x, block.pointwise_params(),
                                     "relu" if cfg.last else "heaviside")
     if cfg.padding != 0 and not pre_padded:
@@ -122,7 +141,10 @@ def block_tt(block: BlockTT, x: torch.Tensor, pre_padded: bool = False,
     out = conv2d(out, block.conv2.weight, block.conv2.bias,
                  groups=cfg.groupsici)
     out = batch_norm(block.bn2, out, stats)
-    return torch.relu(out) if cfg.last else heaviside01(out)
+    # the dead zone applies in eval too (``block_tt.py:120-124``)
+    if cfg.last:
+        return torch.relu(out)
+    return binarize01_act(out, cfg.T, noise)
 
 
 def block_tt_out_size(cfg: BlockTTConfig, h: int, w: int) -> tuple[int, int]:

@@ -6,7 +6,12 @@ interleaved and fused by a 1x1 Block_TT.  The pad *corner* (top-left for
 the first 56x56 stage, bottom-right elsewhere) is part of the trained
 models' semantics.  NCHW inside.  The tables are those of the
 ttnet_imagenet variants (``v2small``, its VGG-stem row, ``v2``) and of the
-TT_FHE family (``fhe_v3``, ``fhe_valexnet``).
+TT_FHE family (``fhe_v3``, ``fhe_v2``, ``fhe_valexnet``).
+
+A block whose heads have a dead zone (``T != 0``; ``TT_FHE_small``) takes a
+``NoiseKey`` and gives each draw site the child key of the JAX package's
+slot (``multihead.py:297-341``): heads 1-3 their index, 4 the pooled raw
+input and 5 head 3's re-pool at stride 2, 6 the fuse head.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 from torch import nn
 
 from ..layers.pool import avg_pool, zero_pad2d
-from ..ops.binarize import Binarize01Act, binarize01_act
+from ..ops.binarize import Binarize01Act, NoiseKey, binarize01_act
 from .block_tt import BlockTT, BlockTTConfig, block_tt, block_tt_out_size
 
 # torch ZeroPad2d tuples: (left, right, top, bottom)
@@ -28,6 +33,8 @@ _PAD21 = (0, 0, 0, 1)   # +1 bottom
 _PAD31 = (0, 1, 0, 0)   # +1 right
 _PAD_B2 = (0, 0, 0, 2)  # +2 bottom
 _PAD_R2 = (0, 2, 0, 0)  # +2 right
+_PAD_B1 = (0, 0, 0, 1)  # +1 bottom
+_PAD_R1 = (0, 1, 0, 0)  # +1 right
 
 
 def _fixup_v2small(xw: int, out1w: int) -> dict:
@@ -84,6 +91,18 @@ def _fixup_fhe_v3(xw: int, out1w: int) -> dict:
     return {}
 
 
+def _fixup_fhe_v2(xw: int, out1w: int) -> dict:
+    """The reference ``TT_FHE`` (``TT_FHE_small``) block's chain
+    (``multihead.py:82``): (3,2)/(2,3) heads."""
+    if xw == 16:
+        return {1: _PAD_B1, 2: _PAD_R1, 3: _PAD2, 4: _PAD2}
+    if xw in (8, 4) and out1w == xw:
+        return {1: _PAD_B1, 2: _PAD_R1}
+    if xw in (17, 9, 7):
+        return {3: _PAD2, 4: _PAD2}
+    return {}
+
+
 def _fixup_fhe_valexnet(xw: int, out1w: int) -> dict:
     """The ``TT_FHE_XSMALL_vAlexnet`` file's own v3 block
     (``multihead.py:103``): (3,2)/(2,3) heads, a chain of its own."""
@@ -103,6 +122,7 @@ FIXUP_RULES = {"v2small": _fixup_v2small,
                "v2small_alexnet": _fixup_v2small_alexnet,
                "v2": _fixup_v2,
                "fhe_v3": _fixup_fhe_v3,
+               "fhe_v2": _fixup_fhe_v2,
                "fhe_valexnet": _fixup_fhe_valexnet}
 
 
@@ -112,6 +132,7 @@ class MultiHeadConfig:
     out_planes: int
     stride: int = 1
     last: bool = False
+    T: float = 0.0             # the heads' (and re-pools') dead zone
     # per-head group divisors (g -> Block_TT groupsici = in_planes / g)
     groups: tuple = (1, 1, 16, 1)
     k12: tuple = (4, 4)        # heads 1 and 2: kernels
@@ -120,6 +141,7 @@ class MultiHeadConfig:
     out_mult: int = 2          # fused head outputs out_mult * out_planes
     t: int = 8
     fixup: str = "v2small"
+    T_convf: float = 0.0       # the fuse head's dead zone
     # False: the block returns the raw 4-head concat, with no interleave and
     # no fuse head (the VGG-stem variant's block, ``multihead.py:150``)
     fuse: bool = True
@@ -163,12 +185,15 @@ class MultiHeadConfig:
         return {
             1: BlockTTConfig(cin, cin, k=self.k12[0], t=self.t,
                              padding=self.pad12[0], stride=self.stride,
-                             groupsici=self._groupsici(g1, cin, cin)),
+                             groupsici=self._groupsici(g1, cin, cin),
+                             T=self.T),
             2: BlockTTConfig(cin, cin, k=self.k12[1], t=self.t,
                              padding=self.pad12[1], stride=self.stride,
-                             groupsici=self._groupsici(g2, cin, cin)),
+                             groupsici=self._groupsici(g2, cin, cin),
+                             T=self.T),
             3: BlockTTConfig(cin, cin, k=1, t=self.t, padding=0, stride=1,
-                             groupsici=self._groupsici(g3, cin, cin)),
+                             groupsici=self._groupsici(g3, cin, cin),
+                             T=self.T),
         }
 
     @property
@@ -181,7 +206,7 @@ class MultiHeadConfig:
         return BlockTTConfig(cin, cout, k=1, t=self.t, padding=0, stride=1,
                              groupsici=self._groupsici(self.groupvf, cin,
                                                        cout),
-                             last=self.last)
+                             T=self.T_convf, last=self.last)
 
     @property
     def out_channels(self) -> int:
@@ -207,9 +232,9 @@ class MultiHeadBlock(nn.Module):
     def head(self, i: int) -> BlockTT:
         return getattr(self, f"Block_conv{i}")
 
-    def forward(self, x: torch.Tensor,
-                stats: dict | None = None) -> torch.Tensor:
-        return multihead_block(self, x, stats)
+    def forward(self, x: torch.Tensor, stats: dict | None = None,
+                noise: NoiseKey | None = None) -> torch.Tensor:
+        return multihead_block(self, x, stats, noise)
 
 
 def channel_interleave(x: torch.Tensor, cpt: int) -> torch.Tensor:
@@ -225,11 +250,11 @@ def reconcile_heads(outs: dict, cfg: MultiHeadConfig, x: torch.Tensor,
     """Shared by the conv block and LUT serving: head 4 is identity at
     stride 1, avg-pool + re-binarize at stride 2 (which also re-pools
     head 3), then the fixup pads, a bottom-right crop to the smallest head,
-    and the channel concat.  ``rebinarize(pooled)`` must equal
-    ``binarize01_act(pooled - 0.5)``."""
+    and the channel concat.  ``rebinarize(pooled, slot)`` (slot 4 the raw
+    input, 5 head 3) must equal ``binarize01_act(pooled - 0.5)``."""
     if cfg.stride == 2:
-        outs[4] = rebinarize(avg_pool(x, 2))
-        outs[3] = rebinarize(avg_pool(outs[3], 2))
+        outs[4] = rebinarize(avg_pool(x, 2), 4)
+        outs[3] = rebinarize(avg_pool(outs[3], 2), 5)
     else:
         outs[4] = x
     for idx, pad in FIXUP_RULES[cfg.fixup](x.shape[3],
@@ -241,16 +266,20 @@ def reconcile_heads(outs: dict, cfg: MultiHeadConfig, x: torch.Tensor,
 
 
 def multihead_block(block: MultiHeadBlock, x: torch.Tensor,
-                    stats: dict | None = None) -> torch.Tensor:
-    """Eval, or training when ``stats`` is given (``block_tt``)."""
+                    stats: dict | None = None,
+                    noise: NoiseKey | None = None) -> torch.Tensor:
+    """Eval, or training when ``stats`` is given (``block_tt``); ``noise``
+    keys the dead zones of a block with ``T != 0``."""
     cfg = block.cfg
-    outs = {i: block_tt(block.head(i), x, stats=stats) for i in (1, 2, 3)}
-    cat = reconcile_heads(outs, cfg, x,
-                          lambda pooled: binarize01_act(pooled - 0.5))
+    keys = {} if noise is None else {i: noise.child(i) for i in range(1, 7)}
+    outs = {i: block_tt(block.head(i), x, stats=stats, noise=keys.get(i))
+            for i in (1, 2, 3)}
+    cat = reconcile_heads(outs, cfg, x, lambda pooled, slot: binarize01_act(
+        pooled - 0.5, cfg.T, keys.get(slot)))
     if not cfg.fuse:
         return cat
     cat = channel_interleave(cat, cfg.cpt)
-    return block_tt(block.Block_convf, cat, stats=stats)
+    return block_tt(block.Block_convf, cat, stats=stats, noise=keys.get(6))
 
 
 def multihead_out_size(cfg: MultiHeadConfig, h: int, w: int):

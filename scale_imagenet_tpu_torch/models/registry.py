@@ -1,9 +1,10 @@
 """Model registry (counterpart of ``scale_imagenet_tpu/models/registry.py:311-326``).
 
 The ``ttnet_imagenet`` entries and their reference aliases (the v2 and
-VGG-stem variants among them, ``registry.py:148-160,314,325``) and the
-deterministic TT_FHE models (``registry.py:131-173``); the rest of the JAX
-registry follows its families (``ROADMAP.md``).
+VGG-stem variants among them, ``registry.py:148-160,314,325``), the TT_FHE
+models (``registry.py:131-173``) and the v1 ImageNet family with its
+32x32 10-class clones (``registry.py:199-222``): 37 of the JAX registry's
+71 names.  The rest follows its families (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -18,17 +19,26 @@ from .tt_fhe import FHE_MODELS, TTFHEAlexnetConfig, TTFHEConfig, \
     build_tt_fhe
 from .ttnet_imagenet import TTnetImageNetConfig, TTnetVGGStemConfig, \
     build_ttnet_imagenet, build_ttnet_vgg_stem
+from .ttnet_imagenet_v1 import V1_STAGES, TTnetV1Config, build_ttnet_v1, \
+    cifar_name
 
 _BUILD_FNS = {TTnetImageNetConfig: build_ttnet_imagenet,
              TTnetVGGStemConfig: build_ttnet_vgg_stem,
-             TTFHEConfig: build_tt_fhe, TTFHEAlexnetConfig: build_tt_fhe}
+             TTFHEConfig: build_tt_fhe, TTFHEAlexnetConfig: build_tt_fhe,
+             TTnetV1Config: build_ttnet_v1}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     name: str
     config: TTnetImageNetConfig | TTnetVGGStemConfig | TTFHEConfig \
-        | TTFHEAlexnetConfig
+        | TTFHEAlexnetConfig | TTnetV1Config
+
+    @property
+    def stochastic(self) -> bool:
+        """The forward draws coin flips (``TT_FHE_small``): eval, serving
+        and training give it a ``NoiseKey``."""
+        return getattr(self.config, "stochastic", False)
 
     def init(self, seed: int = 0, device=None,
              dtype: torch.dtype = torch.float32) -> nn.Module:
@@ -69,6 +79,15 @@ def _tt_fhe_alexnet(num_classes=10, maxpool=3, **_):
         num_classes=num_classes, maxpool=maxpool))
 
 
+def _v1(name: str, image_size: int = 224, num_classes_default: int = 1000):
+    def build(nfilter=8, tfilter=8, a_bit=2,
+              num_classes=num_classes_default, **_):
+        return ModelDef(name=name, config=TTnetV1Config(
+            name=name, nfilter=nfilter, tfilter=tfilter, a_bit=a_bit,
+            num_classes=num_classes, image_size=image_size))
+    return build
+
+
 MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     # the shipped TTnet-Small
     "ttnet_imagenet_small": _ttnet_imagenet("ttnet_imagenet_small", "small"),
@@ -94,20 +113,16 @@ MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     **{name: _tt_fhe(name) for name in FHE_MODELS},
     "tt_fhe_small": _tt_fhe("TT_FHE_SMALL"),
     "TT_FHE_XSMALL_vAlexnet": _tt_fhe_alexnet,
-}
-
-
-# JAX registry entries whose semantics the port does not have yet
-_NOT_PORTED = {
-    "TT_FHE_small": "TT_FHE_small (T = 0.03, T_block = 0.1) needs the noisy "
-                    "dead-zone Heaviside, which the port does not have yet "
-                    "(ROADMAP.md queue A)",
+    # the v1 family at 224x224, and the reference's CIFAR clones of the
+    # same classes (``models/TT_general.py``: 32x32, 10 classes); the clone
+    # keeps its ImageNet name in ``ModelDef.name``, as in JAX
+    **{name: _v1(name) for name in V1_STAGES},
+    **{cifar_name(name): _v1(name, image_size=32, num_classes_default=10)
+       for name in V1_STAGES},
 }
 
 
 def get_model(name: str, **kwargs) -> ModelDef:
-    if name in _NOT_PORTED:
-        raise ValueError(_NOT_PORTED[name])
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; the port has "
                        f"{sorted(MODEL_REGISTRY)} (the rest: ROADMAP.md)")

@@ -1,7 +1,6 @@
 """The TT_FHE CIFAR family (counterpart of ``scale_imagenet_tpu/models/tt_fhe.py``).
 
-The deterministic (T = 0) models of ``FHE_MODELS``, one config over one
-implementation:
+The models of ``FHE_MODELS``, one config over one implementation:
 
 * ``TT_FHE_SMALL``: conv5 s2 p2 stem -> BN -> Heaviside -> one ``fhe_v3``
   block (k = 2 heads, groups [1, 1, 4, 1], fuse head to 4·p) -> MaxPool(2)
@@ -13,7 +12,17 @@ implementation:
 * ``TT_FHE_SMALL_polyhead``: ``TT_FHE_SMALL`` with the
   ``Classifier_scale_new`` split head;
 * ``TT_FHE_SMALL_bireal``: ``TT_FHE_SMALL`` with the Bi-Real sign stem
-  activation (its outputs are not bits: no tables or circuit).
+  activation (its outputs are not bits: no tables or circuit);
+* ``TT_FHE_small``: conv3 s2 p1 stem -> BN -> the dead-zone Heaviside
+  (T = 0.03) -> one ``fhe_v2`` block ((3,2)/(2,3) heads, groups [1, 1, 6,
+  1] stepped down at p = 64 as the JAX package does, fuse head to p; every
+  head and the fuse head with T = 0.1) -> AvgPool(2) -> Flatten ->
+  Linear -> BN -> Linear, both linears with a bias (the "plain"
+  classifier).  Its forward is stochastic, in eval too: each dead zone
+  draws its coin flips from the ``NoiseKey`` the caller gives, the stem
+  from ``noise.child("stem")`` and block i from ``noise.child(i)``, as
+  the JAX package splits its key (``tt_fhe.py:174-192``).  No table or
+  circuit represents it (the JAX package refuses them too).
 
 ``TT_FHE_XSMALL_vAlexnet`` (``TTFHEAlexnetConfig``): VGG16 conv1 (3x3, bias)
 -> ReLU -> BN -> MaxPool(3) -> Heaviside -> that file's own block ((3,2)/
@@ -28,10 +37,9 @@ the flatten and the classifier, as flat Linear/BN entries (``two_bn``), a
 ``Classifier_scale`` submodule (``scale``: ``lin1``/``BN2``/``lin2``) or a
 ``Classifier_scale_new`` one (``scale_new``: ``linvf``...).
 
-``TT_FHE_small`` (T = 0.03, the noisy Heaviside) is not ported yet: its
-registry entry raises (``ROADMAP.md``).  The public forwards take NHWC
-images and return logits, in eval, or in training when given ``stats``
-(the port's train mode refuses the family for now).
+The public forwards take NHWC images and return logits, in eval, or in
+training when given ``stats`` (batch statistics in every BN, as
+``models/ttnet_imagenet.py``).
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ from ..layers.conv import conv2d
 from ..layers.linear import linear
 from ..layers.norm import batch_norm
 from ..layers.pool import avg_pool, flatten, max_pool
-from ..ops.binarize import Binarize01Act, BinaryActivation, bireal_act, \
-    heaviside01
+from ..ops.binarize import Binarize01Act, BinaryActivation, NoiseKey, \
+    binarize01_act, bireal_act, heaviside01
 from .classifier import ClassifierScale, ClassifierScaleNew, \
     classifier_scale, classifier_scale_new
 from .multihead import MultiHeadBlock, MultiHeadConfig, multihead_out_size
@@ -57,6 +65,12 @@ FHE_BLOCK_VARIANTS = {
     # v3 block (TT_FHE_SMALL.py:434-488): k=2 heads, pad 1, 4x out
     "fhe_v3": dict(k12=(2, 2), pad12=(1, 1), groups=(1, 1, 4, 1),
                    groupvf=4, out_mult=4, fixup="fhe_v3"),
+    # v2 block (TT_FHE.py:384-435): (3,2)/(2,3) kernels, fuse head to p;
+    # the reference crashes as shipped at p = 64 (head 3: int(64/6) = 10
+    # groups on 64 channels), so the groups step down (``repair_groups``)
+    "fhe_v2": dict(k12=((3, 2), (2, 3)), pad12=(1, 1), groups=(1, 1, 6, 1),
+                   groupvf=4, out_mult=1, fixup="fhe_v2",
+                   repair_groups=True),
     # xsmall: v3 heads, raw concat output (no fuse head)
     "fhe_xsmall": dict(k12=(2, 2), pad12=(1, 1), groups=(1, 1, 4, 1),
                        groupvf=4, out_mult=4, fixup="fhe_v3", fuse=False),
@@ -67,12 +81,15 @@ FHE_BLOCK_VARIANTS = {
                          fixup="fhe_valexnet", fuse=False),
 }
 
-# ``tt_fhe.py:68-89``, the T = 0 entries.  Classifier styles: "two_bn"
-# lin(fc, inter, no bias) -> BN -> lin(inter, classes, no bias) -> BN;
-# "scale" lin1 -> BN2 [-> poly] -> lin2 (bias); "scale_new" the split head
+# ``tt_fhe.py:68-89``.  Classifier styles: "two_bn" lin(fc, inter, no
+# bias) -> BN -> lin(inter, classes, no bias) -> BN; "plain" lin(fc, inter,
+# bias) -> BN -> lin(inter, classes, bias); "scale" lin1 -> BN2 [-> poly]
+# -> lin2 (bias); "scale_new" the split head
 FHE_MODELS = {
     "TT_FHE_SMALL": dict(variant="fhe_v3", k=5, pad=2, T=0.0, T_block=0.0,
                          pool="max", classifier="two_bn", poly=False),
+    "TT_FHE_small": dict(variant="fhe_v2", k=3, pad=1, T=0.03, T_block=0.1,
+                         pool="avg", classifier="plain", poly=False),
     "TT_FHE_XSMALL": dict(variant="fhe_xsmall", k=5, pad=2, T=0.0,
                           T_block=0.0, pool="max", classifier="scale",
                           poly=False),
@@ -106,12 +123,18 @@ class TTFHEConfig:
     def spec(self) -> dict:
         return FHE_MODELS[self.name]
 
+    @property
+    def stochastic(self) -> bool:
+        """The forward draws coin flips (a dead zone somewhere)."""
+        return self.spec["T"] != 0.0 or self.spec["T_block"] != 0.0
+
     def block_configs(self) -> list[MultiHeadConfig]:
         variant = self.spec["variant"]
         if variant is None:
             return []
+        t = self.spec["T_block"]
         return [MultiHeadConfig(in_planes=self.p, out_planes=self.p,
-                                stride=1, last=False,
+                                stride=1, last=False, T=t, T_convf=t,
                                 **FHE_BLOCK_VARIANTS[variant])]
 
     def feature_shape(self) -> tuple[int, int, int]:
@@ -140,10 +163,13 @@ def _classifier_modules(cfg: TTFHEConfig) -> list[nn.Module]:
     if style == "scale":
         return [ClassifierScale(fc, cfg.inter, cfg.num_classes,
                                 poly=spec["poly"])]
-    # "two_bn": flat Linear, BN, Linear, BN entries
-    return [nn.Linear(fc, cfg.inter, bias=False), nn.BatchNorm1d(cfg.inter),
-            nn.Linear(cfg.inter, cfg.num_classes, bias=False),
-            nn.BatchNorm1d(cfg.num_classes)]
+    # "two_bn" and "plain": flat Linear, BN, Linear[, BN] entries
+    bias = style == "plain"
+    head = [nn.Linear(fc, cfg.inter, bias=bias), nn.BatchNorm1d(cfg.inter),
+            nn.Linear(cfg.inter, cfg.num_classes, bias=bias)]
+    if style == "two_bn":
+        head.append(nn.BatchNorm1d(cfg.num_classes))
+    return head
 
 
 class TTFHE(nn.Module):
@@ -187,15 +213,16 @@ class TTFHE(nn.Module):
         flat Linear/BN entries)."""
         return list(self.features[3 + self.n_blocks + 2:])
 
-    def forward(self, x: torch.Tensor,
-                stats: dict | None = None) -> torch.Tensor:
-        return tt_fhe_apply(self, x, stats)
+    def forward(self, x: torch.Tensor, stats: dict | None = None,
+                noise: NoiseKey | None = None) -> torch.Tensor:
+        return tt_fhe_apply(self, x, stats, noise)
 
 
-def tt_fhe_stem(model: TTFHE, x: torch.Tensor,
-                stats: dict | None = None) -> torch.Tensor:
+def tt_fhe_stem(model: TTFHE, x: torch.Tensor, stats: dict | None = None,
+                noise: NoiseKey | None = None) -> torch.Tensor:
     """The float stem on NCHW images: conv (stride 2) -> BN -> Heaviside
-    ({0,1} bits), or the Bi-Real activation (scaled signs)."""
+    ({0,1} bits; with the dead zone drawn from ``noise`` when the model has
+    one), or the Bi-Real activation (scaled signs)."""
     conv = model.stem_conv
     h = conv2d(x, conv.weight, conv.bias, stride=2,
                padding=model.cfg.spec["pad"])
@@ -203,7 +230,7 @@ def tt_fhe_stem(model: TTFHE, x: torch.Tensor,
     act = model.stem_act
     if isinstance(act, BinaryActivation):
         return bireal_act(h, act.alpha_a, act.beta_a)
-    return heaviside01(h)
+    return binarize01_act(h, model.cfg.spec["T"], noise)
 
 
 def tt_fhe_head(model: TTFHE, h: torch.Tensor,
@@ -218,17 +245,21 @@ def tt_fhe_head(model: TTFHE, h: torch.Tensor,
         return classifier_scale_new(head[0], h, stats)
     if isinstance(head[0], ClassifierScale):
         return classifier_scale(head[0], h, stats)
-    lin1, bn1, lin2, bn2 = head
+    lin1, bn1, lin2, *bn2 = head
     h = batch_norm(bn1, linear(h, lin1.weight, lin1.bias), stats)
-    return batch_norm(bn2, linear(h, lin2.weight, lin2.bias), stats)
+    h = linear(h, lin2.weight, lin2.bias)
+    return batch_norm(bn2[0], h, stats) if bn2 else h
 
 
-def tt_fhe_apply(model: TTFHE, x: torch.Tensor,
-                 stats: dict | None = None) -> torch.Tensor:
-    """NHWC images -> logits (``tt_fhe.py:173``)."""
-    h = tt_fhe_stem(model, _nchw(x, model), stats)
-    for block in model.blocks:
-        h = block(h, stats)
+def tt_fhe_apply(model: TTFHE, x: torch.Tensor, stats: dict | None = None,
+                 noise: NoiseKey | None = None) -> torch.Tensor:
+    """NHWC images -> logits (``tt_fhe.py:173``); ``noise`` keys the dead
+    zones of a stochastic model (``TT_FHE_small``), which needs one."""
+    keyed = noise is not None and model.cfg.stochastic
+    h = tt_fhe_stem(model, _nchw(x, model), stats,
+                    noise.child("stem") if keyed else None)
+    for i, block in enumerate(model.blocks):
+        h = block(h, stats, noise.child(i) if keyed else None)
     return tt_fhe_head(model, h, stats)
 
 

@@ -1,7 +1,11 @@
-from .binarize import Binarize01Act, BinaryActivation, binarize01_act, \
-    bireal_act, heaviside01
+from .binarize import Binarize01Act, BinaryActivation, NoiseKey, \
+    binarize01_act, bireal_act, dead_zone_noise, heaviside01, \
+    heaviside01_noisy
 from .gelu import gelu
 from .poly import polynome_act
+from .quantize import activation_quantize, ste_round, uniform_quantize
 
-__all__ = ["Binarize01Act", "BinaryActivation", "binarize01_act",
-           "bireal_act", "heaviside01", "gelu", "polynome_act"]
+__all__ = ["Binarize01Act", "BinaryActivation", "NoiseKey",
+           "binarize01_act", "bireal_act", "dead_zone_noise", "heaviside01",
+           "heaviside01_noisy", "gelu", "polynome_act",
+           "activation_quantize", "ste_round", "uniform_quantize"]

@@ -9,7 +9,7 @@ requests are coalesced (up to ``batch_size``, waiting at most
 Endpoints:
   GET  /healthz  -> {"model", "device", "batch_size", "served", ...}
   POST /predict  -> body = JPEG/PNG bytes (``image/*``, decoded with
-                    Pillow through the PIL-exact eval transform,
+                    Pillow through the model's PIL-exact eval transform,
                     ``data/transforms.py``) or a raw float32 NHWC tensor
                     of one image (application/octet-stream); the JSON
                     answer carries the top-5 class indices, their
@@ -155,23 +155,25 @@ def make_forward(apply, device: torch.device):
     return forward
 
 
-def _decode_image(body: bytes) -> np.ndarray:
-    """JPEG/PNG bytes -> the 224x224 HWC float32 eval input (every model
-    of the port is a 224x224 ImageNet model)."""
+def _decode_image(body: bytes, transform) -> np.ndarray:
+    """JPEG/PNG bytes -> the HWC float32 eval input."""
     from PIL import Image
 
-    return imagenet_eval_transform(Image.open(io.BytesIO(body)))
+    with Image.open(io.BytesIO(body)) as img:
+        return transform(img.convert("RGB"))
 
 
 def serve(apply, name: str, input_shape, *, device: torch.device,
           host: str = "127.0.0.1", port: int = 8000, batch_size: int = 8,
           max_wait_ms: float = 2.0, ready_event=None, stop_event=None,
-          verbose: bool = True) -> int:
+          verbose: bool = True, transform=imagenet_eval_transform) -> int:
     """Run the HTTP server until ``stop_event`` is set (or forever).
 
     ``apply``: NHWC float32 tensor -> logits.  ``input_shape``: the
-    per-sample HWC shape posts must match.  ``ready_event`` is set (with a
-    ``port`` attribute) once the socket is bound.  Returns the bound port.
+    per-sample HWC shape posts must match.  ``transform``: the eval
+    transform of image uploads (the 32x32 models' is the CIFAR one).
+    ``ready_event`` is set (with a ``port`` attribute) once the socket is
+    bound.  Returns the bound port.
     """
     forward = make_forward(apply, device)
     example = np.zeros(input_shape, np.float32)
@@ -210,7 +212,7 @@ def serve(apply, name: str, input_shape, *, device: torch.device,
                 ctype = self.headers.get("Content-Type",
                                          "application/octet-stream")
                 if ctype.startswith("image/"):
-                    x = _decode_image(body)
+                    x = _decode_image(body, transform)
                 else:
                     x = np.frombuffer(body, np.float32).reshape(input_shape)
                 t0 = time.perf_counter()

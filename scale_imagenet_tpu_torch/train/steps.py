@@ -26,6 +26,9 @@ training step over a ``TrainState``:
 * ``accum``: ``accum`` sequential microbatches, each with its own BN batch
   statistics and the running statistics threaded from one to the next;
   gradients, loss and top-1/5 averaged; one optimizer update;
+* a model whose forward draws coin flips (``TT_FHE_small``'s dead zones)
+  takes a ``NoiseKey`` a step (``noise``; microbatch i its child i, as the
+  JAX step folds its key);
 * metrics are device tensors: nothing in the step waits for the card.
 
 The mesh, tensor-parallel and robust steps come with later slices
@@ -131,35 +134,41 @@ def _write_bn_stats(stats: dict) -> None:
 def make_train_step(model: nn.Module, opt, amp: bool = False,
                     normalize=None, augment=False, accum: int = 1,
                     label_smooth: float = 0.0):
-    """Returns ``train_step(ts, images, labels, generator=None) -> (ts,
-    metrics)``: one optimizer update of ``ts`` in place, ``ts.step`` + 1.
-    ``model`` is ``ts.model``, a ``TTnetImageNet`` (its ``cfg.remat``
-    selects the recomputing backward); ``opt`` the ``train/optim.py``
-    optimizer.  ``generator`` draws the augmentation on the images'
-    device.  Metrics: ``loss``, ``top1``, ``top5`` as device scalars."""
+    """Returns ``train_step(ts, images, labels, generator=None, noise=None)
+    -> (ts, metrics)``: one optimizer update of ``ts`` in place,
+    ``ts.step`` + 1.  ``model`` is ``ts.model`` (a ``TTnetImageNet``'s
+    ``cfg.remat`` selects the recomputing backward); ``opt`` the
+    ``train/optim.py`` optimizer.  ``generator`` draws the augmentation on
+    the images' device, ``noise`` (a ``NoiseKey``) keys the coin flips of a
+    stochastic forward, which then needs it.  Metrics: ``loss``, ``top1``,
+    ``top5`` as device scalars."""
     prepare = make_input_pipeline(
         normalize, augment, image_size=model.cfg.image_size,
         dtype=torch.bfloat16 if amp else torch.float32)
     params = dict(model.named_parameters())
 
-    def micro(images, labels, generator):
+    def micro(images, labels, generator, noise):
         """Forward and backward of one microbatch; gradients accumulate
         into ``.grad``; the BN statistics are written after it."""
         images = prepare(images, generator)
         stats: dict = {}
+        kwargs = {"stats": stats}
+        if noise is not None:
+            kwargs["noise"] = noise
         if amp:
             logits = torch.func.functional_call(
                 model, _bf16_values(model), (images.to(torch.bfloat16),),
-                {"stats": stats}).float()
+                kwargs).float()
         else:
-            logits = model(images, stats)
+            logits = model(images, **kwargs)
         loss = cross_entropy(logits, labels, smoothing=label_smooth)
         loss.backward()
         _write_bn_stats(stats)
         top1, top5 = accuracy_topk(logits.detach(), labels, topk=(1, 5))
         return loss.detach(), top1, top5
 
-    def train_step(ts: TrainState, images, labels, generator=None):
+    def train_step(ts: TrainState, images, labels, generator=None,
+                   noise=None):
         if images.shape[0] % accum:
             raise ValueError(f"batch {images.shape[0]} is not divisible "
                              f"by accum={accum}")
@@ -168,8 +177,10 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
         mb = images.shape[0] // accum
         sums = None
         for i in range(accum):
+            key = noise.child(i) if noise is not None and accum > 1 \
+                else noise
             out = micro(images[i * mb:(i + 1) * mb],
-                        labels[i * mb:(i + 1) * mb], generator)
+                        labels[i * mb:(i + 1) * mb], generator, key)
             sums = out if sums is None else tuple(
                 a + b for a, b in zip(sums, out))
         grads = {n: p.grad for n, p in params.items()}

@@ -5,6 +5,9 @@ JAX package is the reference.  JAX float paths run in f64 under the ``x64``
 fixture, the Pallas gather in interpret mode.
 """
 
+import contextlib
+from unittest import mock
+
 import jax
 import numpy as np
 import pytest
@@ -64,6 +67,33 @@ def jax_and_port(name: str, dtype, seed: int = 0, jit: bool = False, **kw):
     return jm, params, state, md, model
 
 
+def port_and_trees(name: str, dtype=np.float64, seed: int = 0, **kw):
+    """The port's seeded model (BN statistics perturbed) and its values as
+    the JAX package's trees: ``(jax_model, params, state, port_model_def,
+    port_model)``, as ``jax_and_port`` returns them.  No JAX init runs (its
+    compile is most of a small model's time); ``convert/from_jax.py``'s
+    inverse map carries the values."""
+    from scale_imagenet_tpu.models import get_model as jget
+    from scale_imagenet_tpu_torch.convert import jax_trees
+    from scale_imagenet_tpu_torch.models import get_model
+
+    md = get_model(name, **kw)
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    model = md.init(seed=seed, device="cpu", dtype=tdtype)
+    gen = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.running_mean.shape
+                m.running_mean.add_(0.05 * torch.randn(n, generator=gen).to(
+                    m.running_mean))
+                m.running_var.mul_(torch.exp(0.05 * torch.randn(
+                    n, generator=gen)).to(m.running_var))
+    # copies: the trees would otherwise share the model's memory
+    params, state = jax.tree.map(np.array, jax_trees(model))
+    return jget(name, **kw), params, state, md, model
+
+
 def block_from_jax(kw: dict, seed: int, dtype=np.float64):
     """One JAX ``init_block_tt`` (BN statistics perturbed) and the port's
     ``BlockTT`` holding the same weights through ``convert/from_jax.py``:
@@ -104,13 +134,14 @@ _FAST_COMPILE = {"xla_backend_optimization_level": 1,
 
 
 def jax_train_steps(jm, tx, params, state, batches, compile_options=None,
-                    **kw):
+                    keys=None, **kw):
     """Run the JAX package's ``make_train_step(jm, tx, **kw)`` (compiled
     once, with ``compile_options`` added to XLA's) over ``batches``
     (``(images, labels)`` numpy pairs) from ``(params, state)``.  Returns
     ``(params, state, metrics, ema)``: numpy trees, one ``{"loss", "top1",
     "top5"}`` dict of floats a step, and the EMA params tree (None without
-    ``params_ema`` in ``tx``)."""
+    ``params_ema`` in ``tx``).  ``keys``: one PRNG key a step, for models
+    whose forward draws (None: no key)."""
     import jax.numpy as jnp
 
     from scale_imagenet_tpu.train import TrainState, make_train_step
@@ -120,12 +151,84 @@ def jax_train_steps(jm, tx, params, state, batches, compile_options=None,
     ts = TrainState(p, jax.tree.map(jnp.array, state), tx.init(p),
                     jnp.zeros((), jnp.int32))
     step = make_train_step(jm, tx, **kw)
-    compiled = step.lower(ts, *batches[0], None).compile(
+    keys = keys or [None] * len(batches)
+    compiled = step.lower(ts, *batches[0], keys[0]).compile(
         {**_FAST_COMPILE, **(compile_options or {})})
     metrics = []
-    for x, y in batches:
-        ts, m = compiled(ts, x, y, None)
+    for (x, y), key in zip(batches, keys):
+        ts, m = compiled(ts, x, y, key)
         metrics.append({k: float(v) for k, v in m.items()})
     ema = get_ema(ts.opt_state)
     return (tree_np(ts.params), tree_np(ts.model_state), metrics,
             None if ema is None else tree_np(ema))
+
+
+@contextlib.contextmanager
+def recorded_bernoulli():
+    """Record every ``jax.random.bernoulli`` output, in call order, as
+    numpy arrays (the JAX package's dead-zone coin flips): at once outside
+    ``jit``, through an ordered debug callback at run time inside it."""
+    draws = []
+    real = jax.random.bernoulli
+
+    def rec(*a, **k):
+        out = real(*a, **k)
+        if isinstance(out, jax.core.Tracer):
+            jax.debug.callback(lambda v: draws.append(np.asarray(v)), out,
+                               ordered=True)
+        else:
+            draws.append(np.asarray(out))
+        return out
+
+    with mock.patch.object(jax.random, "bernoulli", rec):
+        yield draws
+        jax.effects_barrier()
+
+
+class Replay:
+    """A port noise key that hands out recorded JAX coin flips in call
+    order instead of drawing: every child is the same replay.  Each draw
+    site must ask for the shape JAX drew at the same place (NHWC there,
+    NCHW here)."""
+
+    def __init__(self, draws: list):
+        self.draws = list(draws)
+        self.used = 0
+
+    def child(self, index) -> "Replay":
+        return self
+
+    def draw(self, x: torch.Tensor) -> torch.Tensor:
+        want = self.draws[self.used]
+        got = (x.shape[0], *x.shape[2:], x.shape[1]) if x.dim() == 4 \
+            else tuple(x.shape)
+        assert want.shape == got, (self.used, want.shape, got)
+        self.used += 1
+        a = np.moveaxis(want, -1, 1) if x.dim() == 4 else want
+        return torch.from_numpy(np.ascontiguousarray(a)).to(x)
+
+
+_REFUSALS: dict = {}
+
+
+def jax_cli_refusal(argv: list, root: str) -> BaseException:
+    """The exception the JAX CLI raises for ``argv`` (memoized).  An eval
+    refusal is taken from ``--mode serve``: the same function raises the
+    same text there, without the eval loop's set-up (its TensorBoard
+    writer and loader), which costs the tests seconds a call."""
+    import io
+    from contextlib import redirect_stdout
+
+    from scale_imagenet_tpu import main as jmain
+
+    if argv[:2] == ["--mode", "eval"]:
+        argv = ["--mode", "serve"] + [
+            a for i, a in enumerate(argv[2:], 2)
+            if a != "--shards_dir" and argv[i - 1] != "--shards_dir"]
+    key = tuple(argv)
+    if key not in _REFUSALS:
+        with pytest.raises(Exception) as err, \
+                redirect_stdout(io.StringIO()):
+            jmain.main(argv + ["--root_dir", root, "--mesh_data", "1"])
+        _REFUSALS[key] = err.value
+    return _REFUSALS[key]

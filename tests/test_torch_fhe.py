@@ -92,9 +92,10 @@ def fhe32(name, tables: bool = True):
 
 def test_registry_and_configs_match_jax():
     """Names, block configs, feature shapes and fcsize equal JAX's, at the
-    test width and at the full p = 64; TT_FHE_small names ROADMAP.md."""
-    assert set(ALL + ["tt_fhe_small"]) <= set(list_models())
-    for name in ALL + ["tt_fhe_small"]:
+    test width and at the full p = 64, the noisy TT_FHE_small's too
+    (``tests/test_torch_noisy.py``)."""
+    assert set(ALL + ["tt_fhe_small", "TT_FHE_small"]) <= set(list_models())
+    for name in ALL + ["tt_fhe_small", "TT_FHE_small"]:
         for kw in (_kw(name), {}):
             md, jm = get_model(name, **kw), jget(name, **kw)
             assert md.name == jm.name
@@ -111,9 +112,12 @@ def test_registry_and_configs_match_jax():
                 if b.fuse:
                     assert b.convf_cfg().groupsici == \
                         jb.convf_cfg().groupsici
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_model("TT_FHE_small")
-    assert "TT_FHE_small" not in list_models()
+    noisy = get_model("TT_FHE_small").config
+    assert noisy.stochastic and not get_model("TT_FHE_SMALL").config.stochastic
+    for b in noisy.block_configs():
+        assert b.T == b.T_convf == 0.1
+        assert all(h.T == 0.1 for h in b.head_cfgs().values())
+        assert b.convf_cfg().T == 0.1
 
 
 def test_fixups_and_poly_match_jax():

@@ -50,6 +50,8 @@ def test_state_dict_from_jax_matches_export():
 
 def test_registry_and_shapes():
     from scale_imagenet_tpu.models import get_model as jget
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet_v1 import \
+        V1_STAGES, cifar_name
 
     assert {"ttnet_imagenet_small", "ttnet_imagenet_xsmall",
             "ttnet_imagenet_small_g8", "TT_vf_19lv3_imgnet_small",
@@ -57,8 +59,10 @@ def test_registry_and_shapes():
             "TT_vf_19lv3_imgnet_xsmall_VGG", "ttnet_imagenet_v2",
             "TT_vf_19lv3_imgnet", "TT_FHE_SMALL", "tt_fhe_small",
             "TT_FHE_XSMALL", "TT_FHE_ref", "TT_FHE_SMALL_polyhead",
-            "TT_FHE_SMALL_bireal",
-            "TT_FHE_XSMALL_vAlexnet"} == set(list_models())
+            "TT_FHE_SMALL_bireal", "TT_FHE_small",
+            "TT_FHE_XSMALL_vAlexnet", *V1_STAGES,
+            *map(cifar_name, V1_STAGES)} == set(list_models())
+    assert len(list_models()) == 37
     for name in list_models():
         for layers in range(5):
             cfg = get_model(name, layers=layers).config
@@ -69,8 +73,8 @@ def test_registry_and_shapes():
             assert cfg.fcsize == jcfg.fcsize
     with pytest.raises(KeyError, match="ROADMAP"):
         get_model("resnet18")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_model("TT_FHE_small")
+    # the noisy TT_FHE model is registered since its dead zone is ported
+    assert get_model("TT_FHE_small").stochastic
 
 
 def test_seeded_init_is_deterministic():

@@ -49,7 +49,8 @@ def test_heaviside_and_binarize(x64):
     np.testing.assert_array_equal(binarize01_act(_t(x)).detach().numpy(), ref)
     np.testing.assert_array_equal(heaviside01(_t(x)).detach().numpy(), ref)
     np.testing.assert_array_equal(Binarize01Act()(_t(x)).detach().numpy(), ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the dead zone needs its coin flips' key (tests/test_torch_noisy.py)
+    with pytest.raises(ValueError, match="T != 0 needs a noise key"):
         binarize01_act(_t(x), T=0.1)
     assert set(Binarize01Act().state_dict()) == {"grad_scale"}
 

@@ -404,8 +404,8 @@ def test_vgg_refusals_are_the_jax_messages(argv, tmp_path):
 
 def test_vgg_train_names_the_roadmap(tmp_path):
     """The VGG stem trains now (``tests/test_torch_vgg_train.py``): its
-    ``--remat`` is refused with the JAX CLI's text, and the training still
-    missing, the TT_FHE family's, names ROADMAP.md."""
+    ``--remat`` is refused with the JAX CLI's text, and a training flag
+    still missing (robust training) names ROADMAP.md."""
     shards, _, _ = _vgg_shards(tmp_path, n=1)
     argv = ["--mode", "train", "--shards_dir", shards, "--remat", *VGG]
     want = _jax_refusal(argv, tmp_path)
@@ -414,4 +414,4 @@ def test_vgg_train_names_the_roadmap(tmp_path):
     assert str(err.value) == want and "TTnetVGGStemConfig" in want
     with pytest.raises(ValueError, match="ROADMAP.md"):
         cli.main(["--mode", "train", "--device", "cpu", "--shards_dir",
-                  shards, "--model", "TT_FHE_SMALL"])
+                  shards, "--stability_eps", "0.1", *VGG])
