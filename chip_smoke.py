@@ -14,9 +14,12 @@ compile) and in training; the v2 variant at full width (eval, serve,
 train; its k=1 blocks through the fused kernel at ci = 32); the TT_FHE
 family at full width on 32x32 inputs as conv, tables and circuit (eval,
 serve, compile) and in training, the noisy ``TT_FHE_small`` among them;
-and the v1 family's ``TT_vf_19lv2_imgnet`` at full width (eval, serve,
-train) with one forward of each other v1 model.  It holds every CUDA kernel against its plain
-PyTorch version.  Phases, each printing one line of its numbers:
+the v1 family's ``TT_vf_19lv2_imgnet`` at full width (eval, serve,
+train) with one forward of each other v1 model; and the rest of the
+registry's families at their widths (TT_general, the CIFAR zoo with
+``tt_certif``, the DoReFa ResNets: eval, serve, train).  It holds every
+CUDA kernel against its plain PyTorch version.  Phases, each printing
+one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together);
            ptxas's registers, spills and shared memory for every
@@ -151,7 +154,7 @@ PyTorch version.  Phases, each printing one line of its numbers:
            (the Bi-Real stem's ``alpha_a`` and ``beta_a`` get non-zero
            gradients); (c) one f32 step on the card and on the CPU from
            the same weights, batch and coin flips (drawn on the CPU), in
-           the bounds of the flagship's (phase 15 (a));
+           the bounds of the flagship's (phase 18 (a));
 14. v1:    ``TT_vf_19lv2_imgnet`` at full width (p = 64, 224²), BN
            statistics perturbed: (a) forward ms at B = 256 and B = 1 and
            the device time by kernel (``profile_v1``); (b) ``main --mode
@@ -161,7 +164,39 @@ PyTorch version.  Phases, each printing one line of its numbers:
            at B = 256 (128 if 256 does not fit; the line says which): ms
            and peak memory; (e) each of the other nine v1 stage tables
            gives finite (16, 1000) logits from one forward at full width;
-15. train: (a) one f32 step of the flagship at B=256, no augmentation, on
+15. general: ``TT_general`` at full width (p = 64, ``--layers 18``,
+           224²), its BNs set to the first batch's statistics and its
+           Linear standardized over it: (a) forward ms at B = 256 and 1
+           and the device time by kernel; (b) ``main --mode eval`` over
+           2,560 seeded images labelled by its forward, top-1 >= 99.9 %;
+           (c) five served requests, top-5 equal to the direct forward's;
+           (d) three f32 train steps (B = 128 where 256 does not fit; the
+           line says which); (e) ``TT_general_big``, ``TT_general_8`` and
+           ``TT_general_correctBN`` give finite logits at B = 16;
+16. cifar_zoo: each CIFAR-zoo model at its registry width (32², B =
+           256; ``CIFAR_ZOO``), BNs calibrated as in 15: forward ms;
+           ``main --mode eval`` over 2,560 self-labelled images (top-1 >=
+           99.9 %; ``tt_certif``: two evals from one ``--seed`` equal);
+           eight served requests (top-5 equal to the direct forward's up
+           to tied logits; ``tt_certif``: five distinct classes); ``main
+           --mode train`` over 2,560 seeded 32² shards (step ms, img/s,
+           idle share, peak memory); ten steps on a batch of 32, the loss
+           falling (``OVERFIT_LR``); ``model_general`` and ``tt_certif``
+           one f32 step card vs CPU in the bounds of 18 (a);
+17. resnet: ``resnet50`` with 4-bit weights and activations (224²): (a)
+           forward ms at B = 256 and 1 and the device time by kernel; (b)
+           ``main --mode eval`` over 2,560 self-labelled images (top-1 >=
+           99.9 %), with ``--fuse_quant`` and ``--fold_bn`` (recorded), and
+           the transforms' top-1 agreement with the unfolded forward in
+           f32 (recorded) and in f64 (``--fuse_quant``, and ``--fold_bn``
+           at wbit 32, where it is exact: >= 99 %); (c) three f32 train
+           steps; (d) ``resnet18_cifar``: eval over 2,560 self-labelled
+           32² images, ten steps on a batch of 32; (e) the other eight
+           ResNets give finite logits at B = 16.  Phases 15-17 launch no
+           port kernel: each counts from 0 over all of its work (the
+           runs' own resets carried into the total, ``phase_launches``),
+           checked, and added to every kernel's line;
+18. train: (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -174,7 +209,7 @@ PyTorch version.  Phases, each printing one line of its numbers:
            memory, first and last loss, validation top-1, no launch of the
            port's kernels; (d) a resume from the recipe run's ``last``
            checkpoint continues at step 11 with a finite loss;
-16. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
+19. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -230,6 +265,34 @@ V1_NAME = "TT_vf_19lv2_imgnet"     # the reference's "BEST" v1 model
 V1_EVAL_IMAGES = 2560              # 10 batches of B = 256
 V1_TRAIN_STEPS = 3
 TRAIN_IMAGES = 2560                # 10 steps of B = 256 an epoch
+GENERAL_NAME = "TT_general"        # p = 64, --layers 18, 224x224
+GENERAL_OTHERS = ("TT_general_big", "TT_general_8", "TT_general_correctBN")
+ZOO_EVAL_IMAGES = 2560             # 10 batches of B = 256 a model
+ZOO_TRAIN_IMAGES = 2560            # 10 steps of B = 256 a model
+ZOO_TRAIN_STEPS = 3
+# the CIFAR zoo at 32x32, each at its registry default width; the CLI
+# flags that give the two whose widths its defaults (--nfilter 8
+# --tfilter 8 --layers 1) miss their registry defaults
+CIFAR_ZOO = ("mobilenet_v2_tt", "mobilenet_v2_tt_small",
+             "mobilenet_v2_tt_small_n64", "mobilenet_v2_tt_small_n64bis",
+             "mobilenet_v2_tt_32_64", "mobilenet_v2_tt_32_32",
+             "mobilenet_v1_tt", "model_general", "cifar10lownoise",
+             "TT_general_correctBN_cifar", "tt_certif")
+ZOO_CLI_WIDTH = {"TT_general_correctBN_cifar": ["--tfilter", "6",
+                                                "--layers", "18"],
+                 "tt_certif": ["--tfilter", "6"]}
+# ten steps on one batch of 32: the SGD rate a model's loss falls at in
+# ten steps; 0.1 unless listed (``tt_certif``'s float head over 23,232
+# binary inputs diverges at 0.1 and at 0.01 in both packages; the TT_50
+# pair's loss stayed near ln 10 at 0.1 and B = 256, with steps at 0.1
+# equal to JAX's in f64, ``tests/test_torch_mobilenet_train.py``)
+OVERFIT_BATCH = 32
+OVERFIT_LR = {"mobilenet_v2_tt_32_64": 0.01, "mobilenet_v2_tt_32_32": 0.01,
+              "tt_certif": 1e-3}
+RESNET_NAME = "resnet50"
+RESNET_OTHERS = ("resnet18", "resnet34", "resnet101", "resnet152",
+                 "resnet34_cifar", "resnet50_cifar", "resnet101_cifar",
+                 "resnet152_cifar")
 # one f32 step of the flagship, card against CPU (PERF.md states these):
 # relative loss gap, cosine of the parameter updates, flipped Heavisides
 TRAIN_LOSS_GAP = 1e-3
@@ -622,6 +685,51 @@ def fused_kernels_phase(model, x, out_dir: Path) -> list:
     return rows
 
 
+def kernel_launches() -> dict:
+    """The port's kernel launch counts since their last reset."""
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+
+    return {"fused_pointwise_block": FB.fused_pointwise_block.launches,
+            "lut_window_bits": K.lut_window_bits.launches,
+            "lut_window_float": K.lut_window_float.launches,
+            "gate_cubes": GC.gate_cubes.launches}
+
+
+# the launches that ``reset_kernel_launches`` cleared since
+# ``start_phase_launches``: a phase's runs each set the counts to 0 just
+# before they start, and the phase's own total still covers all of them
+_CLEARED: dict = {}
+
+
+def reset_kernel_launches() -> None:
+    """Set every kernel's launch count to 0, adding what it held to the
+    running phase total (``phase_launches``)."""
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+
+    for name, n in kernel_launches().items():
+        _CLEARED[name] = _CLEARED.get(name, 0) + n
+    K.reset_launches()
+    FB.reset_launches()
+    GC.reset_launches()
+
+
+def start_phase_launches() -> None:
+    """Every count and the phase total set to 0, just before a phase."""
+    reset_kernel_launches()
+    _CLEARED.clear()
+
+
+def phase_launches() -> dict:
+    """Every launch since ``start_phase_launches``, whatever the phase's
+    runs reset in between."""
+    return {name: _CLEARED.get(name, 0) + n
+            for name, n in kernel_launches().items()}
+
+
 def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
     """``main --mode eval`` (``argv``, over ``images`` images) with the
     fused switch set: top-1/5, loss, img/s over the eval loop, the device's
@@ -630,9 +738,6 @@ def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from scale_imagenet_tpu_torch import main as cli
-    from scale_imagenet_tpu_torch.kernels import fused_block as FB
-    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
-    from scale_imagenet_tpu_torch.kernels import lut_gather as K
 
     stats = {}
     real_evaluate = cli.evaluate
@@ -647,9 +752,7 @@ def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
         stats["busy_s"] = busy_ns(device_spans(prof)) / 1e9
         return res
 
-    K.reset_launches()
-    FB.reset_launches()
-    GC.reset_launches()
+    reset_kernel_launches()
     t = time.perf_counter()
     with mock.patch.object(cli, "evaluate", timed), fused_blocks(fused):
         top1, top5, loss = cli.main(argv)
@@ -658,11 +761,7 @@ def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
             "img_s": images / stats["wall_s"], "eval_s": stats["wall_s"],
             "device_idle_share": 1 - stats["busy_s"] / stats["wall_s"],
             "run_s": time.perf_counter() - t,
-            "launches": {"fused_pointwise_block":
-                         FB.fused_pointwise_block.launches,
-                         "lut_window_bits": K.lut_window_bits.launches,
-                         "lut_window_float": K.lut_window_float.launches,
-                         "gate_cubes": GC.gate_cubes.launches}}
+            "launches": kernel_launches()}
 
 
 def eval_phase(args, model, out_dir: Path) -> dict:
@@ -1024,8 +1123,8 @@ def heaviside_outputs(sink: list):
     """Every Heaviside output of the forwards run inside, appended to
     ``sink`` as a bool tensor on its device (the stem's, each Block_TT's,
     each pooled head 4's; the dead-zone ones of ``TT_FHE_small`` too)."""
-    from scale_imagenet_tpu_torch.models import tt_fhe, ttnet_imagenet, \
-        ttnet_imagenet_v1
+    from scale_imagenet_tpu_torch.models import tt_fhe, ttnet_cifar, \
+        ttnet_general_float, ttnet_imagenet, ttnet_imagenet_v1
     from scale_imagenet_tpu_torch.ops import binarize
 
     def recorder(real):
@@ -1042,7 +1141,9 @@ def heaviside_outputs(sink: list):
                               recorder(binarize.heaviside01_noisy)), \
             mock.patch.object(ttnet_imagenet, "heaviside01", rec), \
             mock.patch.object(tt_fhe, "heaviside01", rec), \
-            mock.patch.object(ttnet_imagenet_v1, "heaviside01", rec):
+            mock.patch.object(ttnet_imagenet_v1, "heaviside01", rec), \
+            mock.patch.object(ttnet_cifar, "heaviside01", rec), \
+            mock.patch.object(ttnet_general_float, "heaviside01", rec):
         yield
 
 
@@ -1072,7 +1173,7 @@ def card_cpu_step(model, x, y, noise=None) -> dict:
     cpu_model = copy.deepcopy(model).cpu()
     start = [p.detach().cpu().clone() for p in model.parameters()]
     card_bits, cpu_bits = [], []
-    FB.reset_launches()
+    reset_kernel_launches()
     with fused_blocks(True):
         card_loss = one_train_step(model, x.cuda(), y.cuda(), card_bits,
                                    noise)
@@ -1100,7 +1201,7 @@ def card_cpu_step(model, x, y, noise=None) -> dict:
 
 
 def step_parity(model, B: int, seed: int) -> dict:
-    """15(a): ``card_cpu_step`` of the seeded flagship without
+    """18(a): ``card_cpu_step`` of the seeded flagship without
     augmentation, on a seeded batch."""
     gen = torch.Generator().manual_seed(seed + 5)
     x = torch.randn((B, 224, 224, 3), generator=gen)
@@ -1159,7 +1260,7 @@ class StepTimer:
 
 
 def train_phase(args, model, out_dir: Path) -> dict:
-    """15(a)-(d): the step against the CPU, an overfit check on one batch,
+    """18(a)-(d): the step against the CPU, an overfit check on one batch,
     ``main --mode train`` from seeded 256x256 pre-crop shards (f32, then
     the README's recipe), and a resume from the recipe's ``last``
     checkpoint."""
@@ -2244,26 +2345,68 @@ def fhe_phase(args, out_dir: Path) -> dict:
     return {"models": results, **cases}
 
 
+def cpu_drawn_key(seed: int):
+    """A ``NoiseKey`` whose coin flips are drawn on the CPU and moved to the
+    input's device, so that a step on the card and one on the CPU see the
+    same flips (the card's generator draws other bits than the CPU's)."""
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+
+    class CpuDrawnKey(NoiseKey):
+        def draw(self, x: torch.Tensor) -> torch.Tensor:
+            return super().draw(torch.empty(x.shape, dtype=x.dtype)).to(
+                x.device)
+
+    return CpuDrawnKey(seed)
+
+
+def main_train(argv: list, steps: int, batch: int, what: str) -> dict:
+    """``main --mode train`` (``argv``, one epoch of ``steps`` steps at
+    ``batch``): ms a step and img/s over steps 2.., the idle share over
+    them, peak device memory, the first and last loss and the port's
+    kernel launches of the run (the counts set to 0 just before it)."""
+    from scale_imagenet_tpu_torch import main as cli
+
+    timer = StepTimer(steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_kernel_launches()
+    real_make = cli.make_train_step
+    t = time.perf_counter()
+    with mock.patch.object(
+            cli, "make_train_step",
+            lambda *a, **k: timer.wrap(real_make(*a, **k))), \
+            torch.enable_grad():
+        summary = cli.main(argv)
+    torch.cuda.synchronize()
+    losses = [float(v) for v in timer.losses]
+    wall = timer.t1 - timer.t0
+    run = {"steps": timer.calls, "timed_steps": steps - 1,
+           "step_ms": wall * 1e3 / (steps - 1),
+           "train_img_s": (steps - 1) * batch / wall,
+           "device_idle_share": 1 - timer.busy_s / wall,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "resident_before_gb": resident / 1e9,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "run_s": time.perf_counter() - t,
+           "launches": kernel_launches()}
+    check(timer.calls == steps and summary["step"] == steps,
+          f"{what} train: {timer.calls} steps, expected {steps}")
+    check(all(np.isfinite(losses)), f"{what} train losses {losses}")
+    check(not any(run["launches"].values()),
+          f"{what} train launched {run['launches']}")
+    return run
+
+
 def fhe_train_phase(args, out_dir: Path) -> dict:
     """Training of the TT_FHE family at full width (module docstring,
     phase 13)."""
-    from scale_imagenet_tpu_torch import main as cli
     from scale_imagenet_tpu_torch.data import ArrayDataset, write_shards
-    from scale_imagenet_tpu_torch.kernels import fused_block as FB
-    from scale_imagenet_tpu_torch.kernels import lut_gather as K
     from scale_imagenet_tpu_torch.models import get_model
     from scale_imagenet_tpu_torch.ops import NoiseKey
     from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
         make_train_step
-
-    class CpuDrawnKey(NoiseKey):
-        """Coin flips drawn on the CPU and moved to the input's device, so
-        that a step on the card and one on the CPU see the same flips (the
-        card's generator draws other bits than the CPU's)."""
-
-        def draw(self, x: torch.Tensor) -> torch.Tensor:
-            return super().draw(torch.empty(x.shape, dtype=x.dtype)).to(
-                x.device)
 
     B, n = args.batch, FHE_TRAIN_IMAGES
     work = Path("build") / "chip_smoke_fhe_train"
@@ -2278,47 +2421,16 @@ def fhe_train_phase(args, out_dir: Path) -> dict:
     gen = torch.Generator().manual_seed(args.seed + 51)
     x = torch.randn((B, 32, 32, 3), generator=gen)
     y = torch.randint(0, 10, (B,), generator=gen)
-    real_make = cli.make_train_step
     results = {}
     for name in FHE_NAMES:
         md = get_model(name)
         # (a) main --mode train, one epoch from the 32x32 shards (the flip
         # on the card)
-        timer = StepTimer(steps)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        K.reset_launches()
-        FB.reset_launches()
-        t = time.perf_counter()
-        with mock.patch.object(
-                cli, "make_train_step",
-                lambda *a, **k: timer.wrap(real_make(*a, **k))):
-            summary = cli.main(["--mode", "train", "--model", name,
-                                "--shards_dir", str(work / "shards"),
-                                "--train_batch_size", str(B), "--seed",
-                                str(args.seed), "--root_dir",
-                                str(work / name), "--max_epochs", "1"])
-        torch.cuda.synchronize()
-        losses = [float(v) for v in timer.losses]
-        wall = timer.t1 - timer.t0
-        run = {"steps": timer.calls, "timed_steps": steps - 1,
-               "step_ms": wall * 1e3 / (steps - 1),
-               "train_img_s": (steps - 1) * B / wall,
-               "device_idle_share": 1 - timer.busy_s / wall,
-               "max_memory_allocated_gb":
-                   torch.cuda.max_memory_allocated() / 1e9,
-               "resident_before_gb": resident / 1e9,
-               "first_loss": losses[0], "last_loss": losses[-1],
-               "run_s": time.perf_counter() - t,
-               "launches": {"fused_pointwise_block":
-                            FB.fused_pointwise_block.launches,
-                            "lut_window_bits": K.lut_window_bits.launches}}
-        check(timer.calls == steps and summary["step"] == steps,
-              f"{name} train: {timer.calls} steps, expected {steps}")
-        check(all(np.isfinite(losses)), f"{name} train losses {losses}")
-        check(not any(run["launches"].values()),
-              f"{name} train launched {run['launches']}")
+        run = main_train(["--mode", "train", "--model", name,
+                          "--shards_dir", str(work / "shards"),
+                          "--train_batch_size", str(B), "--seed",
+                          str(args.seed), "--root_dir", str(work / name),
+                          "--max_epochs", "1"], steps, B, name)
         # (b) ten steps on one batch lower the loss; the Bi-Real stem's
         # alpha and beta get gradients
         model = md.init(seed=args.seed, device="cuda")
@@ -2348,7 +2460,7 @@ def fhe_train_phase(args, out_dir: Path) -> dict:
         # batch and flips
         parity = card_cpu_step(
             md.init(seed=args.seed, device="cuda"), x, y,
-            CpuDrawnKey(args.seed + 52) if md.stochastic else None)
+            cpu_drawn_key(args.seed + 52) if md.stochastic else None)
         check_parity(parity, f"{name} step")
         results[name] = {"train": run, "overfit": overfit,
                          "stem_grads": stem_grads, "parity": parity}
@@ -2360,14 +2472,86 @@ def fhe_train_phase(args, out_dir: Path) -> dict:
     return results
 
 
+def calibrate_bns(apply, x: torch.Tensor) -> None:
+    """Every BN's running statistics (stock and ``StatsBN`` alike) set to
+    the batch statistics of one training-mode forward ``apply(x, stats)``:
+    with the init's statistics the 2-bit quantizers of a random network
+    saturate and every image gets one label.  Both kinds return ``0.9 *
+    running + 0.1 * batch``, which is inverted here."""
+    stats: dict = {}
+    apply(x, stats)
+    for bn, (mean, var) in stats.items():
+        bn.running_mean.copy_((mean - 0.9 * bn.running_mean) / 0.1)
+        bn.running_var.copy_(((var - 0.9 * bn.running_var) / 0.1)
+                             .clamp(min=0.0))
+
+
+def standardize_fc(fc, z: torch.Tensor) -> None:
+    """Scale and shift a Linear's rows so that its logits ``z`` over a batch
+    have mean 0 and standard deviation 1 per class, so that labels spread
+    over the classes."""
+    std = z.std(0)
+    spread = std > 1e-3           # a class whose logit varies at all
+    scale = torch.where(spread, 1.0 / std, torch.ones_like(std))
+    fc.weight.mul_(scale[:, None])
+    fc.bias.sub_(torch.where(spread, z.mean(0), torch.zeros_like(std)))
+    fc.bias.mul_(scale)
+
+
+def fit_train_steps(model, xt, yt, steps: int, what: str) -> dict:
+    """``steps`` f32 train steps of a copy of ``model`` at the batch of
+    ``xt`` (half of it where that does not fit in the card's memory): the
+    batch that ran, ms a step over steps 2.., peak device memory."""
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    B = len(xt)
+    for tb in (B, B // 2):
+        opt, _ = make_optimizer(0.1)
+        net = copy.deepcopy(model)
+        ts = TrainState(net, opt.init(dict(net.named_parameters())))
+        step = make_train_step(net, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, oom = [], False
+        try:
+            with torch.enable_grad():
+                ts, m = step(ts, xt[:tb], yt[:tb])
+                losses.append(m["loss"])
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(steps - 1):
+                    ts, m = step(ts, xt[:tb], yt[:tb])
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+        if oom:
+            # outside the handler, so that its traceback frees the tensors
+            del net, ts, step, opt, losses
+            torch.cuda.empty_cache()
+            continue
+        step_ms = (time.perf_counter() - t) * 1e3 / (steps - 1)
+        train = {"batch": tb, "fits_b256": tb == B, "steps": steps,
+                 "losses": [float(v) for v in losses], "step_ms": step_ms,
+                 "train_img_s": tb / step_ms * 1e3,
+                 "max_memory_allocated_gb":
+                     torch.cuda.max_memory_allocated() / 1e9}
+        del net, ts, step, opt
+        torch.cuda.empty_cache()
+        check(all(np.isfinite(train["losses"])),
+              f"{what} train {train['losses']}")
+        return train
+    fail(f"{what} training fits neither B={B} nor {B // 2}")
+
+
 def v1_phase(args, out_dir: Path) -> dict:
     """The v1 ImageNet family at full width (module docstring, phase 14)."""
     from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
     from scale_imagenet_tpu_torch.models import get_model
     from scale_imagenet_tpu_torch.models.ttnet_imagenet_v1 import \
         V1_STAGES, ttnet_v1_apply
-    from scale_imagenet_tpu_torch.train import TrainState, \
-        make_input_pipeline, make_optimizer, make_train_step
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
 
     B, n = args.batch, V1_EVAL_IMAGES
     work = Path("build") / "chip_smoke_v1"
@@ -2406,20 +2590,8 @@ def v1_phase(args, out_dir: Path) -> dict:
         0, 256, (n, 224, 224, 3), dtype=np.uint8)
     prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
     first = prepare(torch.from_numpy(imgs[:B]).cuda())
-    stats: dict = {}
-    ttnet_v1_apply(model, first, stats)
-    for bn, (mean, var) in stats.items():
-        # ``stats`` holds 0.9 * running + 0.1 * batch
-        bn.running_mean.copy_((mean - 0.9 * bn.running_mean) / 0.1)
-        bn.running_var.copy_(((var - 0.9 * bn.running_var) / 0.1)
-                             .clamp(min=0.0))
-    z = ttnet_v1_apply(model, first)
-    std = z.std(0)
-    spread = std > 1e-3           # a class whose logit varies at all
-    scale = torch.where(spread, 1.0 / std, torch.ones_like(std))
-    model.fc.weight.mul_(scale[:, None])
-    model.fc.bias.sub_(torch.where(spread, z.mean(0), torch.zeros_like(std)))
-    model.fc.bias.mul_(scale)
+    calibrate_bns(lambda xb, st: ttnet_v1_apply(model, xb, st), first)
+    standardize_fc(model.fc, ttnet_v1_apply(model, first))
     labels = self_labelled_shards(lambda xb: ttnet_v1_apply(model, xb), imgs,
                                   B, work / "shards")
     del imgs
@@ -2452,43 +2624,8 @@ def v1_phase(args, out_dir: Path) -> dict:
     # peak device memory
     yt = torch.randint(0, 1000, (B,), generator=gen).to(dev)
     xt = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
-    train = None
-    for tb in (B, B // 2):
-        opt, _ = make_optimizer(0.1)
-        net = copy.deepcopy(model)
-        ts = TrainState(net, opt.init(dict(net.named_parameters())))
-        step = make_train_step(net, opt)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, oom = [], False
-        try:
-            with torch.enable_grad():
-                ts, m = step(ts, xt[:tb], yt[:tb])
-                losses.append(m["loss"])
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                for _ in range(V1_TRAIN_STEPS - 1):
-                    ts, m = step(ts, xt[:tb], yt[:tb])
-                    losses.append(m["loss"])
-                torch.cuda.synchronize()
-        except torch.cuda.OutOfMemoryError:
-            oom = True
-        if oom:
-            # outside the handler, so that its traceback frees the tensors
-            del net, ts, step, opt, losses
-            torch.cuda.empty_cache()
-            continue
-        step_ms = (time.perf_counter() - t) * 1e3 / (V1_TRAIN_STEPS - 1)
-        train = {"batch": tb, "fits_b256": tb == B, "steps": V1_TRAIN_STEPS,
-                 "losses": [float(v) for v in losses], "step_ms": step_ms,
-                 "train_img_s": tb / step_ms * 1e3,
-                 "max_memory_allocated_gb":
-                     torch.cuda.max_memory_allocated() / 1e9}
-        del net, ts, step, opt
-        break
-    check(train is not None, f"v1 training fits neither B={B} nor {B // 2}")
+    train = fit_train_steps(model, xt, yt, V1_TRAIN_STEPS, "v1")
     emit("v1_train", **train)
-    check(all(np.isfinite(train["losses"])), f"v1 train {train['losses']}")
     del xt, yt
     torch.cuda.empty_cache()
 
@@ -2514,21 +2651,431 @@ def v1_phase(args, out_dir: Path) -> dict:
             "train": train, "others": others}
 
 
+def overfit_steps(model, x, y, noise_root=None, lr: float = 0.1,
+                  steps: int = 10) -> list:
+    """``steps`` f32 steps (SGD at ``lr``) on one batch: the losses, whose
+    last three must average below the first (a stochastic model's flips
+    keyed by the step)."""
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    opt, _ = make_optimizer(lr)
+    ts = TrainState(model, opt.init(dict(model.named_parameters())))
+    step = make_train_step(model, opt)
+    losses = []
+    with torch.enable_grad():
+        for i in range(steps):
+            ts, m = step(ts, x, y, noise=None if noise_root is None
+                         else noise_root.child(i))
+            losses.append(m["loss"])
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0],
+          f"ten steps on one batch did not lower the loss: {losses}")
+    return losses
+
+
+def zoo_model(name: str, seed: int, x: torch.Tensor, **kw):
+    """``name`` at its registry default width (``kw`` added) from ``seed``
+    on the card, its BNs set to ``x``'s statistics and a float Linear head
+    standardized over it (``calibrate_bns``, ``standardize_fc``): ``(md,
+    model, apply)``, ``apply(x)`` its forward (a stochastic one keyed by a
+    fresh child of ``NoiseKey(seed)`` a call, as ``main`` keys it)."""
+    import itertools
+
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+
+    md = get_model(name, **kw)
+    model = md.init(seed=seed, device="cuda")
+    keys = NoiseKey(seed + 1).child if md.stochastic else None
+    calls = itertools.count()
+
+    def apply(xb, stats=None):
+        if keys is None:
+            return model(xb, stats)
+        return model(xb, stats, noise=keys(next(calls)))
+
+    calibrate_bns(apply, x)
+    fc = getattr(model, "fc2", getattr(model, "fc", None))
+    if isinstance(fc, torch.nn.Linear) and fc.bias is not None and \
+            name.startswith(("TT_", "mobilenet", "tt_")):
+        standardize_fc(fc, apply(x))
+    return md, model, apply
+
+
+def self_labelled_eval(name: str, argv: list, apply, imgs: np.ndarray,
+                       work: Path, model, stochastic: bool, seed: int):
+    """Shards of ``imgs`` labelled by ``apply``, the model's weights saved,
+    then ``main --mode eval`` (``argv``) over them: its numbers, and the
+    labels' class count.  A stochastic model runs twice from one
+    ``--seed``, whose metrics must be equal; the others must reach top-1
+    >= 99.9 % (the same function)."""
+    B = 256
+    labels = self_labelled_shards(apply, imgs, B, work / "shards")
+    weights = work / "weights.pth"
+    torch.save(model.state_dict(), weights)
+    base = ["--mode", "eval", "--model", name, *argv, "--shards_dir",
+            str(work / "shards"), "--eval_batch_size", str(B), "--ckpt",
+            str(weights), "--seed", str(seed), "--root_dir",
+            str(work / "logs")]
+    ev = main_eval(base, False, images=len(imgs))
+    ev["classes_hit"] = int(np.unique(labels).size)
+    check(not any(ev["launches"].values()),
+          f"{name} eval launched {ev['launches']}")
+    if stochastic:
+        again = main_eval(base, False, images=len(imgs))
+        same = all(ev[k] == again[k] for k in ("top1", "top5", "loss"))
+        ev["repeat"] = {k: again[k] for k in ("top1", "top5", "loss",
+                                               "img_s")}
+        check(same, f"{name}: two evals from one --seed differ: {ev} "
+                    f"{again}")
+    else:
+        check(ev["top1"] >= 99.9, f"{name} eval top-1 {ev['top1']} < 99.9")
+    return ev, weights
+
+
+def served_top5(name: str, argv: list, weights: Path, model, apply,
+                reqs: torch.Tensor, stochastic: bool) -> dict:
+    """``main --mode serve``: each answer's top-5 equal to a direct forward's
+    at the server's batch, up to the order of tied logits (the binarized
+    heads of ``model_general`` and ``cifar10lownoise`` round theirs to
+    integers), or, for a stochastic model, five distinct classes (its
+    flips differ a batch)."""
+    answers, health, launches = serve_requests(
+        ["--model", name, *argv, "--ckpt", str(weights)], reqs,
+        batch=len(reqs))
+    got = [a["top5"] for a in answers]
+    if stochastic:
+        classes = model.cfg.num_classes
+        ok = all(len(t) == 5 and len(set(t)) == 5
+                 and all(0 <= k < classes for k in t) for t in got)
+        agree = None
+    else:
+        logits = apply(reqs.cuda()).float().cpu()
+        top = torch.topk(logits, 5)
+        agree = sum(a == d for a, d in zip(got, top.indices.tolist()))
+        # the logits of the served classes are the direct top-5's
+        ok = all(torch.equal(logits[i, t], top.values[i])
+                 for i, t in enumerate(got))
+    check(ok, f"{name} serve: answers {got}")
+    check(not any(launches.values()), f"{name} serve launched {launches}")
+    return {"requests": len(got), "top5_equal": agree, "healthz": health,
+            "launches": launches}
+
+
+def general_phase(args, out_dir: Path) -> dict:
+    """The TT_general float family at full width (module docstring,
+    phase 15)."""
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    B, n = args.batch, ZOO_EVAL_IMAGES
+    work = Path("build") / "chip_smoke_general"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    start_phase_launches()
+    dev = torch.device("cuda")
+    imgs = np.random.default_rng(args.seed + 70).integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    first = prepare(torch.from_numpy(imgs[:B]).cuda())
+    md, model, apply = zoo_model(GENERAL_NAME, args.seed, first, layers=18)
+
+    # (a) the forward at B and at 1, and where its device time goes
+    gen = torch.Generator().manual_seed(args.seed + 71)
+    x = torch.rand((B, 224, 224, 3), generator=gen).to(dev)
+    out = apply(x)
+    check(out.shape == (B, 1000) and bool(torch.isfinite(out).all()),
+          "TT_general logits non-finite or misshapen")
+    x1 = x[:1].contiguous()
+    fwd = {"b256_ms": wall_ms(lambda: apply(x), 5),
+           "b1_ms": wall_ms(lambda: apply(x1), 20)}
+    fwd["b256_img_s"] = B / fwd["b256_ms"] * 1e3
+    emit("general_model", model=GENERAL_NAME, batch=B,
+         fcsize=md.config.fcsize,
+         params=sum(p.numel() for p in model.parameters()),
+         blocks=[[b.in_planes, b.out_planes, b.stride]
+                 for b in md.config.block_configs()], **fwd)
+    convs = profile_forward("general", lambda: apply(x), B, out_dir)
+    del out
+
+    # (b) main --mode eval over shards labelled by its own forward
+    argv = ["--layers", "18"]
+    ev, weights = self_labelled_eval(GENERAL_NAME, argv, apply, imgs, work,
+                                     model, False, args.seed)
+    del imgs
+    emit("general_eval", images=n, convolutions_per_forward=convs, **ev)
+
+    # (c) main --mode serve, five requests
+    reqs = torch.rand((5, 224, 224, 3), generator=gen)
+    serve = served_top5(GENERAL_NAME, argv, weights, model, apply, reqs,
+                        False)
+    emit("general_serve", **serve)
+
+    # (d) three f32 train steps at B (B / 2 if B does not fit)
+    yt = torch.randint(0, 1000, (B,), generator=gen).to(dev)
+    xt = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
+    train = fit_train_steps(model, xt, yt, ZOO_TRAIN_STEPS, GENERAL_NAME)
+    emit("general_train", **train)
+    del xt, yt, model
+    torch.cuda.empty_cache()
+
+    # (e) the other variants at their default widths: one B = 16 forward
+    others, x16 = {}, x[:16]
+    for name in GENERAL_OTHERS:
+        m = get_model(name).init(seed=args.seed, device=dev)
+        out = m(x16)
+        torch.cuda.synchronize()
+        others[name] = {"shape": list(out.shape),
+                        "finite": bool(torch.isfinite(out).all()),
+                        "p": m.cfg.p, "fcsize": m.cfg.fcsize,
+                        "params": sum(q.numel() for q in m.parameters())}
+        check(others[name]["shape"] == [len(x16), m.cfg.num_classes]
+              and others[name]["finite"], f"{name}: logits {others[name]}")
+        del m, out
+    launches = phase_launches()
+    emit("general_others", batch=len(x16), models=others,
+         phase_launches=launches)
+    check(not any(launches.values()), f"general phase launched {launches}")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {"model": fwd, "eval": ev, "serve": serve, "train": train,
+            "others": others, "launches": launches}
+
+
+def cifar_zoo_phase(args, out_dir: Path) -> dict:
+    """The CIFAR zoo at 32x32 (module docstring, phase 16)."""
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, write_shards
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    B, n = args.batch, ZOO_EVAL_IMAGES
+    work = Path("build") / "chip_smoke_cifar_zoo"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    start_phase_launches()
+    rng = np.random.default_rng(args.seed + 80)
+    imgs = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    write_shards(ArrayDataset(
+        rng.integers(0, 256, (ZOO_TRAIN_IMAGES, 32, 32, 3), dtype=np.uint8),
+        rng.integers(0, 10, ZOO_TRAIN_IMAGES).astype(np.int32)),
+        str(work / "train"), shard_size=B)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    first = prepare(torch.from_numpy(imgs[:B]).cuda())
+    gen = torch.Generator().manual_seed(args.seed + 81)
+    x = torch.rand((B, 32, 32, 3), generator=gen).cuda()
+    xt = torch.randn((B, 32, 32, 3), generator=gen)
+    yt = torch.randint(0, 10, (B,), generator=gen)
+    reqs = torch.rand((8, 32, 32, 3), generator=gen)
+    steps = ZOO_TRAIN_IMAGES // B
+    results = {}
+    for name in CIFAR_ZOO:
+        mwork = work / name
+        mwork.mkdir()
+        argv = ZOO_CLI_WIDTH.get(name, [])
+        md, model, apply = zoo_model(name, args.seed, first)
+        # (a) the forward at B
+        out = apply(x)
+        check(out.shape == (B, 10) and bool(torch.isfinite(out).all()),
+              f"{name} logits non-finite or misshapen")
+        fwd_ms = wall_ms(lambda: apply(x), 10)
+        # (b) main --mode eval over self-labelled shards; (c) serve
+        ev, weights = self_labelled_eval(name, argv, apply, imgs, mwork,
+                                         model, md.stochastic, args.seed)
+        serve = served_top5(name, argv, weights, model, apply, reqs,
+                            md.stochastic)
+        # (d) main --mode train over the 32x32 shards
+        run = main_train(["--mode", "train", "--model", name, *argv,
+                          "--shards_dir", str(work / "train"),
+                          "--train_batch_size", str(B), "--seed",
+                          str(args.seed), "--root_dir", str(mwork / "run"),
+                          "--max_epochs", "1"], steps, B, name)
+        # (e) ten steps on one batch
+        root = NoiseKey(args.seed + 2) if md.stochastic else None
+        overfit = overfit_steps(md.init(seed=args.seed, device="cuda"),
+                                xt[:OVERFIT_BATCH].cuda(),
+                                yt[:OVERFIT_BATCH].cuda(), root,
+                                OVERFIT_LR.get(name, 0.1))
+        # (f) one f32 step, card against CPU, the same weights, batch and
+        # flips
+        parity = None
+        if name in ("model_general", "tt_certif"):
+            with torch.enable_grad():
+                parity = card_cpu_step(
+                    md.init(seed=args.seed, device="cuda"), xt, yt,
+                    cpu_drawn_key(args.seed + 3) if md.stochastic else None)
+            check_parity(parity, f"{name} step")
+        results[name] = {"forward_ms": fwd_ms, "eval": ev, "serve": serve,
+                         "train": run, "overfit": overfit,
+                         "parity": parity}
+        emit("cifar_zoo", model=name, batch=B, images=n,
+             params=sum(p.numel() for p in model.parameters()),
+             forward_b256_ms=fwd_ms, forward_img_s=B / fwd_ms * 1e3,
+             eval=ev, serve=serve, train=run, overfit_losses=overfit,
+             step_parity=parity)
+        del model, out
+        shutil.rmtree(mwork)
+        torch.cuda.empty_cache()
+    launches = phase_launches()
+    emit("cifar_zoo_launches", phase_launches=launches)
+    check(not any(launches.values()), f"cifar_zoo phase launched {launches}")
+    shutil.rmtree(work)
+    return {"models": results, "launches": launches}
+
+
+def resnet_phase(args, out_dir: Path) -> dict:
+    """The DoReFa ResNets (module docstring, phase 17)."""
+    from scale_imagenet_tpu_torch.convert.bn_fold import fold_model_bns
+    from scale_imagenet_tpu_torch.convert.fuse_quant import fuse_resnet
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    B, n = args.batch, ZOO_EVAL_IMAGES
+    work = Path("build") / "chip_smoke_resnet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    start_phase_launches()
+    dev = torch.device("cuda")
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    rng = np.random.default_rng(args.seed + 90)
+    imgs = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    first = prepare(torch.from_numpy(imgs[:B]).cuda())
+    bits = ["--model_arg", "wbit=4", "--model_arg", "abit=4"]
+    md, model, apply = zoo_model(RESNET_NAME, args.seed, first, wbit=4,
+                                 abit=4)
+
+    # (a) the forward at B and at 1, and where its device time goes
+    gen = torch.Generator().manual_seed(args.seed + 91)
+    x = torch.rand((B, 224, 224, 3), generator=gen).to(dev)
+    ref = apply(x)
+    check(ref.shape == (B, 1000) and bool(torch.isfinite(ref).all()),
+          "resnet50 logits non-finite or misshapen")
+    x1 = x[:1].contiguous()
+    fwd = {"b256_ms": wall_ms(lambda: apply(x), 5),
+           "b1_ms": wall_ms(lambda: apply(x1), 20)}
+    fwd["b256_img_s"] = B / fwd["b256_ms"] * 1e3
+    emit("resnet_model", model=RESNET_NAME, wbit=4, abit=4, batch=B,
+         params=sum(p.numel() for p in model.parameters()), **fwd)
+    convs = profile_forward("resnet50", lambda: apply(x), B, out_dir)
+
+    # (b) main --mode eval over self-labelled shards, plain (bounded),
+    # --fuse_quant and --fold_bn (recorded; the fold re-quantizes the
+    # folded weights at wbit < 32, as in the JAX package)
+    ev, weights = self_labelled_eval(RESNET_NAME, bits, apply, imgs, work,
+                                     model, False, args.seed)
+    del imgs
+    base = ["--mode", "eval", "--model", RESNET_NAME, *bits, "--shards_dir",
+            str(work / "shards"), "--eval_batch_size", str(B), "--ckpt",
+            str(weights), "--root_dir", str(work / "logs")]
+    ev_fuse = main_eval(base + ["--fuse_quant"], False, images=n)
+    ev_fold = main_eval(base + ["--fold_bn"], False, images=n)
+    # the transforms in-process against the unfolded forward at B.  In
+    # f32 the fold's rounding moves some conv outputs across a 4-bit
+    # activation step and the 53 quantized convs carry the change on, so
+    # the f32 agreement is recorded; the function itself is held in f64,
+    # where rounding crosses no step: fused quant at wbit 4, and the fold
+    # where it is exact (wbit 32)
+    agree = {}
+
+    def agreement(net, want, xb):
+        return float((net(xb).argmax(1) == want.argmax(1)).float().mean())
+
+    fused = copy.deepcopy(model)
+    fuse_resnet(fused)
+    agree["fuse_quant_w4_f32"] = agreement(fused, ref, x)
+    # the first batch of the eval's normalized shard images too
+    agree["fuse_quant_w4_f32_shards"] = agreement(fused, apply(first), first)
+    folded = copy.deepcopy(model)
+    fold_model_bns(folded)
+    agree["fold_bn_w4_f32"] = agreement(folded, ref, x)
+    del fused, folded
+    m64, x64, first64 = copy.deepcopy(model).double(), x.double(), \
+        first.double()
+    ref64 = m64(x64)
+    fused = copy.deepcopy(m64)
+    fuse_resnet(fused)
+    agree["fuse_quant_w4_f64"] = agreement(fused, ref64, x64)
+    agree["fuse_quant_w4_f64_shards"] = agreement(fused, m64(first64),
+                                                  first64)
+    del fused, first64
+    m64.cfg = dataclasses.replace(m64.cfg, wbit=32)
+    ref64 = m64(x64)
+    fold_model_bns(m64)
+    agree["fold_bn_w32_f64"] = agreement(m64, ref64, x64)
+    del m64, x64, ref64
+    torch.cuda.empty_cache()
+    emit("resnet_eval", images=n, convolutions_per_forward=convs, **ev,
+         fuse_quant=ev_fuse, fold_bn=ev_fold, top1_agreement=agree)
+    check(min(agree["fuse_quant_w4_f64"], agree["fuse_quant_w4_f64_shards"],
+              agree["fold_bn_w32_f64"]) >= 0.99,
+          f"resnet transforms' top-1 agreement {agree}")
+    for e in (ev_fuse, ev_fold):
+        check(not any(e["launches"].values()),
+              f"resnet eval launched {e['launches']}")
+
+    # (c) three f32 train steps at B (B / 2 if B does not fit)
+    yt = torch.randint(0, 1000, (B,), generator=gen).to(dev)
+    xt = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
+    train = fit_train_steps(model, xt, yt, ZOO_TRAIN_STEPS, RESNET_NAME)
+    emit("resnet_train", **train)
+    del xt, yt, model, ref
+    torch.cuda.empty_cache()
+
+    # (d) resnet18_cifar: eval over 32x32 self-labelled shards, ten steps
+    imgs32 = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    first32 = prepare(torch.from_numpy(imgs32[:B]).cuda())
+    cname = "resnet18_cifar"
+    cwork = work / cname
+    cwork.mkdir()
+    cmd, cmodel, capply = zoo_model(cname, args.seed, first32)
+    cev, _ = self_labelled_eval(cname, [], capply, imgs32, cwork, cmodel,
+                                False, args.seed)
+    overfit = overfit_steps(cmd.init(seed=args.seed, device="cuda"),
+                            first32[:OVERFIT_BATCH], torch.randint(
+                                0, 1000, (OVERFIT_BATCH,),
+                                generator=gen).cuda())
+    emit("resnet_cifar", model=cname, images=n, eval=cev,
+         forward_b256_ms=wall_ms(lambda: capply(first32), 10),
+         overfit_losses=overfit)
+    del cmodel, imgs32
+
+    # (e) the other eight names: built, one B = 16 forward each
+    others, x16 = {}, x[:16]
+    for name in RESNET_OTHERS:
+        m = get_model(name).init(seed=args.seed, device=dev)
+        side = 32 if name.endswith("_cifar") else 224
+        out = m(x16[:, :side, :side])
+        torch.cuda.synchronize()
+        others[name] = {"shape": list(out.shape),
+                        "finite": bool(torch.isfinite(out).all()),
+                        "params": sum(q.numel() for q in m.parameters())}
+        check(others[name]["shape"] == [len(x16), 1000]
+              and others[name]["finite"], f"{name}: logits {others[name]}")
+        del m, out
+    launches = phase_launches()
+    emit("resnet_others", batch=len(x16), models=others,
+         phase_launches=launches)
+    check(not any(launches.values()), f"resnet phase launched {launches}")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {"model": fwd, "eval": ev, "fuse_quant": ev_fuse,
+            "fold_bn": ev_fold, "agreement": agree, "train": train,
+            "cifar": cev, "others": others, "launches": launches}
+
+
 def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
     """``main --mode serve --serve_batch batch`` (and ``argv``) in a
     thread, one concurrent raw-f32 request an image of ``reqs``: the
     answers, ``/healthz`` and the port's kernel launches of the run (the
     counts set to 0 just before it)."""
     from scale_imagenet_tpu_torch import main as cli
-    from scale_imagenet_tpu_torch.kernels import fused_block as FB
-    from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
-    from scale_imagenet_tpu_torch.kernels import lut_gather as K
 
     ready, stop = threading.Event(), threading.Event()
     errors = []
-    K.reset_launches()
-    FB.reset_launches()
-    GC.reset_launches()
+    reset_kernel_launches()
 
     def run_server():
         try:
@@ -2558,11 +3105,7 @@ def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
     stop.set()
     th.join(60)
     check(not th.is_alive() and not errors, f"server stop: {errors}")
-    counts = {"fused_pointwise_block": FB.fused_pointwise_block.launches,
-              "lut_window_bits": K.lut_window_bits.launches,
-              "lut_window_float": K.lut_window_float.launches,
-              "gate_cubes": GC.gate_cubes.launches}
-    return answers, health, counts
+    return answers, health, kernel_launches()
 
 
 def main() -> int:
@@ -2774,6 +3317,14 @@ def run(args) -> int:
     v1_phase(args, out_dir)
     torch.cuda.synchronize()
 
+    # --------------------------------- TT_general, the CIFAR zoo, ResNets
+    zoo = {"general": general_phase(args, out_dir)}
+    torch.cuda.synchronize()
+    zoo["cifar_zoo"] = cifar_zoo_phase(args, out_dir)
+    torch.cuda.synchronize()
+    zoo["resnet"] = resnet_phase(args, out_dir)
+    torch.cuda.synchronize()
+
     # ------------------------------------------------------------ train
     with torch.enable_grad():
         train_phase(args, model, out_dir)
@@ -2907,6 +3458,12 @@ def run(args) -> int:
               more=[(p, [r for r in rs if not r["invert"]])
                     for p, rs in by_model(fhe["gates"])]),
     ]
+    # the zoo phases, each counted from 0 over the whole phase (every
+    # run, forward, calibration and step in it, ``phase_launches``): none
+    for line in kernels:
+        for phase, res in zoo.items():
+            line["launches_by_path"][phase] = res["launches"][line["name"]]
+            line["launches"] += res["launches"][line["name"]]
     # the cases under the serving transforms: bf16 x, folded biases
     fused_line = kernels[2]
     fused_line["max_abs_err"] = max(

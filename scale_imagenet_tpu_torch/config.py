@@ -4,7 +4,9 @@
 One process-wide ``numerics`` and one ``performance`` object, as in the JAX
 package.  The port has the fields of the paths it carries so far; the other
 numerics fields, ``fast_gelu`` and ``merge_heads12`` come with the paths
-that read them (``ROADMAP.md``).
+that read them (``ROADMAP.md``).  ``use_scalar_scale_last_layer`` and
+``remove_last_bn`` are fields of ``ModelGeneralConfig`` here, as the JAX
+package's models read them.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ class NumericsConfig:
     # backward; ``None`` selects the hardtanh mask surrogate instead
     # (the reference's ``g_bingrad_soft_tanh_scale``)
     bingrad_soft_tanh_scale: float | None = 1.0
+    # weight decay added to the gradient of the {0,1} and ternary weight
+    # binarizers (the reference's ``g_weight_decay``)
+    weight_decay: float = 1e-7
+    # std of the initial learned ``weight_mask`` (``g_weight_mask_std``)
+    weight_mask_std: float = 0.01
 
 
 numerics = NumericsConfig()

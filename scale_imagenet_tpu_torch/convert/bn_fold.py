@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..models.resnet import ResNetConfig
 from ..models.ttnet_imagenet import TTnetImageNetConfig
 
 # ``scale_imagenet_tpu/main.py:596-599``
@@ -62,10 +63,27 @@ def conv_bn_pairs_ttnet_imagenet(model) -> list:
     return pairs
 
 
+def conv_bn_pairs_resnet(model) -> list:
+    """The pairs ``--fold_bn`` folds in a DoReFa ResNet (``bn_fold.py:105``):
+    the stem and every block's ``conv{i}``/``bn{i}``; the downsample pair
+    stays unfolded, as in the JAX package.  A folded conv's weight is
+    quantized again at ``wbit < 32``, which changes the function: that is
+    ``--fuse_quant``'s case (``convert/fuse_quant.py``)."""
+    pairs = [(model.conv1, model.bn1)]
+    for name in model.block_names:
+        block = getattr(model, name)
+        pairs += [(getattr(block, f"conv{i}"), getattr(block, f"bn{i}"))
+                  for i in range(1, 4) if hasattr(block, f"conv{i}")]
+    return pairs
+
+
 def fold_model_bns(model) -> int:
-    """Fold every pair of ``conv_bn_pairs_ttnet_imagenet(model)`` in place
-    (``bn_fold.py:65``).  Returns the number of pairs folded."""
-    pairs = conv_bn_pairs_ttnet_imagenet(model)
+    """Fold every conv/BN pair of a ttnet_imagenet model
+    (``conv_bn_pairs_ttnet_imagenet``) or a ResNet (``conv_bn_pairs_resnet``)
+    in place (``bn_fold.py:65``).  Returns the number of pairs folded."""
+    pairs = conv_bn_pairs_resnet(model) \
+        if isinstance(model.cfg, ResNetConfig) \
+        else conv_bn_pairs_ttnet_imagenet(model)
     for conv, bn in pairs:
         fold_bn_into_conv(conv, bn)
     return len(pairs)

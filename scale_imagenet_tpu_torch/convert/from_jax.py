@@ -31,6 +31,13 @@ The v1 family's is ``import_ttnet_v1``'s (``torch_import.py:424-445``):
 ``Block_convf``, each ``conv1``/``bn1``/``conv2``/``bn2``), the Linear
 ``fc`` after the pool and the flatten.
 
+The models of the families that no exporter writes (``ZOO_MODULES``: the
+ResNets, ``tt_certif``, the mobilenets, ``model_general``,
+``cifar10lownoise``, the TT_general float family) name their modules as
+the JAX trees name their entries, so their map is the trees' own paths
+joined with dots, conv weights (4-D) and linear weights (2-D) transposed;
+the reference's key maps for them are ``convert/torch_import.py``'s.
+
 ``jax_trees`` is the inverse map, from a port model back to the JAX
 layout (``compile/lut_store.py`` hashes it).  The trees are nested dicts of
 numpy arrays; nothing here imports JAX.
@@ -41,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.registry import ZOO_MODULES
 from ..models.tt_fhe import TTFHEAlexnetConfig, TTFHEConfig
 from ..models.ttnet_imagenet import TTnetVGGStemConfig
 from ..models.ttnet_imagenet_v1 import TTnetV1Config
@@ -177,10 +185,65 @@ def _tt_fhe_alexnet_sd(params: dict, state: dict, cfg) -> dict:
     return sd
 
 
+# buffers no forward reads, with their values at init
+_UNREAD = {"num_batches_tracked": lambda: torch.zeros((), dtype=torch.int64),
+           "grad_scale": lambda: torch.tensor(1.0)}
+
+
+def _to_torch_layout(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.ndim == 4:
+        return _conv(a)
+    return _t(a.T if a.ndim == 2 else a)
+
+
+def _zoo_sd(params: dict, state: dict, cfg) -> dict:
+    """The trees' paths as keys; the unread buffers of the model's own
+    state dict (its module tree built on the meta device) at their init
+    values."""
+    sd: dict = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                sd[f"{prefix}{k}"] = _to_torch_layout(v)
+
+    walk(params, "")
+    walk(state, "")
+    with torch.device("meta"):
+        own = ZOO_MODULES[type(cfg)](cfg).state_dict()
+    for key in own:
+        name = key.rsplit(".", 1)[-1]
+        if key not in sd and name in _UNREAD:
+            sd[key] = _UNREAD[name]()
+    return sd
+
+
+def _zoo_trees(model) -> tuple[dict, dict]:
+    params: dict = {}
+    state: dict = {}
+    for key, v in model.state_dict().items():
+        *path, name = key.split(".")
+        if name in _UNREAD:
+            continue
+        a = _np(v)
+        a = np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4
+                                 else a.T if a.ndim == 2 else a)
+        node = state if name in ("running_mean", "running_var") else params
+        for k in path:
+            node = node.setdefault(k, {})
+        node[name] = a
+    return params, state
+
+
 def state_dict_from_jax(params: dict, state: dict, cfg) -> dict:
     """``cfg``: the port's config of the same model (``TTnetImageNetConfig``,
-    ``TTnetVGGStemConfig``, ``TTFHEConfig``, ``TTFHEAlexnetConfig`` or
-    ``TTnetV1Config``)."""
+    ``TTnetVGGStemConfig``, ``TTFHEConfig``, ``TTFHEAlexnetConfig``,
+    ``TTnetV1Config`` or one of ``ZOO_MODULES``)."""
+    if type(cfg) in ZOO_MODULES:
+        return _zoo_sd(params, state, cfg)
     if isinstance(cfg, TTnetV1Config):
         return _v1_sd(params, state, cfg)
     if isinstance(cfg, TTFHEConfig):
@@ -317,6 +380,8 @@ def jax_trees(model) -> tuple[dict, dict]:
     package's ``(params, state)`` nested dicts of numpy arrays (conv
     weights OIHW -> HWIO, linear weights ``(out, in)`` -> ``(in, out)``,
     the buffers inference does not read left out), in the model's dtype."""
+    if type(model.cfg) in ZOO_MODULES:
+        return _zoo_trees(model)
     if isinstance(model.cfg, TTnetV1Config):
         return _v1_trees(model)
     if isinstance(model.cfg, (TTFHEConfig, TTFHEAlexnetConfig)):

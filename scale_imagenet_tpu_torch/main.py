@@ -60,8 +60,20 @@ whose dead zones draw coin flips, has no tables or circuit and takes a
 flips for the same seed), and the v1 ImageNet family (``V1_STAGES`` and
 their ``_cifar`` clones) as its conv network only: eval, serve and train,
 with ``--lut``, ``--gates``, ``--mode compile`` and ``--mode export``
-refused as the JAX CLI refuses them.  32x32 models read an ImageFolder
-through the CIFAR transforms (``_pick_transforms``).
+refused as the JAX CLI refuses them.  The same holds for the families of
+``ZOO_MODULES``: the TT_general float family and its correctBN twins, the
+mobilenets, ``model_general``, ``cifar10lownoise``, ``tt_certif`` (its
+dead zones keyed from ``--seed`` in eval, serve and train, like
+``TT_FHE_small``'s) and the DoReFa ResNets, which alone take ``--fold_bn``
+(their conv/BN pairs, ``convert/bn_fold.py``) and ``--fuse_quant`` (the
+weights DoReFa-quantized offline, every BN folded, served at ``wbit =
+32``; ``convert/fuse_quant.py``).  ``--mode compile`` ends on them where
+the JAX CLI ends, with its error or a ``ValueError`` naming its crash
+(``_refuse_compile``).  ``--model_arg KEY=VALUE`` (repeatable) passes a
+keyword to the registry factory, parsed as the JAX CLI parses it
+(``--model_arg wbit=2``, ``--model_arg groups=1,None,4,None``).  32x32
+models read an ImageFolder through the CIFAR transforms
+(``_pick_transforms``).
 ``--mode train`` trains with SGD + momentum from shards (the full
 augmentation on the card from pre-crop shards, a random flip from
 same-size ones) or from ``--data_dir``/train (the PIL train transform),
@@ -112,8 +124,19 @@ from .data import DataLoader, ImageFolder, IMAGENET_MEAN, IMAGENET_STD, \
     imagenet_eval_crop_u8, imagenet_eval_transform, imagenet_train_crop_u8, \
     imagenet_train_transform, pad_batches, shard_loader, write_shards
 from .device import resolve_device
+from .convert.from_jax import state_dict_from_jax
+from .convert.fuse_quant import fuse_resnet
+from .convert.torch_import import IMPORTERS
 from .models import get_model, list_models
 from .models.multihead import MultiHeadBlock
+from .models.registry import ZOO_MODULES
+from .models.resnet import ResNetConfig, resnet_apply
+from .models.tt_certif import TTCertifConfig, tt_certif_apply
+from .models.ttnet_cifar import Cifar10LowNoiseConfig, MobilenetV1TTConfig, \
+    MobilenetV2TTConfig, ModelGeneralConfig, cifar10lownoise_apply, \
+    mobilenet_v1_tt_apply, mobilenet_v2_tt_apply, model_general_apply
+from .models.ttnet_general_float import TTGeneralCorrectBNConfig, \
+    TTGeneralFloatConfig, tt_general_correctbn_apply, tt_general_float_apply
 from .models.tt_fhe import TTFHEAlexnetConfig, TTFHEConfig, \
     tt_fhe_alexnet_apply, tt_fhe_apply
 from .models.ttnet_imagenet import TTnetImageNetConfig, \
@@ -253,7 +276,77 @@ _V1_COMPILE = ("--mode compile: the v1 family's heads are Block_resnet_BN "
                "compiler fails on them ('BlockResnetConfig' object has no "
                "attribute 'quant')")
 
+# what ``scale_imagenet_tpu/main.py:809-854`` meets on the other
+# families, by the first item it compiles: a head whose config has no
+# ``quant``, a config with no ``block_configs``, a block config with no
+# ``head_cfgs``, a head table keyed from 0, a dead-zone head run without a
+# key
+_COMPILE_NO_QUANT = ("--mode compile: the {} heads are Block_resnet "
+                     "cells, not Block_TT cells; the JAX package's "
+                     "truth-table compiler fails on them ({!r})")
+_COMPILE_CRASH = ("--mode compile: the JAX package's truth-table compiler "
+                  "walks block_configs() and each block's head_cfgs(); it "
+                  "fails on {} ({}: {})")
+_CERTIF_COMPILE = ("--mode compile: tt_certif's heads are dead-zone "
+                   "Block_TT cells (T_block = {}); the JAX package's "
+                   "enumerator runs them without a key and fails "
+                   "({!r})")
+_KEYLESS = "binarize01_act with T != 0 needs a PRNG key"
+
+# ``scale_imagenet_tpu/main.py:536-566``: the --fuse_quant refusals
+_FUSE_WITH_FOLD = ("--fuse_quant already folds every BN after quantizing "
+                   "the weights; drop --fold_bn")
+_FUSE_WITH_COMPILED = ("--fuse_quant is DoReFa-ResNet serving; the "
+                       "compiled TTnet modes (--lut/--gates) do not apply")
+_FUSE_FAMILY = ("--fuse_quant pre-applies DoReFa weight quantization — "
+                "the resnet family, not {}")
+_FUSE_FLOAT = ("--fuse_quant: {} has float weights (wbit={}) — nothing to "
+               "pre-quantize; BN-fold-only serving is --fold_bn")
+# ``scale_imagenet_tpu/main.py:280-303``: --ckpt X.pth
+_NO_IMPORTER = ("no .pth importer for the {} family; convert the checkpoint "
+                "with scale_imagenet_tpu.convert.torch_import or load a "
+                "native checkpoint dir instead")
+_CKPT_MISMATCH = ("checkpoint {} does not match the {} architecture built "
+                  "from the CLI flags (missing torch key {}); check "
+                  "--model/--nfilter/--tfilter/--layers/--model_arg against "
+                  "the run that saved it")
+_CKPT_MISSING = ("checkpoint {} is missing {} for the {} architecture built "
+                 "from the CLI flags; check --model/--nfilter/--tfilter/"
+                 "--layers/--model_arg")
+_CKPT_SHAPE = ("checkpoint {} has {} of shape {} but the CLI-built {} "
+               "expects {}; check --nfilter/--tfilter/--layers/--model_arg "
+               "against the run that saved it")
+
 _MODES = ("eval", "serve", "train", "compile", "export")
+
+
+def _coerce_model_arg(raw: str):
+    """int, float, bool or None when the text reads as one
+    (``scale_imagenet_tpu/main.py:240``)."""
+    if raw.lower() in ("true", "false"):
+        return raw.lower() == "true"
+    if raw.lower() in ("none", ""):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(raw)
+        except ValueError:
+            continue
+    return raw
+
+
+def parse_model_args(pairs: list) -> dict:
+    """``KEY=VALUE`` strings -> keyword arguments; a comma-separated value
+    is a tuple (``groups=1,None,4,None``), as in the JAX CLI
+    (``main.py:253``)."""
+    out = {}
+    for pair in pairs:
+        key, sep, raw = pair.partition("=")
+        if not sep or not key:
+            raise SystemExit(f"--model_arg expects KEY=VALUE, got {pair!r}")
+        out[key] = tuple(_coerce_model_arg(v) for v in raw.split(",")) \
+            if "," in raw else _coerce_model_arg(raw)
+    return out
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -273,6 +366,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--nfilter", type=int, default=8)
     p.add_argument("--tfilter", type=int, default=8)
     p.add_argument("--layers", type=int, default=1)
+    p.add_argument("--model_arg", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="extra model-config keyword for the registry factory "
+                        "(repeatable), e.g. --model_arg wbit=4 --model_arg "
+                        "abit=4 for the DoReFa ResNets; values parse as "
+                        "int/float/bool/None when they look like one, "
+                        "comma-separated ones as tuples")
     p.add_argument("--lut", action="store_true",
                    help="evaluate / serve the compiled truth tables instead "
                         "of the conv forward")
@@ -290,6 +390,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 serving: cast the floating parameters and BN "
                         "statistics to bfloat16 for eval / serve")
+    p.add_argument("--fuse_quant", action="store_true",
+                   help="DoReFa-ResNet serving: quantize the weights once, "
+                        "fold every BN, and serve at wbit=32 (eval / serve)")
     p.add_argument("--compile_out", type=str, default="./truth_tables",
                    help="artifact directory for --mode compile")
     p.add_argument("--max_minimize_bits", type=int, default=16)
@@ -398,7 +501,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                 raise ValueError(f"--mode serve is single-host inference "
                                  f"serving; {flag} does not apply")
     serving_flags = {"--lut": args.lut, "--gates": bool(args.gates),
-                     "--fold_bn": args.fold_bn, "--bf16": args.bf16}
+                     "--fold_bn": args.fold_bn, "--bf16": args.bf16,
+                     "--fuse_quant": args.fuse_quant}
     if args.mode == "train":
         flags = [f for f, on in serving_flags.items() if on] + unknown
         for flag in flags:
@@ -408,10 +512,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.mode == "compile":
         given = {f for f, on in training_flags.items() if on} | {
             f.split("=")[0] for f in unknown}
-        if args.gates:
-            given.add("--gates")
-        if args.fold_bn:
-            given.add("--fold_bn")
+        for flag in ("--gates", "--fold_bn", "--fuse_quant"):
+            if serving_flags[flag]:
+                given.add(flag)
         for flag, refusal in _COMPILE_REFUSALS.items():
             if flag in given:
                 raise ValueError(refusal)
@@ -436,6 +539,11 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise ValueError(_GATES_WITH_BF16)
         if args.fold_bn:
             raise ValueError(_GATES_WITH_FOLD)
+    if args.fuse_quant:
+        if args.fold_bn:
+            raise ValueError(_FUSE_WITH_FOLD)
+        if args.lut or args.gates:
+            raise ValueError(_FUSE_WITH_COMPILED)
     if args.lut and args.fold_bn:
         raise ValueError(_LUT_WITH_FOLD)
     if args.lut and args.bf16:
@@ -452,11 +560,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> None:
+def load_checkpoint(model: torch.nn.Module, path: str,
+                    name: str | None = None) -> None:
     """A reference-layout ``.pth`` (a state dict, or one under
     ``model_state_dict`` as the JAX exporter writes it), or a checkpoint
-    dir holding one (``runtime/checkpoint.py``), loaded strict."""
-    if os.path.isfile(os.path.join(path, MODEL_FILE)):
+    dir holding one (``runtime/checkpoint.py``), loaded strict.  A model of
+    ``ZOO_MODULES`` (``name`` its registry name, for the messages) loads
+    its own state dict as it is (a checkpoint dir's, or a ``.pth`` with
+    its keys), and a reference file through the JAX package's key map
+    (``convert/torch_import.py``), refused as the JAX CLI refuses a family
+    it has none for."""
+    own_dir = os.path.isfile(os.path.join(path, MODEL_FILE))
+    if own_dir:
         path = os.path.join(path, MODEL_FILE)
     if not path.endswith(".pth"):
         raise ValueError(f"--ckpt {path}: the port loads .pth state dicts "
@@ -464,25 +579,56 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
                          "checkpoint formats: see ROADMAP.md")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = sd.get("model_state_dict", sd)
+    cfg = model.cfg
+    own = model.state_dict()
+    optional = ("grad_scale", "num_batches_tracked")
+    if type(cfg) in ZOO_MODULES and not own_dir and set(sd) != set(own):
+        kind = type(cfg).__name__
+        if kind not in IMPORTERS:
+            raise ValueError(_NO_IMPORTER.format(kind))
+        try:
+            trees = IMPORTERS[kind](
+                {k: v.numpy() for k, v in sd.items()}, cfg)
+        except KeyError as e:
+            raise ValueError(_CKPT_MISMATCH.format(path, name, e)) from e
+        sd = state_dict_from_jax(*trees, cfg)
+        _check_imported(sd, own, path, name)
     # a block without a fuse head (the VGG-stem variant): the reference
     # constructs one and never applies it, and the JAX importer skips its
     # keys (``scale_imagenet_tpu/convert/torch_import.py:233``); every
     # other key loads strict
-    dead = tuple(f"{name}.Block_convf." for name, m in model.named_modules()
+    dead = tuple(f"{mname}.Block_convf." for mname, m
+                 in model.named_modules()
                  if isinstance(m, MultiHeadBlock) and not m.cfg.fuse)
     if dead:
         sd = {k: v for k, v in sd.items() if not k.startswith(dead)}
-    if isinstance(model.cfg, (TTFHEAlexnetConfig, TTnetV1Config)):
-        # no exporter writes these models (JAX exports the ttnet_imagenet
-        # family and TTFHEConfig only) and their importers read weights and
-        # BN statistics only (``torch_import.py:190,424``): the buffers
+    if isinstance(cfg, (TTFHEAlexnetConfig, TTnetV1Config)) \
+            or type(cfg) in ZOO_MODULES:
+        # no exporter writes these models and their importers read weights
+        # and BN statistics only (``torch_import.py:190,424``): the buffers
         # inference never reads may be absent or extra
-        own = model.state_dict()
-        optional = ("grad_scale", "num_batches_tracked")
         sd = {**{k: v for k, v in own.items() if k.endswith(optional)},
               **{k: v for k, v in sd.items()
                  if k in own or not k.endswith(optional)}}
     model.load_state_dict(sd, strict=True)
+
+
+def _check_imported(sd: dict, own: dict, path: str, name: str) -> None:
+    """The JAX CLI's check of an imported tree against the model's
+    (``scale_imagenet_tpu/main.py:320-339``): every entry present, of the
+    model's shape (torch's layout here)."""
+    for key, want in own.items():
+        *mods, leaf = key.split(".")
+        if leaf in ("grad_scale", "num_batches_tracked"):
+            continue
+        label = "state" if leaf in ("running_mean", "running_var") \
+            else "params"
+        where = label + "".join(f"['{m}']" for m in (*mods, leaf))
+        if key not in sd:
+            raise ValueError(_CKPT_MISSING.format(path, where, name))
+        if tuple(sd[key].shape) != tuple(want.shape):
+            raise ValueError(_CKPT_SHAPE.format(
+                path, where, tuple(sd[key].shape), name, tuple(want.shape)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -514,8 +660,17 @@ _FAMILIES = {
         tt_fhe_alexnet_apply, compile_ttnet_lut, lut_tt_fhe_alexnet_apply,
         compile_ttnet_gates, gate_tt_fhe_alexnet_apply,
         gate_tt_fhe_alexnet_apply_device),
-    # the conv network only: no tables, no circuit
-    TTnetV1Config: Family(ttnet_v1_apply, None, None, None, None, None),
+    # the conv networks only: no tables, no circuit
+    **{cfg: Family(apply, None, None, None, None, None) for cfg, apply in (
+        (TTnetV1Config, ttnet_v1_apply),
+        (TTGeneralFloatConfig, tt_general_float_apply),
+        (TTGeneralCorrectBNConfig, tt_general_correctbn_apply),
+        (MobilenetV2TTConfig, mobilenet_v2_tt_apply),
+        (MobilenetV1TTConfig, mobilenet_v1_tt_apply),
+        (ModelGeneralConfig, model_general_apply),
+        (Cifar10LowNoiseConfig, cifar10lownoise_apply),
+        (TTCertifConfig, tt_certif_apply),
+        (ResNetConfig, resnet_apply))},
 }
 
 
@@ -544,15 +699,39 @@ def _keyed(forward, stochastic: bool, seed: int):
     return lambda x: forward(x, noise=root.child(next(calls)))
 
 
-def _refuse_v1_compile(config: TTnetV1Config):
-    """``--mode compile`` of a v1 model, as the JAX CLI ends it: its
-    enumeration error where the first head has more than 24 bits (every
-    variant but the two small ones), else ``_V1_COMPILE``."""
-    head = config.block_configs()[0].head_cfgs()[1]
-    n = head.k * head.k * (head.in_planes // head.groupsici)
+def _refuse_compile(config) -> None:
+    """``--mode compile`` of a conv-only family, ended as the JAX CLI ends
+    it on the first block item it compiles: its enumeration error where
+    that head has more than 24 bits, else a ``ValueError`` naming the
+    crash (``_V1_COMPILE`` and the texts above)."""
+    kind = type(config).__name__
+    if not hasattr(config, "block_configs"):
+        raise ValueError(_COMPILE_CRASH.format(
+            kind, "AttributeError",
+            f"'{kind}' object has no attribute 'block_configs'"))
+    block = config.block_configs()[0]
+    if not hasattr(block, "head_cfgs"):
+        raise ValueError(_COMPILE_CRASH.format(
+            kind, "AttributeError",
+            f"'{type(block).__name__}' object has no attribute "
+            "'head_cfgs'"))
+    heads = block.head_cfgs()
+    first = min(heads)
+    if first == 0:
+        # the CLI looks the head up as ``conv{h}``; the model names it
+        # ``conv{h + 1}``
+        raise ValueError(_COMPILE_CRASH.format(kind, "KeyError", "'conv0'"))
+    head = heads[first]
+    kh, kw = (head.k, head.k) if isinstance(head.k, int) else head.k
+    n = kh * kw * (head.in_planes // head.groupsici)
     if n > 24:
         raise ValueError(f"n={n} bits: 2^n enumeration infeasible")
-    raise ValueError(_V1_COMPILE)
+    if isinstance(config, TTCertifConfig):
+        raise ValueError(_CERTIF_COMPILE.format(config.T_block, _KEYLESS))
+    if isinstance(config, TTnetV1Config):
+        raise ValueError(_V1_COMPILE)
+    raise ValueError(_COMPILE_NO_QUANT.format(
+        kind, "'BlockResnetConfig' object has no attribute 'quant'"))
 
 
 def load_or_compile_luts(model, lut_path: str | None = None):
@@ -613,8 +792,8 @@ def _compile(cfg, md, model) -> dict:
     ``--compile_out`` and ``summary.json``; ``--verilog`` adds the gate
     circuits as Verilog modules.  A block without a fuse head (the VGG-stem
     variant) has no ``convf`` item."""
-    if isinstance(md.config, TTnetV1Config):
-        _refuse_v1_compile(md.config)
+    if _family(md.config).lut_compile is None:
+        _refuse_compile(md.config)
     items = model_block_items(model)
     with table_cache():   # --verilog reuses the tables and covers
         summary = compile_model_truth_tables(
@@ -638,16 +817,28 @@ def _compile(cfg, md, model) -> dict:
     return summary
 
 
-def apply_serving_transforms(cfg, model) -> None:
-    """``--fold_bn``, then ``--bf16``, on ``model`` in place
-    (``scale_imagenet_tpu/main.py:578-618``; ``parse_args`` has refused
-    them with ``--lut`` and ``--gates``)."""
+def apply_serving_transforms(cfg, model, name: str = "") -> str:
+    """``--fuse_quant``, ``--fold_bn``, then ``--bf16``, on ``model`` in
+    place (``scale_imagenet_tpu/main.py:536-618``; ``parse_args`` has
+    refused them with ``--lut`` and ``--gates``).  Returns the served
+    name (``+fusedquant`` under ``--fuse_quant``)."""
+    if cfg.fuse_quant:
+        if not isinstance(model.cfg, ResNetConfig):
+            raise ValueError(_FUSE_FAMILY.format(type(model.cfg).__name__))
+        wbit = model.cfg.wbit
+        if wbit >= 32:
+            raise ValueError(_FUSE_FLOAT.format(name, wbit))
+        fuse_resnet(model)
+        name += "+fusedquant"
+        print(f"fuse_quant: offline DoReFa w{wbit} -> serving wbit=32, BNs "
+              "folded")
     if cfg.fold_bn:
         print(f"folded {fold_model_bns(model)} conv/BN pairs")
     if cfg.bf16:
         # the floating parameters and buffers; ``_nchw`` casts the images
         # to the stem's dtype, and TF32 stays off for every f32 op
         model.to(torch.bfloat16)
+    return name
 
 
 def _run_dir(cfg, kind: str) -> str:
@@ -761,7 +952,7 @@ def _train(cfg, md, model, device):
     if cfg.ema > 0:
         opt = dataclasses.replace(opt, ema=params_ema(cfg.ema))
     if cfg.ckpt:
-        load_checkpoint(model, cfg.ckpt)
+        load_checkpoint(model, cfg.ckpt, md.name)
     ts = TrainState(model, opt.init(dict(model.named_parameters())))
     if cfg.ckpt:
         try:
@@ -876,23 +1067,23 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         print(f"wrote {meta['n']} images -> {cfg.write_shards}")
         return meta
     device = resolve_device(cfg.device)
-    md = get_model(cfg.model, nfilter=cfg.nfilter, tfilter=cfg.tfilter,
-                   layers=cfg.layers)
+    md = get_model(cfg.model, **{
+        "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
+        **parse_model_args(cfg.model_arg)})
     model = md.init(seed=cfg.seed, device=device)
     if cfg.mode == "train":
         if cfg.remat and not isinstance(md.config, TTnetImageNetConfig):
             raise ValueError(_REMAT_FAMILY.format(type(md.config).__name__))
         return _train(cfg, md, model, device)
     if cfg.ckpt:
-        load_checkpoint(model, cfg.ckpt)
+        load_checkpoint(model, cfg.ckpt, md.name)
     if cfg.mode == "compile":
         return _compile(cfg, md, model)
     if cfg.mode == "export":
         path = save_torch_checkpoint(cfg.export_out, model)
         print(f"wrote reference-compatible checkpoint: {path}")
         return path
-    apply_serving_transforms(cfg, model)
-    name = md.name
+    name = apply_serving_transforms(cfg, model, md.name)
     family = _family(model.cfg)
     conv_apply, lut_apply = family.conv, family.lut
     if cfg.gates:

@@ -1,10 +1,14 @@
-"""Model registry (counterpart of ``scale_imagenet_tpu/models/registry.py:311-326``).
+"""Model registry (counterpart of ``scale_imagenet_tpu/models/registry.py``).
 
-The ``ttnet_imagenet`` entries and their reference aliases (the v2 and
-VGG-stem variants among them, ``registry.py:148-160,314,325``), the TT_FHE
-models (``registry.py:131-173``) and the v1 ImageNet family with its
-32x32 10-class clones (``registry.py:199-222``): 37 of the JAX registry's
-71 names.  The rest follows its families (``ROADMAP.md``).
+All 71 names of the JAX registry, aliases included: the ``ttnet_imagenet``
+entries (the v2 and VGG-stem variants among them), the TT_FHE models, the
+v1 ImageNet family with its 32x32 10-class clones, the DoReFa ResNets,
+``tt_certif``, the mobilenet variants, the TT_general float family and its
+correctBN twins, ``model_general`` and ``cifar10lownoise``.  Each factory
+takes the JAX factory's keyword arguments and ignores the others, as the
+CLI passes ``--nfilter``/``--tfilter``/``--layers`` and every
+``--model_arg`` to whichever model it builds; ``_simple`` keeps the
+config's own fields (``registry.py:59``).
 """
 
 from __future__ import annotations
@@ -15,24 +19,50 @@ from typing import Callable
 import torch
 from torch import nn
 
+from .resnet import ResNet, ResNetConfig, init_resnet
+from .tt_certif import TTCertif, TTCertifConfig
 from .tt_fhe import FHE_MODELS, TTFHEAlexnetConfig, TTFHEConfig, \
     build_tt_fhe
+from .ttnet_cifar import Cifar10LowNoise, Cifar10LowNoiseConfig, \
+    MobilenetV1TT, MobilenetV1TTConfig, MobilenetV2TT, MobilenetV2TTConfig, \
+    ModelGeneral, ModelGeneralConfig, build_zoo
+from .ttnet_general_float import TTGeneralCorrectBN, \
+    TTGeneralCorrectBNConfig, TTGeneralFloat, TTGeneralFloatConfig
 from .ttnet_imagenet import TTnetImageNetConfig, TTnetVGGStemConfig, \
     build_ttnet_imagenet, build_ttnet_vgg_stem
 from .ttnet_imagenet_v1 import V1_STAGES, TTnetV1Config, build_ttnet_v1, \
     cifar_name
 
+
+# the configs whose modules carry the JAX trees' names, and their modules
+ZOO_MODULES = {ResNetConfig: ResNet, TTCertifConfig: TTCertif,
+               MobilenetV1TTConfig: MobilenetV1TT,
+               MobilenetV2TTConfig: MobilenetV2TT,
+               ModelGeneralConfig: ModelGeneral,
+               Cifar10LowNoiseConfig: Cifar10LowNoise,
+               TTGeneralFloatConfig: TTGeneralFloat,
+               TTGeneralCorrectBNConfig: TTGeneralCorrectBN}
+
+
+def _zoo(cls, init=None):
+    def build(cfg, seed=0, device=None, dtype=torch.float32):
+        return build_zoo(cls(cfg), seed, device, dtype,
+                         **({"init": init} if init else {}))
+    return build
+
+
 _BUILD_FNS = {TTnetImageNetConfig: build_ttnet_imagenet,
              TTnetVGGStemConfig: build_ttnet_vgg_stem,
              TTFHEConfig: build_tt_fhe, TTFHEAlexnetConfig: build_tt_fhe,
-             TTnetV1Config: build_ttnet_v1}
+             TTnetV1Config: build_ttnet_v1,
+             **{c: _zoo(m, init_resnet if c is ResNetConfig else None)
+                for c, m in ZOO_MODULES.items()}}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     name: str
-    config: TTnetImageNetConfig | TTnetVGGStemConfig | TTFHEConfig \
-        | TTFHEAlexnetConfig | TTnetV1Config
+    config: object
 
     @property
     def stochastic(self) -> bool:
@@ -88,6 +118,62 @@ def _v1(name: str, image_size: int = 224, num_classes_default: int = 1000):
     return build
 
 
+def _simple(name: str, cfg_cls):
+    """The config built from the keyword arguments it has fields for."""
+    def build(**kwargs):
+        fields = {f.name for f in dataclasses.fields(cfg_cls)}
+        return ModelDef(name=name, config=cfg_cls(
+            **{k: v for k, v in kwargs.items() if k in fields}))
+    return build
+
+
+def _resnet(depth: int, cifar: bool = False):
+    def build(wbit=4, abit=4, num_classes=1000, **_):
+        return ModelDef(
+            name=f"resnet{depth}{'_cifar' if cifar else ''}",
+            config=ResNetConfig(depth=depth, wbit=wbit, abit=abit,
+                                num_classes=num_classes, cifar=cifar))
+    return build
+
+
+def _mobilenet_v2(name: str, variant: str):
+    def build(num_classes=10, **_):
+        return ModelDef(name=name, config=MobilenetV2TTConfig(
+            variant=variant, num_classes=num_classes))
+    return build
+
+
+def _tt_general(name: str, variant: str):
+    def build(nfilter=8, tfilter=8, layers=18, a_bit=2, num_classes=1000,
+              image_size=224, groups=(1, 2, 4, 4), **_):
+        return ModelDef(name=name, config=TTGeneralFloatConfig(
+            variant=variant, nfilter=nfilter, tfilter=tfilter, layers=layers,
+            a_bit=a_bit, num_classes=num_classes, image_size=image_size,
+            groups=tuple(groups)))
+    return build
+
+
+def _correctbn(name: str, image_size: int):
+    def build(nfilter=8, tfilter=6, layers=18, a_bit=2, num_classes=10,
+              **_):
+        return ModelDef(name=name, config=TTGeneralCorrectBNConfig(
+            nfilter=nfilter, tfilter=tfilter, layers=layers, a_bit=a_bit,
+            num_classes=num_classes, image_size=image_size))
+    return build
+
+
+# variant -> its names (the first is ``ModelDef.name``)
+_V2_NAMES = {
+    "mobilenet_v2": ("mobilenet_v2_tt", "mobilenet_v2_TT"),
+    "small": ("mobilenet_v2_tt_small", "mobilenet_v2_TT_small"),
+    "small_n64": ("mobilenet_v2_tt_small_n64", "mobilenet_v2_TT_small_n64"),
+    "small_n64bis": ("mobilenet_v2_tt_small_n64bis",
+                     "mobilenet_v2_TT_small_n64bis"),
+    "32_64": ("mobilenet_v2_tt_32_64", "mobilenet_v2_TT_32_64"),
+    "32_32": ("mobilenet_v2_tt_32_32", "mobilenet_v2_TT_32_32"),
+}
+
+
 MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     # the shipped TTnet-Small
     "ttnet_imagenet_small": _ttnet_imagenet("ttnet_imagenet_small", "small"),
@@ -119,13 +205,33 @@ MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     **{name: _v1(name) for name in V1_STAGES},
     **{cifar_name(name): _v1(name, image_size=32, num_classes_default=10)
        for name in V1_STAGES},
+    # the DoReFa ResNets; the _cifar ones keep 1000 classes by default, as
+    # in the JAX registry
+    **{f"resnet{d}": _resnet(d) for d in (18, 34, 50, 101, 152)},
+    **{f"resnet{d}_cifar": _resnet(d, True) for d in (18, 34, 50, 101, 152)},
+    "tt_certif": _simple("tt_certif", TTCertifConfig),
+    "TT_certif": _simple("tt_certif", TTCertifConfig),
+    "mobilenet_v1_tt": _simple("mobilenet_v1_tt", MobilenetV1TTConfig),
+    "mobilenet_v1_TT": _simple("mobilenet_v1_tt", MobilenetV1TTConfig),
+    **{n: _mobilenet_v2(names[0], v) for v, names in _V2_NAMES.items()
+       for n in names},
+    "TT_general": _tt_general("TT_general", "general"),
+    "TT_general_big": _tt_general("TT_general_big", "general_big"),
+    "TT_general_8": _tt_general("TT_general_8", "general_8"),
+    "TT_general_correctBN": _correctbn("TT_general_correctBN", 224),
+    "TT_general_correctBN_cifar": _correctbn("TT_general_correctBN_cifar",
+                                             32),
+    "model_general": _simple("model_general", ModelGeneralConfig),
+    "cifar10lownoise": _simple("cifar10lownoise", Cifar10LowNoiseConfig),
+    "model_cifar10lownoise": _simple("cifar10lownoise",
+                                     Cifar10LowNoiseConfig),
 }
 
 
 def get_model(name: str, **kwargs) -> ModelDef:
     if name not in MODEL_REGISTRY:
-        raise KeyError(f"unknown model {name!r}; the port has "
-                       f"{sorted(MODEL_REGISTRY)} (the rest: ROADMAP.md)")
+        raise KeyError(f"unknown model {name!r}; available: "
+                       f"{sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name](**kwargs)
 
 

@@ -3,9 +3,10 @@
 
 The STE is the JAX package's stop-gradient form ``x + (f(x) - x)`` with the
 bracket detached: the forward value is ``f(x)`` up to the rounding of that
-sum, the backward the identity.  A ``clamp`` around a quantizer keeps its
-own gradient (0 outside the range), as ``jnp.clip`` does.
-``input_quantize`` comes with the families that use it (``ROADMAP.md``).
+sum, the backward the identity.  The clip around a quantizer keeps its
+own gradient, as ``jnp.clip``'s: 0 outside the range, 1 inside and 1/2 on
+its ends (``clip``; ``torch.clamp`` gives 1 there, and the ends are hit
+exactly where a ReLU feeds a quantizer, as in the DoReFa ResNets).
 """
 
 from __future__ import annotations
@@ -15,6 +16,13 @@ import torch
 
 def _ste(x: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
     return x + (fx - x).detach()
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient is
+    split in half where ``x`` equals an end."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)),
+                         x.new_tensor(hi))
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:
@@ -39,4 +47,10 @@ def activation_quantize(x: torch.Tensor, a_bit: int = 2) -> torch.Tensor:
     if a_bit == 32:
         return x
     coef = float(2 ** a_bit - 1)
-    return coef * uniform_quantize(torch.clamp(x, 0.0, 1.0), a_bit)
+    return coef * uniform_quantize(clip(x, 0.0, 1.0), a_bit)
+
+
+def input_quantize(x: torch.Tensor, step: float) -> torch.Tensor:
+    """Inputs in [0, 1] to multiples of ``step``, the round straight-through
+    (``InputQuantizer``, ``quantize.py:48``)."""
+    return ste_round(x / step) * step

@@ -14,6 +14,19 @@ import pytest
 import torch
 
 
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads for a module's torch work: with several pytest
+    workers on one machine, torch's default of one thread a core
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.fixture
 def x64():
     jax.config.update("jax_enable_x64", True)
@@ -161,6 +174,50 @@ def jax_train_steps(jm, tx, params, state, batches, compile_options=None,
     ema = get_ema(ts.opt_state)
     return (tree_np(ts.params), tree_np(ts.model_state), metrics,
             None if ema is None else tree_np(ema))
+
+
+def site_disagreements(jm, params, state, x, model, jax_site, port_site,
+                       side) -> list:
+    """One training-mode forward of the JAX model (under ``jit``) and of
+    the port's on the same weights and batch ``x``, the inputs of every
+    call of one kind of site recorded in call order: ``jax_site`` and
+    ``port_site`` are ``(object, attribute)`` of that site's function in
+    each package (a ReLU, a Heaviside).  Returns, a site, the count of
+    entries that ``side`` (e.g. ``lambda a: a > 0``, the ReLU's gradient
+    mask) puts on different sides in the two frameworks, and the largest
+    ``|port input|`` among them (0 where the port's input is an exact
+    zero: a tie that the two frameworks' reductions round apart)."""
+    jax_in, port_in = [], []
+    jreal = getattr(*jax_site)
+    preal = getattr(*port_site)
+
+    def fwd(p, s, a):
+        got = []
+
+        def spy(h, *q, **k):
+            got.append(h)
+            return jreal(h, *q, **k)
+
+        with mock.patch.object(*jax_site, spy):
+            out, _ = jm.apply(p, s, a, training=True)
+        return out, got
+
+    def pspy(h, *q, **k):
+        port_in.append(h.detach())
+        return preal(h, *q, **k)
+
+    _, jax_in = jax.jit(fwd).lower(params, state, x).compile(
+        _FAST_COMPILE)(params, state, x)
+    with mock.patch.object(*port_site, pspy), torch.no_grad():
+        model(torch.from_numpy(x), {})
+    assert len(jax_in) == len(port_in)
+    sites = []
+    for j, h in zip(jax_in, port_in):
+        h = nchw(h) if h.dim() == 4 else h.numpy()
+        apart = side(h) != side(np.asarray(j))
+        sites.append((int(apart.sum()),
+                      float(np.abs(h[apart]).max()) if apart.any() else None))
+    return sites
 
 
 @contextlib.contextmanager

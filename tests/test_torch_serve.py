@@ -122,7 +122,7 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--mode", "eval", "--native_data"],
                                   ["--mode", "export", "--tp"],
-                                  ["--mode", "serve", "--fuse_quant"],
+                                  ["--mode", "serve", "--certify", "0.1"],
                                   ["--mode", "serve", "--sp"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):

@@ -185,7 +185,8 @@ def test_v1_multihead_matches_jax_at_table_shapes(x64, variant, stride,
 def test_registry_has_the_v1_names():
     names = set(list_models())
     assert set(tv1.V1_STAGES) | set(CIFAR) <= names
-    assert len(list_models()) == 37
+    # every name of the JAX registry since the zoo families
+    assert len(list_models()) == 71
     from scale_imagenet_tpu.models import get_model as jget
 
     for name in list(tv1.V1_STAGES) + CIFAR:
