@@ -7,8 +7,9 @@ Drives the port's main paths on the flagship TTnet-Small (p = 64,
 evaluated from uint8 shards (``--mode eval``, conv and ``--lut``, with the
 fused pointwise kernel on, and under the serving transforms ``--bf16`` and
 ``--fold_bn``), exported (``--mode export``), compiled to gate circuits and
-evaluated as them (``--mode compile``, ``--mode eval --gates dnf|cnf``) and
-trained from uint8 pre-crop shards (``--mode train``); the VGG16-stem
+evaluated as them (``--mode compile``, ``--mode eval --gates dnf|cnf``),
+attacked (``--attack fgsm|pgd``) and trained from uint8 pre-crop shards
+(``--mode train``); the VGG16-stem
 variant at full width as conv, tables and gate circuit (eval, serve,
 compile) and in training; the v2 variant at full width (eval, serve,
 train; its k=1 blocks through the fused kernel at ci = 32); the TT_FHE
@@ -17,7 +18,9 @@ serve, compile) and in training, the noisy ``TT_FHE_small`` among them;
 the v1 family's ``TT_vf_19lv2_imgnet`` at full width (eval, serve,
 train) with one forward of each other v1 model; and the rest of the
 registry's families at their widths (TT_general, the CIFAR zoo with
-``tt_certif``, the DoReFa ResNets: eval, serve, train).  It holds every
+``tt_certif``, the DoReFa ResNets: eval, serve, train), and the robust
+models certified, attacked and trained with the robustness losses.  It
+holds every
 CUDA kernel against its plain PyTorch version.  Phases, each printing
 one line of its numbers:
 
@@ -154,7 +157,7 @@ one line of its numbers:
            (the Bi-Real stem's ``alpha_a`` and ``beta_a`` get non-zero
            gradients); (c) one f32 step on the card and on the CPU from
            the same weights, batch and coin flips (drawn on the CPU), in
-           the bounds of the flagship's (phase 18 (a));
+           the bounds of the flagship's (phase 19 (a));
 14. v1:    ``TT_vf_19lv2_imgnet`` at full width (p = 64, 224²), BN
            statistics perturbed: (a) forward ms at B = 256 and B = 1 and
            the device time by kernel (``profile_v1``); (b) ``main --mode
@@ -182,7 +185,7 @@ one line of its numbers:
            --mode train`` over 2,560 seeded 32² shards (step ms, img/s,
            idle share, peak memory); ten steps on a batch of 32, the loss
            falling (``OVERFIT_LR``); ``model_general`` and ``tt_certif``
-           one f32 step card vs CPU in the bounds of 18 (a);
+           one f32 step card vs CPU in the bounds of 19 (a);
 17. resnet: ``resnet50`` with 4-bit weights and activations (224²): (a)
            forward ms at B = 256 and 1 and the device time by kernel; (b)
            ``main --mode eval`` over 2,560 self-labelled images (top-1 >=
@@ -196,7 +199,34 @@ one line of its numbers:
            port kernel: each counts from 0 over all of its work (the
            runs' own resets carried into the total, ``phase_launches``),
            checked, and added to every kernel's line;
-18. train: (a) one f32 step of the flagship at B=256, no augmentation, on
+18. robust: (a) ``tt_certif``, ``cifar10lownoise`` and ``model_general``
+           at their registry widths (32², B = 256), BNs calibrated as in
+           15: ``main --mode eval --certify 2/255 --attack pgd
+           --attack_eps 2/255`` over 2,560 self-labelled images each
+           (img/s, top-1, adv, cert; cert <= adv for all three, adv <=
+           top-1 for the two deterministic ones); soundness: for 256
+           images x 16 points drawn in the ball (``tt_certif``: fresh coin
+           flips at each), the card's logits lie in the card's bounds
+           within 1e-5 relative; the bounds of the card and of the CPU
+           from the same weights and images within 1e-4 and their
+           certified masks agreeing on >= 99 % (TF32 off);
+           (b) the flagship (its classifier BN fitted as in 6) under
+           ``--attack fgsm`` and ``--attack pgd`` (10 steps) at 2/255 over
+           1,024 self-labelled images with the fused switch on: img/s,
+           clean and adversarial top-1, peak memory, and the fused
+           launches: 6 a forward of the clean and the adversarial logits,
+           none in the differentiated forwards;
+           (c) robust training: ``main --mode train`` of
+           ``cifar10lownoise`` with the three losses
+           (``--stability_eps``, ``--abstract_eps``, ``--bias_decay``) over
+           2,560 seeded 32² shards (step ms, idle share, peak memory); ten
+           robust steps on one batch of 32 lower the loss; one f32 robust
+           step card vs CPU (the signs drawn on the CPU) in the bounds of
+           19 (a); the flagship's ``--stability_eps`` step (the packed 3N
+           forward) at B = 128, or 64 where 128 does not fit (the line
+           says which): ms and peak memory.  The phase's launches are
+           added to each kernel's line;
+19. train: (a) one f32 step of the flagship at B=256, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -209,7 +239,7 @@ one line of its numbers:
            memory, first and last loss, validation top-1, no launch of the
            port's kernels; (d) a resume from the recipe run's ``last``
            checkpoint continues at step 11 with a finite loss;
-19. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
+20. perf:  B=1 latency and B=256 throughput, conv and LUT (each with the
            switch off and on: with it on, the LUT forward's last float
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
@@ -228,6 +258,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import re
 import shutil
@@ -732,7 +763,8 @@ def phase_launches() -> dict:
 
 def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
     """``main --mode eval`` (``argv``, over ``images`` images) with the
-    fused switch set: top-1/5, loss, img/s over the eval loop, the device's
+    fused switch set: top-1/5, loss (``cert`` and ``adv`` under
+    ``--certify`` and ``--attack``), img/s over the eval loop, the device's
     idle share over it, and the launches of every kernel of the port in
     this run (the counts set to 0 just before it and read just after)."""
     from torch.profiler import ProfilerActivity, profile
@@ -755,9 +787,10 @@ def main_eval(argv: list, fused: bool, images: int = EVAL_IMAGES) -> dict:
     reset_kernel_launches()
     t = time.perf_counter()
     with mock.patch.object(cli, "evaluate", timed), fused_blocks(fused):
-        top1, top5, loss = cli.main(argv)
+        top1, top5, loss, *extras = cli.main(argv)
     torch.cuda.synchronize()
     return {"top1": top1, "top5": top5, "loss": loss,
+            **(extras[0] if extras else {}),
             "img_s": images / stats["wall_s"], "eval_s": stats["wall_s"],
             "device_idle_share": 1 - stats["busy_s"] / stats["wall_s"],
             "run_s": time.perf_counter() - t,
@@ -1033,7 +1066,7 @@ def gates_phase(args, md, model, luts, x, out_dir: Path) -> dict:
             return res
 
         with mock.patch.object(cli, "evaluate", timed):
-            top1, top5, loss = cli._eval(cfg, apply, x.device, 224)
+            top1, top5, loss = cli._eval(cfg, apply, x.device, md, model)
         evals[form] = {"top1": top1, "top5": top5, "loss": loss,
                        "img_s": EVAL_IMAGES / stats["wall_s"],
                        "eval_s": stats["wall_s"],
@@ -1123,8 +1156,6 @@ def heaviside_outputs(sink: list):
     """Every Heaviside output of the forwards run inside, appended to
     ``sink`` as a bool tensor on its device (the stem's, each Block_TT's,
     each pooled head 4's; the dead-zone ones of ``TT_FHE_small`` too)."""
-    from scale_imagenet_tpu_torch.models import tt_fhe, ttnet_cifar, \
-        ttnet_general_float, ttnet_imagenet, ttnet_imagenet_v1
     from scale_imagenet_tpu_torch.ops import binarize
 
     def recorder(real):
@@ -1134,16 +1165,11 @@ def heaviside_outputs(sink: list):
             return out
         return rec
 
-    rec = recorder(binarize.heaviside01)
-    # the blocks reach them through ``binarize01_act``
-    with mock.patch.object(binarize, "heaviside01", rec), \
+    # every model reaches them through ``binarize01_act``
+    with mock.patch.object(binarize, "heaviside01",
+                           recorder(binarize.heaviside01)), \
             mock.patch.object(binarize, "heaviside01_noisy",
-                              recorder(binarize.heaviside01_noisy)), \
-            mock.patch.object(ttnet_imagenet, "heaviside01", rec), \
-            mock.patch.object(tt_fhe, "heaviside01", rec), \
-            mock.patch.object(ttnet_imagenet_v1, "heaviside01", rec), \
-            mock.patch.object(ttnet_cifar, "heaviside01", rec), \
-            mock.patch.object(ttnet_general_float, "heaviside01", rec):
+                              recorder(binarize.heaviside01_noisy)):
         yield
 
 
@@ -1201,7 +1227,7 @@ def card_cpu_step(model, x, y, noise=None) -> dict:
 
 
 def step_parity(model, B: int, seed: int) -> dict:
-    """18(a): ``card_cpu_step`` of the seeded flagship without
+    """19(a): ``card_cpu_step`` of the seeded flagship without
     augmentation, on a seeded batch."""
     gen = torch.Generator().manual_seed(seed + 5)
     x = torch.randn((B, 224, 224, 3), generator=gen)
@@ -1260,7 +1286,7 @@ class StepTimer:
 
 
 def train_phase(args, model, out_dir: Path) -> dict:
-    """18(a)-(d): the step against the CPU, an overfit check on one batch,
+    """19(a)-(d): the step against the CPU, an overfit check on one batch,
     ``main --mode train`` from seeded 256x256 pre-crop shards (f32, then
     the README's recipe), and a resume from the recipe's ``last``
     checkpoint."""
@@ -2359,11 +2385,14 @@ def cpu_drawn_key(seed: int):
     return CpuDrawnKey(seed)
 
 
-def main_train(argv: list, steps: int, batch: int, what: str) -> dict:
+def main_train(argv: list, steps: int, batch: int, what: str,
+               factory: str = "make_train_step") -> dict:
     """``main --mode train`` (``argv``, one epoch of ``steps`` steps at
     ``batch``): ms a step and img/s over steps 2.., the idle share over
     them, peak device memory, the first and last loss and the port's
-    kernel launches of the run (the counts set to 0 just before it)."""
+    kernel launches of the run (the counts set to 0 just before it).
+    ``factory``: the step factory of ``main`` that the run takes
+    (``make_robust_train_step`` under the robustness losses)."""
     from scale_imagenet_tpu_torch import main as cli
 
     timer = StepTimer(steps)
@@ -2371,10 +2400,10 @@ def main_train(argv: list, steps: int, batch: int, what: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     reset_kernel_launches()
-    real_make = cli.make_train_step
+    real_make = getattr(cli, factory)
     t = time.perf_counter()
     with mock.patch.object(
-            cli, "make_train_step",
+            cli, factory,
             lambda *a, **k: timer.wrap(real_make(*a, **k))), \
             torch.enable_grad():
         summary = cli.main(argv)
@@ -2498,10 +2527,13 @@ def standardize_fc(fc, z: torch.Tensor) -> None:
     fc.bias.mul_(scale)
 
 
-def fit_train_steps(model, xt, yt, steps: int, what: str) -> dict:
+def fit_train_steps(model, xt, yt, steps: int, what: str,
+                    make_step=None) -> dict:
     """``steps`` f32 train steps of a copy of ``model`` at the batch of
     ``xt`` (half of it where that does not fit in the card's memory): the
-    batch that ran, ms a step over steps 2.., peak device memory."""
+    batch that ran, ms a step over steps 2.., peak device memory.
+    ``make_step(net, opt)``: the step (``make_train_step``'s by
+    default)."""
     from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
         make_train_step
 
@@ -2510,7 +2542,7 @@ def fit_train_steps(model, xt, yt, steps: int, what: str) -> dict:
         opt, _ = make_optimizer(0.1)
         net = copy.deepcopy(model)
         ts = TrainState(net, opt.init(dict(net.named_parameters())))
-        step = make_train_step(net, opt)
+        step = (make_step or make_train_step)(net, opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, oom = [], False
@@ -2680,7 +2712,6 @@ def zoo_model(name: str, seed: int, x: torch.Tensor, **kw):
     standardized over it (``calibrate_bns``, ``standardize_fc``): ``(md,
     model, apply)``, ``apply(x)`` its forward (a stochastic one keyed by a
     fresh child of ``NoiseKey(seed)`` a call, as ``main`` keys it)."""
-    import itertools
 
     from scale_imagenet_tpu_torch.models import get_model
     from scale_imagenet_tpu_torch.ops import NoiseKey
@@ -3066,6 +3097,279 @@ def resnet_phase(args, out_dir: Path) -> dict:
             "cifar": cev, "others": others, "launches": launches}
 
 
+ROBUST_MODELS = ("tt_certif", "cifar10lownoise", "model_general")
+ROBUST_EPS = 2 / 255               # the certify and attack radius, pixels
+ROBUST_EVAL_IMAGES = 2560          # 10 batches of B = 256 a model
+ROBUST_FLAGSHIP_IMAGES = 1024      # 4 batches of B = 256 an attack
+ROBUST_POINTS = 16                 # soundness: points a image in the ball
+ROBUST_TRAIN_LOSSES = ["--stability_eps", "0.01", "--abstract_eps", "0.01",
+                       "--bias_decay", "0.001"]
+
+
+def interval_checks(md, model, x: torch.Tensor, key_root) -> dict:
+    """``md.interval_logits`` of ``model`` over the pixel ball around the
+    normalized images ``x`` on the card: every concrete logit at
+    ``ROBUST_POINTS`` points a image drawn in the ball (a stochastic
+    model's coin flips fresh at each) within the bounds (1e-5 relative);
+    the bounds of a CPU copy from the same weights and images within 1e-4
+    and the two certified masks (the card's predictions) agreeing on >= 99
+    % of the images."""
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from scale_imagenet_tpu_torch.robust.interval import certified_mask
+    from scale_imagenet_tpu_torch.train.steps import _pixel_ball
+
+    ball = _pixel_ball(ROBUST_EPS, (IMAGENET_MEAN, IMAGENET_STD))
+    eps, lo, hi = (b.cuda() for b in ball)
+    kw = (lambda i: {"noise": key_root.child(i)}) if md.stochastic \
+        else (lambda i: {})
+    iv = md.interval_logits(model, x, eps, lo, hi)
+    preds = model(x, **kw("clean")).argmax(-1)
+    # the certificate's cost beside one forward's, at the same batch
+    times = {"forward_ms": wall_ms(lambda: model(x, **kw("clean")), 5),
+             "interval_logits_ms": wall_ms(
+                 lambda: md.interval_logits(model, x, eps, lo, hi), 5)}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = 0.0
+    for i in range(ROBUST_POINTS):
+        u = torch.rand(x.shape, generator=gen, device="cuda") * 2 - 1
+        if i == 0:
+            u = torch.sign(u)                     # corners of the ball
+        y = model(torch.minimum(torch.maximum(x + u * eps, lo), hi), **kw(i))
+        below = (iv.vmin - y) / iv.vmin.abs().clamp(min=1.0)
+        above = (y - iv.vmax) / iv.vmax.abs().clamp(min=1.0)
+        worst = max(worst, float(below.max()), float(above.max()))
+    cpu = copy.deepcopy(model).cpu()
+    iv_cpu = md.interval_logits(cpu, x.cpu(), *ball)
+    bound_err = max(
+        float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
+        for a, b in ((iv.vmin, iv_cpu.vmin), (iv.vmax, iv_cpu.vmax)))
+    mask = certified_mask(iv, preds).cpu()
+    mask_cpu = certified_mask(iv_cpu, preds.cpu())
+    out = {"images": len(x), "points": ROBUST_POINTS,
+           "worst_rel_violation": worst, "certified_card": int(mask.sum()),
+           "certified_cpu": int(mask_cpu.sum()),
+           "mask_agreement": float((mask == mask_cpu).float().mean()),
+           "card_cpu_bound_rel_err": bound_err,
+           "mean_bound_width": float((iv.vmax - iv.vmin).mean()), **times}
+    check(worst <= 1e-5, f"{md.name}: concrete logits leave the interval "
+                         f"bounds by {worst} relative")
+    check(out["mask_agreement"] >= 0.99 and bound_err <= 1e-4,
+          f"{md.name}: card vs CPU interval bounds {out}")
+    return out
+
+
+def robust_card_cpu_step(md, model, x, y, key, **losses) -> dict:
+    """One f32 robust step (``make_robust_train_step`` with ``losses``) of
+    ``model`` on the card and of its copy on the CPU from the same
+    weights, batch and sign pattern (``key`` draws on the CPU): the
+    bounds of ``card_cpu_step``."""
+    from scale_imagenet_tpu_torch.train import TrainState, \
+        make_optimizer, make_robust_train_step
+
+    def one(net, xb, yb, sink):
+        opt, _ = make_optimizer(0.1)
+        ts = TrainState(net, opt.init(dict(net.named_parameters())))
+        step = make_robust_train_step(md, net, opt, **losses)
+        with heaviside_outputs(sink), torch.enable_grad():
+            _, m = step(ts, xb, yb, noise=key)
+        return float(m["loss"]), float(m["stability_loss"])
+
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+
+    cpu_model = copy.deepcopy(model).cpu()
+    start = [p.detach().cpu().clone() for p in model.parameters()]
+    card_bits, cpu_bits = [], []
+    reset_kernel_launches()
+    with fused_blocks(True):
+        card_loss, card_sloss = one(model, x.cuda(), y.cuda(), card_bits)
+    torch.cuda.synchronize()
+    fused_launches = FB.fused_pointwise_block.launches
+    card_bits = [b.cpu() for b in card_bits]
+    cpu_loss, cpu_sloss = one(cpu_model, x, y, cpu_bits)
+    du = torch.cat([(p.detach().cpu() - s).double().ravel()
+                    for p, s in zip(model.parameters(), start)])
+    dv = torch.cat([(p.detach() - s).double().ravel()
+                    for p, s in zip(cpu_model.parameters(), start)])
+    check(len(card_bits) == len(cpu_bits),
+          "the card and CPU robust steps ran different Heavisides")
+    flips = sum(int((a != b).sum()) for a, b in zip(card_bits, cpu_bits))
+    outputs = sum(a.numel() for a in card_bits)
+    return {"batch": len(x), "card_loss": card_loss, "cpu_loss": cpu_loss,
+            "card_stability_loss": card_sloss,
+            "cpu_stability_loss": cpu_sloss,
+            "rel_loss_gap": abs(card_loss - cpu_loss) / abs(cpu_loss),
+            "update_cosine": float(du @ dv / (du.norm() * dv.norm())),
+            "heaviside_outputs": outputs, "heaviside_flipped": flips,
+            "flip_share": flips / outputs,
+            "fused_launches_in_training": fused_launches}
+
+
+def robust_phase(args, model, out_dir: Path) -> dict:
+    """Certified and adversarial eval and robust training (module
+    docstring, phase 18)."""
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, write_shards
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply, ttnet_imagenet_features
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+    from scale_imagenet_tpu_torch.train import TrainState, \
+        make_input_pipeline, make_optimizer, make_robust_train_step
+
+    B = args.batch
+    work = Path("build") / "chip_smoke_robust"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    start_phase_launches()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 90)
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    eps = str(ROBUST_EPS)
+    robust_eval = ["--certify", eps, "--attack", "pgd", "--attack_eps", eps]
+
+    # (a) the three robust models: certified + PGD eval, soundness, card
+    # against CPU
+    imgs = rng.integers(0, 256, (ROBUST_EVAL_IMAGES, 32, 32, 3),
+                        dtype=np.uint8)
+    first = prepare(torch.from_numpy(imgs[:B]).cuda())
+    models = {}
+    for name in ROBUST_MODELS:
+        mwork = work / name
+        mwork.mkdir()
+        argv = ZOO_CLI_WIDTH.get(name, [])
+        md, net, apply = zoo_model(name, args.seed, first)
+        labels = self_labelled_shards(apply, imgs, B, mwork / "shards")
+        weights = mwork / "weights.pth"
+        torch.save(net.state_dict(), weights)
+        ev = main_eval(["--mode", "eval", "--model", name, *argv,
+                        "--shards_dir", str(mwork / "shards"),
+                        "--eval_batch_size", str(B), "--ckpt", str(weights),
+                        "--seed", str(args.seed), "--root_dir",
+                        str(mwork / "logs"), *robust_eval], False,
+                       images=len(imgs))
+        ev["classes_hit"] = int(np.unique(labels).size)
+        check(ev["cert"] <= ev["adv"],
+              f"{name}: certified {ev['cert']} > adversarial {ev['adv']}")
+        if not md.stochastic:
+            check(ev["adv"] <= ev["top1"],
+                  f"{name}: adversarial {ev['adv']} > clean {ev['top1']}")
+        bounds = interval_checks(md, net, first, NoiseKey(args.seed + 91))
+        models[name] = {"eval": ev, "bounds": bounds}
+        emit("robust_eval", model=name, batch=B, images=len(imgs),
+             eps=ROBUST_EPS, **ev, interval=bounds)
+        del net
+        shutil.rmtree(mwork)
+        torch.cuda.empty_cache()
+    del imgs, first
+
+    # (b) the flagship under FGSM and PGD-10, the fused switch on
+    fmd = get_model("ttnet_imagenet_small", nfilter=8, tfilter=8, layers=1)
+    flag = copy.deepcopy(model)
+    n = ROBUST_FLAGSHIP_IMAGES
+    fimgs = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    with fused_blocks(False):
+        fit_classifier_bn(flag.classifier, ttnet_imagenet_features(
+            flag, prepare(torch.from_numpy(fimgs[:B]).cuda())))
+        labels = self_labelled_shards(
+            lambda xb: ttnet_imagenet_apply(flag, xb), fimgs, B,
+            work / "flagship")
+    weights = work / "flagship.pth"
+    torch.save(flag.state_dict(), weights)
+    del fimgs, flag
+    torch.cuda.empty_cache()
+    batches = -(-n // B)
+    attacks = {}
+    for kind in ("fgsm", "pgd"):
+        torch.cuda.reset_peak_memory_stats()
+        ev = main_eval(["--mode", "eval", "--shards_dir",
+                        str(work / "flagship"), "--eval_batch_size", str(B),
+                        "--ckpt", str(weights), "--root_dir",
+                        str(work / "logs"), "--attack", kind,
+                        "--attack_eps", eps], True, images=n)
+        ev["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ev["classes_hit"] = int(np.unique(labels).size)
+        attacks[kind] = ev
+        emit("robust_flagship", attack=kind, batch=B, images=n,
+             eps=ROBUST_EPS, steps=1 if kind == "fgsm" else 10, **ev)
+        # the clean and the adversarial logits take the kernel, 6 launches
+        # a forward; the attack's differentiated forwards none
+        check(ev["launches"]["fused_pointwise_block"] == 2 * 6 * batches,
+              f"flagship --attack {kind} launched {ev['launches']}, "
+              f"expected {2 * 6 * batches} fused")
+        check(ev["adv"] <= ev["top1"], f"flagship {kind}: adversarial "
+                                       f"{ev['adv']} > clean {ev['top1']}")
+
+    # (c) robust training
+    gen = torch.Generator().manual_seed(args.seed + 92)
+    write_shards(ArrayDataset(
+        rng.integers(0, 256, (ZOO_TRAIN_IMAGES, 32, 32, 3), dtype=np.uint8),
+        rng.integers(0, 10, ZOO_TRAIN_IMAGES).astype(np.int32)),
+        str(work / "train"), shard_size=B)
+    name = "cifar10lownoise"
+    steps = ZOO_TRAIN_IMAGES // B
+    run = main_train(["--mode", "train", "--model", name, "--shards_dir",
+                      str(work / "train"), "--train_batch_size", str(B),
+                      "--seed", str(args.seed), "--root_dir",
+                      str(work / "run"), "--max_epochs", "1",
+                      *ROBUST_TRAIN_LOSSES], steps, B, name,
+                     factory="make_robust_train_step")
+    md = get_model(name)
+    losses = dict(eps=0.01, coeff=1e-4, abstract_eps=0.01,
+                  abstract_coeff=1e-4, bias_coeff=1e-3, bias_thresh=6.0)
+    # images in [0, 1], the robust step's default input range
+    xt = torch.rand((OVERFIT_BATCH, 32, 32, 3), generator=gen).cuda()
+    yt = torch.randint(0, 10, (OVERFIT_BATCH,), generator=gen).cuda()
+    net = md.init(seed=args.seed, device="cuda")
+    opt, _ = make_optimizer(0.1)
+    ts = TrainState(net, opt.init(dict(net.named_parameters())))
+    step = make_robust_train_step(md, net, opt, **losses)
+    overfit = []
+    with torch.enable_grad():
+        for i in range(10):
+            ts, m = step(ts, xt, yt, noise=NoiseKey(args.seed + 93).child(i))
+            overfit.append(m["loss"])
+    overfit = [float(v) for v in overfit]
+    check(all(np.isfinite(overfit)) and np.mean(overfit[-3:]) < overfit[0],
+          f"{name}: ten robust steps on one batch did not lower the loss: "
+          f"{overfit}")
+    parity = robust_card_cpu_step(
+        md, md.init(seed=args.seed, device="cuda"), xt.cpu(), yt.cpu(),
+        cpu_drawn_key(args.seed + 94), **losses)
+    check_parity(parity, f"{name} robust step")
+    emit("robust_train", model=name, batch=B, images=ZOO_TRAIN_IMAGES,
+         flags=ROBUST_TRAIN_LOSSES, train=run, overfit_losses=overfit,
+         step_parity=parity)
+    del net, ts, step, opt
+
+    # the flagship's multi-sample step: 3N images a forward
+    fx = torch.rand((B // 2, 224, 224, 3), generator=gen).cuda()
+    fy = torch.randint(0, 1000, (B // 2,), generator=gen).cuda()
+    calls = itertools.count()
+
+    def stability_step(net, opt):
+        step = make_robust_train_step(fmd, net, opt, 0.01, 1e-4)
+        return lambda ts, xb, yb: step(
+            ts, xb, yb, noise=NoiseKey(args.seed + 95).child(next(calls)))
+
+    flag_train = fit_train_steps(model, fx, fy, ZOO_TRAIN_STEPS,
+                                 "flagship --stability_eps",
+                                 make_step=stability_step)
+    flag_train["packed_images"] = 3 * flag_train["batch"]
+    flag_train["fits_b128"] = flag_train.pop("fits_b256")
+    emit("robust_flagship_train", **flag_train)
+    del fx, fy
+    launches = phase_launches()
+    phase_s = time.perf_counter() - t_phase
+    emit("robust_launches", phase_launches=launches, phase_s=phase_s)
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {"models": models, "attacks": attacks, "train": run,
+            "overfit": overfit, "parity": parity,
+            "flagship_train": flag_train, "launches": launches,
+            "phase_s": phase_s}
+
+
 def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
     """``main --mode serve --serve_batch batch`` (and ``argv``) in a
     thread, one concurrent raw-f32 request an image of ``reqs``: the
@@ -3325,6 +3629,10 @@ def run(args) -> int:
     zoo["resnet"] = resnet_phase(args, out_dir)
     torch.cuda.synchronize()
 
+    # ------------------------------------------------------------ robust
+    zoo["robust"] = robust_phase(args, model, out_dir)
+    torch.cuda.synchronize()
+
     # ------------------------------------------------------------ train
     with torch.enable_grad():
         train_phase(args, model, out_dir)
@@ -3458,8 +3766,10 @@ def run(args) -> int:
               more=[(p, [r for r in rs if not r["invert"]])
                     for p, rs in by_model(fhe["gates"])]),
     ]
-    # the zoo phases, each counted from 0 over the whole phase (every
-    # run, forward, calibration and step in it, ``phase_launches``): none
+    # the zoo and robust phases, each counted from 0 over the whole phase
+    # (every run, forward, calibration and step in it,
+    # ``phase_launches``): none in the zoo's; in the robust one the fused
+    # launches of the flagship attacks' clean and adversarial forwards
     for line in kernels:
         for phase, res in zoo.items():
             line["launches_by_path"][phase] = res["launches"][line["name"]]

@@ -8,8 +8,12 @@ mean and biased variance normalise, and the new running statistics
 (momentum 0.1, the unbiased variance) are *returned*, not written: the
 forward is a function of the module's values, as in the JAX package, so a
 forward that runs twice (``torch.utils.checkpoint`` recomputes it during
-the backward) cannot apply an update twice.  ``stats_bn`` comes with the
-families that use it (``ROADMAP.md``).
+the backward) cannot apply an update twice.
+
+``stats_bn`` is ``BatchNormStatsCallbak`` (``norm.py:85-137``); each
+forward shows its effective ``(scale, bias)`` to the innermost of
+``BN_OBSERVERS`` (``norm.py:28``), the hook of the bias regulariser
+(``robust/regularizer.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +60,11 @@ def bn_scale_bias(bn: nn.modules.batchnorm._BatchNorm):
     return scale, bn.bias - bn.running_mean * scale
 
 
+# observers of the stats BN's effective ``(scale, bias)``: ``record(scale,
+# bias)`` of the innermost is called at every ``stats_bn`` forward
+BN_OBSERVERS: list = []
+
+
 class StatsBN(nn.Module):
     """``BatchNormStatsCallbak``'s parameters and statistics
     (``norm.py:85``): ``weight`` of one entry when ``use_scalar_scale``,
@@ -94,6 +103,8 @@ def stats_bn(bn: StatsBN, x: torch.Tensor, stats: dict | None = None,
         mean, var = bn.running_mean, bn.running_var
     scale = bn.weight / torch.sqrt(var + bn.eps)
     bias = bn.bias - mean * scale
+    if BN_OBSERVERS:
+        BN_OBSERVERS[-1].record(scale, bias)
     return x * _channel_view(scale, x) + _channel_view(bias, x)
 
 

@@ -22,6 +22,12 @@ export`` and single-device ``--mode train`` subsets, and ``--list_models``.
     python -m scale_imagenet_tpu_torch.main --mode train --shards_dir T \\
         --eval_shards_dir V [--amp --remat --grad_accum 2 --ema 0.999 \\
         --label_smooth 0.1] [--ckpt <step dir> | --ckpt X.pth]
+    python -m scale_imagenet_tpu_torch.main --mode eval --model tt_certif \\
+        --tfilter 6 --shards_dir D32 --certify 0.004 --attack pgd \\
+        --attack_eps 0.03
+    python -m scale_imagenet_tpu_torch.main --mode train \\
+        --model cifar10lownoise --shards_dir T32 --stability_eps 0.01 \\
+        --abstract_eps 0.01 --bias_decay 1e-3
 
 ``--mode eval`` scores the model on pre-decoded uint8 shards
 (``--shards_dir``, normalized on the device) or on an ImageFolder
@@ -84,6 +90,17 @@ Weights come from ``--seed`` or from ``--ckpt``: a reference-layout
 ``.pth`` (loaded strict), or a checkpoint dir, from which training resumes
 its full state.  ``config.performance`` is not a flag, as in the JAX
 package.
+``--mode eval --certify E`` also reports the certified top-1 (sound
+interval bounds over the L-inf ball of radius E in pixel units, for the
+models whose registry entries carry ``interval_logits``: ``tt_certif``,
+``model_general``, ``cifar10lownoise``) and ``--attack fgsm|pgd
+--attack_eps E [--attack_steps N --attack_lr S]`` the top-1 under that
+white-box attack (``robust/attack.py``): ``final:`` then carries
+``certified@eps=`` and ``adversarial@eps=``.  ``--mode train
+--stability_eps E [--stability_coeff C] --abstract_eps E
+[--abstract_coeff C] --bias_decay D [--bias_thresh T]`` trains with the
+robustness losses, which compose (``train/steps.py::
+make_robust_train_step``).
 
 Every other flag of the JAX CLI arrives with a later slice and raises here
 naming ``ROADMAP.md``; the flags that the JAX CLI refuses in a mode raise
@@ -119,7 +136,8 @@ from .compile.verilog import export_model_verilog
 from .config import performance
 from .convert.bn_fold import fold_model_bns
 from .convert.export import save_torch_checkpoint
-from .data import DataLoader, ImageFolder, IMAGENET_MEAN, IMAGENET_STD, \
+from .data import CIFAR_MEAN, CIFAR_STD, DataLoader, ImageFolder, \
+    IMAGENET_MEAN, IMAGENET_STD, \
     cifar_eval_transform, cifar_train_transform, device_prefetch, \
     imagenet_eval_crop_u8, imagenet_eval_transform, imagenet_train_crop_u8, \
     imagenet_train_transform, pad_batches, shard_loader, write_shards
@@ -148,7 +166,7 @@ from .runtime.checkpoint import MODEL_FILE, CheckpointManager, \
 from .runtime.evaluate import evaluate
 from .runtime.server import serve
 from .train import MetricsLogger, TrainState, get_ema, make_eval_step, \
-    make_optimizer, make_train_step, params_ema
+    make_optimizer, make_robust_train_step, make_train_step, params_ema
 
 # ``scale_imagenet_tpu/main.py:961-983``: training flags the JAX CLI
 # refuses in eval, with its messages
@@ -168,8 +186,6 @@ _EVAL_REFUSALS = {
     "--label_smooth": "--label_smooth shapes the TRAIN loss; eval reports "
                       "plain CE",
 }
-_EVAL_REFUSALS["--abstract_eps"] = _EVAL_REFUSALS["--stability_eps"]
-_EVAL_REFUSALS["--bias_decay"] = _EVAL_REFUSALS["--stability_eps"]
 
 # ``scale_imagenet_tpu/main.py:1184-1221``: serving and eval flags the JAX
 # CLI refuses in training, with its messages
@@ -198,6 +214,28 @@ _TRAIN_REFUSALS = {
             "('data' axis) and channel groups (--tp)",
 }
 _TRAIN_REFUSALS["--attack_eps"] = _TRAIN_REFUSALS["--attack"]
+# the JAX CLI takes --attack_lr in training and leaves it unused; the port
+# refuses a flag that would do nothing, with the --attack text
+_TRAIN_REFUSALS["--attack_lr"] = _TRAIN_REFUSALS["--attack"]
+# ``scale_imagenet_tpu/main.py:1242-1266,1385-1388``: robust training with
+# the plain step's options
+_ROBUST_LABEL_SMOOTH = ("--label_smooth applies to the plain/amp train "
+                        "step's CE; the --tp and robust steps use their "
+                        "own losses — drop one")
+_ROBUST_GRAD_ACCUM = ("--grad_accum is not supported with robust "
+                      "training (--stability_eps/--abstract_eps/"
+                      "--bias_decay); drop one")
+_ROBUST_AMP = ("--amp is not supported with robust (--stability_eps/"
+               "--abstract_eps/--bias_decay) training")
+# ``scale_imagenet_tpu/main.py:1006-1029``: the eval refusals of
+# --certify and --attack
+_CERTIFY_WITH = ("--certify propagates float intervals through the "
+                 "unmodified f32 model; {} cannot apply")
+_ATTACK_WITH = ("--attack differentiates the unmodified f32 model; {} "
+                "cannot apply")
+_ATTACK_EPS = "--attack needs --attack_eps > 0 (radius in [0,1] pixel units)"
+_ATTACK_FLAG = ("--attack_eps/--attack_lr configure --attack fgsm|pgd — add "
+                "the flag")
 
 # ``scale_imagenet_tpu/main.py:777-808``: flags the JAX CLI refuses in
 # compile, in its order, with its messages
@@ -224,6 +262,12 @@ _COMPILE_REFUSALS = {
 }
 _COMPILE_REFUSALS["--tp"] = _COMPILE_REFUSALS["--sp"]
 _COMPILE_REFUSALS["--attack_eps"] = _COMPILE_REFUSALS["--attack"]
+# the JAX CLI takes these in compile and leaves them unused; the port
+# refuses a flag that would do nothing
+_COMPILE_REFUSALS["--attack_lr"] = _COMPILE_REFUSALS["--attack"]
+_COMPILE_ROBUST = ("--stability_eps/--abstract_eps/--bias_decay enable "
+                   "robust TRAINING (--mode train); compilation evaluates "
+                   "the forward only — drop the flag")
 
 # ``scale_imagenet_tpu/main.py:887,986``
 _GATES_WITH_LUT = ("--gates and --lut are two serving modes for the same "
@@ -450,6 +494,45 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "and best tracking uses them")
     p.add_argument("--label_smooth", type=float, default=0.0,
                    help="label smoothing of the train CE (torch semantics)")
+    p.add_argument("--stability_eps", type=float, default=0.0,
+                   help="enable robust training: multi-sample stability "
+                        "loss at this perturbation radius")
+    p.add_argument("--stability_coeff", type=float, default=1e-4)
+    p.add_argument("--abstract_eps", type=float, default=0.0,
+                   help="interval-arithmetic stabilization loss "
+                        "(compute_act_stabilizing_loss_abstract, "
+                        "netbin.py:726-738): eps-ball radius propagated "
+                        "by abstract interpretation (cifar10lownoise "
+                        "family)")
+    p.add_argument("--abstract_coeff", type=float, default=1e-4,
+                   help="weight of the abstract stabilization loss "
+                        "(active when --abstract_eps > 0)")
+    p.add_argument("--bias_decay", type=float, default=0.0,
+                   help="BiasRegularizer coefficient ('cardinality bound "
+                        "decay', netbin.py:786-864) over stats_bn "
+                        "(scale, bias) internals")
+    p.add_argument("--bias_thresh", type=float, default=6.0,
+                   help="BiasRegularizer threshold: penalize "
+                        "-bias/scale above this bound")
+    p.add_argument("--certify", type=float, default=0.0,
+                   help="certified eval: also report certified top-1 %% "
+                        "under an L-inf eps-ball of this radius in [0,1] "
+                        "pixel units — sound interval bound propagation "
+                        "through the WHOLE model to the logits "
+                        "(tt_certif / cifar10lownoise / model_general "
+                        "families)")
+    p.add_argument("--attack", choices=["fgsm", "pgd"], default=None,
+                   help="adversarial eval: also report top-1 %% under a "
+                        "white-box L-inf attack of radius --attack_eps "
+                        "(robust/attack.py; gradients via the training "
+                        "STE surrogates).  Composes with --certify: "
+                        "cert <= adv <= clean")
+    p.add_argument("--attack_eps", type=float, default=0.0,
+                   help="attack radius in [0,1] pixel units")
+    p.add_argument("--attack_steps", type=int, default=10,
+                   help="PGD iterations")
+    p.add_argument("--attack_lr", type=float, default=0.0,
+                   help="PGD step size in pixel units (default eps/4)")
     p.add_argument("--num_workers", type=int, default=6)
     p.add_argument("--log_interval", type=int, default=40)
     p.add_argument("--serve_batch", type=int, default=8,
@@ -489,29 +572,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     training_flags = {"--amp": args.amp, "--grad_accum": args.grad_accum > 1,
                       "--remat": args.remat, "--ema": args.ema > 0,
                       "--label_smooth": args.label_smooth > 0}
-    if args.mode == "eval":
-        for flag in [f for f, on in training_flags.items() if on] + unknown:
-            refusal = _EVAL_REFUSALS.get(flag.split("=")[0])
-            if refusal:
-                raise ValueError(refusal)
-    if args.mode == "serve":
-        for flag, on in {**training_flags,
-                         "--shards_dir": args.shards_dir is not None}.items():
-            if on:
-                raise ValueError(f"--mode serve is single-host inference "
-                                 f"serving; {flag} does not apply")
+    robust_flags = {"--stability_eps": args.stability_eps > 0,
+                    "--abstract_eps": args.abstract_eps > 0,
+                    "--bias_decay": args.bias_decay > 0}
+    robust_train = any(robust_flags.values())
+    eval_flags = {"--certify": args.certify > 0,
+                  "--attack": bool(args.attack),
+                  "--attack_eps": args.attack_eps > 0,
+                  "--attack_lr": args.attack_lr > 0}
     serving_flags = {"--lut": args.lut, "--gates": bool(args.gates),
                      "--fold_bn": args.fold_bn, "--bf16": args.bf16,
                      "--fuse_quant": args.fuse_quant}
+    if args.mode == "eval":
+        _refuse_in_eval(args, training_flags, robust_train)
+    if args.mode == "serve":
+        # ``scale_imagenet_tpu/main.py:862-880``, in its order
+        for flag, on in {"--amp": args.amp, **eval_flags, **robust_flags,
+                         "--shards_dir": args.shards_dir is not None,
+                         **training_flags}.items():
+            if on:
+                raise ValueError(f"--mode serve is single-host inference "
+                                 f"serving; {flag} does not apply")
     if args.mode == "train":
-        flags = [f for f, on in serving_flags.items() if on] + unknown
-        for flag in flags:
-            refusal = _TRAIN_REFUSALS.get(flag.split("=")[0])
-            if refusal:
-                raise ValueError(refusal)
+        _refuse_in_train(args, unknown, robust_train)
     if args.mode == "compile":
-        given = {f for f, on in training_flags.items() if on} | {
-            f.split("=")[0] for f in unknown}
+        given = {f for f, on in {**training_flags, **eval_flags}.items()
+                 if on} | {f.split("=")[0] for f in unknown}
         for flag in ("--gates", "--fold_bn", "--fuse_quant"):
             if serving_flags[flag]:
                 given.add(flag)
@@ -520,9 +606,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                 raise ValueError(refusal)
         if args.bf16:
             raise ValueError(_COMPILE_WITH_BF16)
+        if robust_train:
+            raise ValueError(_COMPILE_ROBUST)
     if args.mode == "export":
         # ``scale_imagenet_tpu/main.py:743-770``, for the flags the port has
-        for flag, on in {**serving_flags, **training_flags,
+        for flag, on in {**serving_flags, **training_flags, **eval_flags,
+                         **robust_flags,
                          "--shards_dir": args.shards_dir is not None}.items():
             if on:
                 raise ValueError(f"--mode export writes the UNMODIFIED "
@@ -558,6 +647,62 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise ValueError(f"--mode {args.mode} reads --shards_dir or "
                          "--data_dir; give one")
     return args
+
+
+def _refuse_in_eval(args, training_flags: dict, robust_train: bool) -> None:
+    """The JAX CLI's eval refusals (``scale_imagenet_tpu/main.py:959-1029``)
+    in its order, for the flags the port has."""
+    ordered = {"--amp": training_flags["--amp"],
+               "--stability_eps": robust_train,
+               **{f: on for f, on in training_flags.items() if f != "--amp"}}
+    for flag, on in ordered.items():
+        if on:
+            raise ValueError(_EVAL_REFUSALS[flag])
+    if args.gates:
+        if args.lut:
+            raise ValueError(_GATES_WITH_LUT)
+        if args.bf16:
+            raise ValueError(_GATES_WITH_BF16)
+        if args.fold_bn:
+            raise ValueError(_GATES_WITH_FOLD)
+    unmodified = (("--lut", args.lut), ("--gates", args.gates),
+                  ("--bf16", args.bf16), ("--fold_bn", args.fold_bn))
+    if args.certify > 0:
+        for flag, on in unmodified:
+            if on:
+                raise ValueError(_CERTIFY_WITH.format(flag))
+    if args.attack:
+        if args.attack_eps <= 0:
+            raise ValueError(_ATTACK_EPS)
+        for flag, on in unmodified:
+            if on:
+                raise ValueError(_ATTACK_WITH.format(flag))
+    elif args.attack_eps > 0 or args.attack_lr > 0:
+        raise ValueError(_ATTACK_FLAG)
+
+
+def _refuse_in_train(args, unknown: list, robust_train: bool) -> None:
+    """The JAX CLI's train refusals (``scale_imagenet_tpu/main.py:1184-1266,
+    1385-1388``) in its order, for the flags the port has (``--native_data``
+    and ``--sp`` among the unported ones)."""
+    named = {f.split("=")[0] for f in unknown}
+    given = {"--lut": args.lut, "--gates": bool(args.gates),
+             "--certify": args.certify > 0,
+             "--attack": bool(args.attack) or args.attack_eps > 0,
+             "--attack_lr": args.attack_lr > 0, "--bf16": args.bf16,
+             "--native_data": "--native_data" in named,
+             "--fold_bn": args.fold_bn, "--fuse_quant": args.fuse_quant,
+             "--sp": "--sp" in named}
+    for flag, on in given.items():
+        if on:
+            raise ValueError(_TRAIN_REFUSALS[flag])
+    if robust_train:
+        if args.label_smooth > 0:
+            raise ValueError(_ROBUST_LABEL_SMOOTH)
+        if args.grad_accum > 1:
+            raise ValueError(_ROBUST_GRAD_ACCUM)
+        if args.amp:
+            raise ValueError(_ROBUST_AMP)
 
 
 def load_checkpoint(model: torch.nn.Module, path: str,
@@ -862,33 +1007,58 @@ def _val_loader(cfg, shards_dir: str | None, image_size: int):
 
 
 def _score(cfg, apply, loader, normalize, device, logger, epoch: int = 0,
-           verbose: bool = True):
+           verbose: bool = True, **step):
     """One eval pass (last batch padded and masked): ``(top1, top5,
-    loss)``."""
+    loss)``, and the robust extras as a fourth item when ``step``
+    (``make_eval_step``'s keywords) asks for them."""
     bs = cfg.eval_batch_size
     feed = device_prefetch(pad_batches(iter(loader), bs), device)
     try:
-        return evaluate(make_eval_step(apply, normalize), feed,
+        return evaluate(make_eval_step(apply, normalize, **step), feed,
                         logger=logger, epoch=epoch,
                         log_interval=cfg.log_interval, verbose=verbose)
     finally:
         feed.close()
 
 
-def _eval(cfg, apply, device, image_size: int):
+def _eval(cfg, apply, device, md, model, noise=None):
+    """``--mode eval``: ``(top1, top5, loss)``, and under ``--certify`` or
+    ``--attack`` a fourth item, ``{"cert": ..., "adv": ...}``, whose tags
+    ``final:`` prints as the JAX CLI does (``main.py:1162-1169``)."""
+    image_size = md.config.image_size
     loader, normalize = _val_loader(cfg, cfg.shards_dir, image_size)
     if cfg.shards_dir:
         print(f"eval shards: {len(loader.dataset)} images")
+        certify_stats = normalize
     else:
         print(f"eval dataset: {len(loader.dataset)} images / "
               f"{len(loader.dataset.classes)} classes")
+        # the ball in pixel units through the transform's normalization
+        certify_stats = (IMAGENET_MEAN, IMAGENET_STD) if image_size == 224 \
+            else (CIFAR_MEAN, CIFAR_STD)
+    attack = None
+    if cfg.attack:
+        attack = {"kind": cfg.attack, "eps": cfg.attack_eps,
+                  "steps": cfg.attack_steps,
+                  "step_size": cfg.attack_lr or None}
     logger = MetricsLogger(_run_dir(cfg, "logs"))
     try:
-        top1, top5, loss = _score(cfg, apply, loader, normalize, device,
-                                  logger)
+        res = _score(cfg, apply, loader, normalize, device, logger,
+                     noise=noise, md=md, model=model,
+                     certify_eps=cfg.certify, certify_stats=certify_stats,
+                     attack=attack)
+        top1, top5, loss = res[:3]
+        extras = res[3] if len(res) > 3 else {}
+        tags = {"cert": f"certified@eps={cfg.certify:g}",
+                "adv": f"adversarial@eps={cfg.attack_eps:g}"}
+        for k, v in extras.items():
+            logger.add_scalar(f"Accuracy/{tags[k]}", v, 0)
     finally:
         logger.close()
-    print(f"final: top1 {top1:.3f}% top5 {top5:.3f}% loss {loss:.4f}")
+    print(f"final: top1 {top1:.3f}% top5 {top5:.3f}% loss {loss:.4f}"
+          + "".join(f" {tags[k]} {v:.3f}%" for k, v in extras.items()))
+    if extras:
+        return top1, top5, loss, extras
     return top1, top5, loss
 
 
@@ -961,10 +1131,27 @@ def _train(cfg, md, model, device):
         except (FileNotFoundError, KeyError) as e:
             print("checkpoint has no optimizer state "
                   f"({type(e).__name__}: {e}); starting optimizer fresh")
-    train_step = make_train_step(model, opt, amp=cfg.amp,
-                                 accum=cfg.grad_accum,
-                                 label_smooth=cfg.label_smooth,
-                                 **train_kwargs)
+    robust = cfg.stability_eps > 0 or cfg.abstract_eps > 0 \
+        or cfg.bias_decay > 0
+    if robust:
+        if not cfg.shards_dir:
+            # the ImageFolder path normalizes on the host: the eps-ball
+            # clamps take the real input range (``main.py:1389-1397``)
+            train_kwargs = dict(input_bounds=(
+                (0.0 - IMAGENET_MEAN) / IMAGENET_STD,
+                (1.0 - IMAGENET_MEAN) / IMAGENET_STD))
+        train_step = make_robust_train_step(
+            md, model, opt, cfg.stability_eps, cfg.stability_coeff,
+            abstract_eps=cfg.abstract_eps,
+            abstract_coeff=cfg.abstract_coeff if cfg.abstract_eps > 0
+            else 0.0,
+            bias_coeff=cfg.bias_decay, bias_thresh=cfg.bias_thresh,
+            **train_kwargs)
+    else:
+        train_step = make_train_step(model, opt, amp=cfg.amp,
+                                     accum=cfg.grad_accum,
+                                     label_smooth=cfg.label_smooth,
+                                     **train_kwargs)
     logger = MetricsLogger(_run_dir(cfg, "logs"))
     validate = None
     if cfg.eval_shards_dir or (
@@ -981,7 +1168,9 @@ def _train(cfg, md, model, device):
     # it runs across resumed runs
     ckpt = CheckpointManager(ckpt_dir, best_root=os.path.dirname(ckpt_dir))
     conv_apply = _family(model.cfg).conv
-    noise_root = NoiseKey(cfg.seed) if md.stochastic else None
+    # a step's key: the coin flips of a stochastic forward, and the robust
+    # step's sign pattern
+    noise_root = NoiseKey(cfg.seed) if md.stochastic or robust else None
     metadata = {"model_name": md.name,
                 "config": dataclasses.asdict(model.cfg)}
     generator = torch.Generator(device)
@@ -1004,11 +1193,18 @@ def _train(cfg, md, model, device):
                         loss = float(metrics["loss"])
                         top1 = float(metrics["top1"])
                         step = epoch * steps_per_epoch + i
+                        row = (ts.step, loss, top1)
+                        more = ""
+                        if "stability_loss" in metrics:
+                            sloss = float(metrics["stability_loss"])
+                            row += (sloss,)
+                            more = f" stability_loss {sloss:.4f}"
+                            logger.add_scalar("Loss/stability", sloss, step)
                         print(f"epoch {epoch} [{i}/{steps_per_epoch}] "
-                              f"loss {loss:.4f} top1 {top1:.2f}")
+                              f"loss {loss:.4f} top1 {top1:.2f}{more}")
                         logger.add_scalar("Loss/train", loss, step)
                         logger.add_scalar("Accuracy/train", top1, step)
-                        summary["train"].append((ts.step, loss, top1))
+                        summary["train"].append(row)
             finally:
                 feed.close()
             metric = None
@@ -1098,12 +1294,17 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         def apply(x):
             return lut_apply(luts, model, x)
     else:
-        # fresh coin flips a batch for a stochastic model, from --seed
-        apply = _keyed(lambda x, **k: conv_apply(model, x, **k),
-                       md.stochastic, cfg.seed)
+        def forward(x, **k):
+            return conv_apply(model, x, **k)
+        if cfg.mode == "eval":
+            # fresh coin flips a batch for a stochastic model, from --seed:
+            # the eval step keys batch i with NoiseKey(seed).child(i)
+            return _eval(cfg, forward, device, md, model,
+                         NoiseKey(cfg.seed) if md.stochastic else None)
+        apply = _keyed(forward, md.stochastic, cfg.seed)
     size = md.config.image_size
     if cfg.mode == "eval":
-        return _eval(cfg, apply, device, size)
+        return _eval(cfg, apply, device, md, model)
     return serve(apply, name, (size, size, 3), device=device,
                  host=cfg.serve_host, port=cfg.port,
                  batch_size=cfg.serve_batch, max_wait_ms=cfg.serve_wait_ms,

@@ -15,7 +15,10 @@ the gate of ``scale_imagenet_tpu/models/block_tt.py:94-100``; the GELU
 there is the polynomial erf).  The JAX gate also asks for a TPU backend; here the
 kernel's wrapper takes the CUDA kernel for a CUDA tensor and its plain
 version for a CPU one.  As there, the gate never fires in training, which
-keeps the exact erf and the batch statistics, and it takes only a float
+keeps the exact erf and the batch statistics, nor in a forward that is
+being differentiated (the kernel has no backward: an attack's input
+gradient, ``robust/attack.py``, takes the unfused chain, as JAX's
+attack differentiates the unmodified f32 model), and it takes only a float
 first conv (``quant == "float"``) and a deterministic output (``T == 0``):
 a block with a dead zone draws its coin flips from a ``NoiseKey``
 (``ops/binarize.py``) in eval too, which the kernel does not.  The
@@ -113,8 +116,9 @@ class BlockTT(nn.Module):
 
 def takes_fused_kernel(cfg: BlockTTConfig, training: bool) -> bool:
     """The gate of ``scale_imagenet_tpu/models/block_tt.py:94-97``, less its
-    TPU test: eval, the switch on, a k=1 stride-1 unpadded block with a
-    float first conv and a deterministic output."""
+    TPU test: eval (``training`` also holds for a differentiated
+    forward), the switch on, a k=1 stride-1 unpadded block with a float
+    first conv and a deterministic output."""
     return (not training and performance.fused_pointwise_blocks
             and _as_pair(cfg.k) == (1, 1) and cfg.stride == 1
             and cfg.padding == 0 and cfg.quant == "float" and cfg.T == 0.0)
@@ -129,7 +133,8 @@ def block_tt(block: BlockTT, x: torch.Tensor, pre_padded: bool = False,
     already padded (the truth-table enumerator).  ``noise`` is the key of
     the output's coin flips, which a block with ``T != 0`` needs."""
     cfg = block.cfg
-    if takes_fused_kernel(cfg, stats is not None):
+    differentiated = x.requires_grad and torch.is_grad_enabled()
+    if takes_fused_kernel(cfg, stats is not None or differentiated):
         return fused_pointwise_nchw(x, block.pointwise_params(),
                                     "relu" if cfg.last else "heaviside")
     if cfg.padding != 0 and not pre_padded:

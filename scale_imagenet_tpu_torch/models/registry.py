@@ -8,7 +8,9 @@ correctBN twins, ``model_general`` and ``cifar10lownoise``.  Each factory
 takes the JAX factory's keyword arguments and ignores the others, as the
 CLI passes ``--nfilter``/``--tfilter``/``--layers`` and every
 ``--model_arg`` to whichever model it builds; ``_simple`` keeps the
-config's own fields (``registry.py:59``).
+config's own fields (``registry.py:59``).  ``tt_certif``, ``model_general``
+and ``cifar10lownoise`` (aliases included), and they alone, carry the
+interval hooks (``registry.py:27-37,115-128,272-305``).
 """
 
 from __future__ import annotations
@@ -20,12 +22,15 @@ import torch
 from torch import nn
 
 from .resnet import ResNet, ResNetConfig, init_resnet
-from .tt_certif import TTCertif, TTCertifConfig
+from .tt_certif import TTCertif, TTCertifConfig, \
+    tt_certif_interval_logits, tt_certif_interval_loss
 from .tt_fhe import FHE_MODELS, TTFHEAlexnetConfig, TTFHEConfig, \
     build_tt_fhe
 from .ttnet_cifar import Cifar10LowNoise, Cifar10LowNoiseConfig, \
     MobilenetV1TT, MobilenetV1TTConfig, MobilenetV2TT, MobilenetV2TTConfig, \
-    ModelGeneral, ModelGeneralConfig, build_zoo
+    ModelGeneral, ModelGeneralConfig, build_zoo, \
+    cifar10lownoise_interval_logits, cifar10lownoise_interval_loss, \
+    model_general_interval_logits, model_general_interval_loss
 from .ttnet_general_float import TTGeneralCorrectBN, \
     TTGeneralCorrectBNConfig, TTGeneralFloat, TTGeneralFloatConfig
 from .ttnet_imagenet import TTnetImageNetConfig, TTnetVGGStemConfig, \
@@ -63,6 +68,14 @@ _BUILD_FNS = {TTnetImageNetConfig: build_ttnet_imagenet,
 class ModelDef:
     name: str
     config: object
+    # the interval-arithmetic activation-stability loss
+    # (compute_act_stabilizing_loss_abstract, netbin.py:726-738):
+    # ``interval_loss(model, x, eps, inputs_min, inputs_max) -> scalar``
+    interval_loss: Callable | None = None
+    # sound logit bounds under a clipped L-inf eps-ball, the certificate
+    # of ``--certify``: ``interval_logits(model, x, eps, inputs_min,
+    # inputs_max) -> robust.interval.Interval``
+    interval_logits: Callable | None = None
 
     @property
     def stochastic(self) -> bool:
@@ -125,6 +138,14 @@ def _simple(name: str, cfg_cls):
         return ModelDef(name=name, config=cfg_cls(
             **{k: v for k, v in kwargs.items() if k in fields}))
     return build
+
+
+def _interval(build, loss, logits):
+    """``build`` with the interval hooks on its ``ModelDef``."""
+    def with_hooks(**kwargs):
+        return dataclasses.replace(build(**kwargs), interval_loss=loss,
+                                   interval_logits=logits)
+    return with_hooks
 
 
 def _resnet(depth: int, cifar: bool = False):
@@ -209,8 +230,9 @@ MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     # in the JAX registry
     **{f"resnet{d}": _resnet(d) for d in (18, 34, 50, 101, 152)},
     **{f"resnet{d}_cifar": _resnet(d, True) for d in (18, 34, 50, 101, 152)},
-    "tt_certif": _simple("tt_certif", TTCertifConfig),
-    "TT_certif": _simple("tt_certif", TTCertifConfig),
+    "tt_certif": _interval(_simple("tt_certif", TTCertifConfig),
+                           tt_certif_interval_loss,
+                           tt_certif_interval_logits),
     "mobilenet_v1_tt": _simple("mobilenet_v1_tt", MobilenetV1TTConfig),
     "mobilenet_v1_TT": _simple("mobilenet_v1_tt", MobilenetV1TTConfig),
     **{n: _mobilenet_v2(names[0], v) for v, names in _V2_NAMES.items()
@@ -221,11 +243,17 @@ MODEL_REGISTRY: dict[str, Callable[..., ModelDef]] = {
     "TT_general_correctBN": _correctbn("TT_general_correctBN", 224),
     "TT_general_correctBN_cifar": _correctbn("TT_general_correctBN_cifar",
                                              32),
-    "model_general": _simple("model_general", ModelGeneralConfig),
-    "cifar10lownoise": _simple("cifar10lownoise", Cifar10LowNoiseConfig),
-    "model_cifar10lownoise": _simple("cifar10lownoise",
-                                     Cifar10LowNoiseConfig),
+    "model_general": _interval(_simple("model_general",
+                                       ModelGeneralConfig),
+                               model_general_interval_loss,
+                               model_general_interval_logits),
+    "cifar10lownoise": _interval(_simple("cifar10lownoise",
+                                         Cifar10LowNoiseConfig),
+                                 cifar10lownoise_interval_loss,
+                                 cifar10lownoise_interval_logits),
 }
+MODEL_REGISTRY["TT_certif"] = MODEL_REGISTRY["tt_certif"]
+MODEL_REGISTRY["model_cifar10lownoise"] = MODEL_REGISTRY["cifar10lownoise"]
 
 
 def get_model(name: str, **kwargs) -> ModelDef:

@@ -16,8 +16,10 @@ sites the JAX package's key order (``tt_certif.py:87-121,210-217``):
 the second; block i ``child(0).child(i)`` (``fold_in``), and its heads
 ``child(0)``, ``child(1)`` and ``child(2)`` of that (``split(·, 3)``).
 The fuse heads are k = 2 with dead zones, so the fused pointwise kernel
-never takes them.  The interval forward (``tt_certif.py:226-320``) waits
-for ``robust/`` (``ROADMAP.md``).  Modules under the JAX trees' names.
+never takes them.  ``tt_certif_interval`` (``tt_certif.py:226-320``)
+bounds the logits over the clipped eps-ball and over every coin flip
+(``robust/interval.py::interval_heaviside_noisy``): the certificate of
+``--certify``.  Modules under the JAX trees' names.
 """
 
 from __future__ import annotations
@@ -28,9 +30,15 @@ import torch
 from torch import nn
 
 from ..layers.linear import BinLinear, bin_linear, linear
-from ..layers.norm import batch_norm
+from ..layers.norm import batch_norm, bn_scale_bias
 from ..layers.pool import avg_pool, flatten, zero_pad2d
 from ..ops.binarize import NoiseKey, binarize01_act
+from ..ops.quantize import ste_round
+from ..ops.weights import binarize_weights
+from ..robust.interval import Interval, interval_avg_pool, \
+    interval_batch_norm, interval_block_tt, interval_flatten, \
+    interval_from_eps_ball, interval_heaviside_noisy, interval_linear, \
+    interval_mono, interval_struct
 from .block_tt import BlockTT, BlockTTConfig, block_tt, block_tt_out_size
 from .multihead import channel_interleave
 from .ttnet_cifar import blocks_of, nchw
@@ -210,3 +218,67 @@ def tt_certif_apply(model: TTCertif, x: torch.Tensor,
     if model.cfg.head == "binpos_v2":
         return bin_linear(h, model.fc, abs_weight=True)
     return linear(h, model.fc.weight, model.fc.bias)
+
+
+# ---------------------------------------------------------------------------
+# certified robustness: the interval forward to the logits
+
+
+def _interval_certif_block(block: CertifBlock, iv: Interval) -> Interval:
+    """``certif_block`` on an interval; the heads share the input's loss,
+    so only each head's own contribution is summed."""
+    cfg = block.cfg
+    in_loss = iv.loss
+    out1 = interval_block_tt(block.conv1, iv)
+    out2 = interval_block_tt(block.conv2, iv)
+    out4 = iv if cfg.stride == 1 else interval_avg_pool(iv, 2)
+    crops, pad4 = _fixups(iv.vmin.shape[3], cfg.stride)
+    if 1 in crops:
+        out1 = interval_struct(out1, lambda v: v[:, :, :-1, :-1])
+    if 4 in crops:
+        out4 = interval_struct(out4, lambda v: v[:, :, :-1, :-1])
+    if pad4:
+        out4 = interval_struct(out4, lambda v: zero_pad2d(v, (0, 1, 0, 1)))
+    target = out2.vmin.shape[2]
+    out1 = interval_struct(out1, lambda v: _to_size(v, target))
+    out4 = interval_struct(out4, lambda v: _to_size(v, target))
+    cat = Interval(
+        torch.cat([out1.vmin, out2.vmin, out4.vmin], dim=1),
+        torch.cat([out1.vmax, out2.vmax, out4.vmax], dim=1),
+        in_loss + (out1.loss - in_loss) + (out2.loss - in_loss)
+        + (out4.loss - in_loss))
+    cat = interval_struct(cat, lambda v: channel_interleave(v, cfg.cpt))
+    return interval_block_tt(block.convf, cat)
+
+
+def tt_certif_interval(model: TTCertif, x: torch.Tensor, eps,
+                       inputs_min=0.0, inputs_max=1.0) -> Interval:
+    """Sound logit bounds for every input in the clipped eps-ball around
+    the NHWC images ``x`` and every dead-zone draw (the noisy Heaviside is
+    bounded, not sampled): the logits ``Interval``."""
+    iv = interval_from_eps_ball(x, eps, inputs_min, inputs_max)
+    iv = interval_struct(iv, lambda v: nchw(v, model))
+    iv = interval_batch_norm(iv, *bn_scale_bias(model.bn0))
+    iv = interval_batch_norm(iv, *bn_scale_bias(model.bn1))
+    iv = interval_heaviside_noisy(iv, model.cfg.T)
+    for block in blocks_of(model):
+        iv = _interval_certif_block(block, iv)
+    iv = interval_flatten(iv)
+    fc = model.fc
+    if model.cfg.head == "binpos_v2":
+        w = binarize_weights("ternary_mask", fc.weight, fc.weight_mask).abs()
+        return interval_mono(interval_linear(iv, w, linear), ste_round)
+    return interval_linear(iv, fc.weight, linear, bias=fc.bias)
+
+
+def tt_certif_interval_logits(model: TTCertif, x: torch.Tensor, eps,
+                              inputs_min=0.0, inputs_max=1.0) -> Interval:
+    return tt_certif_interval(model, x, eps, inputs_min, inputs_max)
+
+
+def tt_certif_interval_loss(model: TTCertif, x: torch.Tensor, eps,
+                            inputs_min=0.0,
+                            inputs_max=1.0) -> torch.Tensor:
+    """The activation-stability loss (``rsloss`` at every Heaviside) of the
+    interval forward: ``--abstract_eps`` on this model."""
+    return tt_certif_interval(model, x, eps, inputs_min, inputs_max).loss

@@ -55,7 +55,7 @@ from ..layers.linear import linear
 from ..layers.norm import batch_norm
 from ..layers.pool import avg_pool, flatten, max_pool
 from ..ops.binarize import Binarize01Act, BinaryActivation, NoiseKey, \
-    binarize01_act, bireal_act, heaviside01
+    binarize01_act, bireal_act
 from .classifier import ClassifierScale, ClassifierScaleNew, \
     classifier_scale, classifier_scale_new
 from .multihead import MultiHeadBlock, MultiHeadConfig, multihead_out_size
@@ -334,7 +334,7 @@ def tt_fhe_alexnet_stem(model: TTFHEAlexnet, x: torch.Tensor,
     conv = model.stem_conv
     h = torch.relu(conv2d(x, conv.weight, conv.bias, padding=1))
     h = batch_norm(model.stem_bn, h, stats)
-    return heaviside01(max_pool(h, model.cfg.maxpool))
+    return binarize01_act(max_pool(h, model.cfg.maxpool))
 
 
 def tt_fhe_alexnet_apply(model: TTFHEAlexnet, x: torch.Tensor,

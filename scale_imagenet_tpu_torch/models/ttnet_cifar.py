@@ -2,7 +2,8 @@
 ``scale_imagenet_tpu/models/ttnet_cifar.py:1-583``): the resnet cell, which
 the v1 ImageNet and TT_general families build on too, ``mobilenet_v2_tt``
 and its head-pruning ablations, ``model_general``, ``mobilenet_v1_tt`` and
-``cifar10lownoise``.
+``cifar10lownoise``, with the interval forwards of the last two
+(``ttnet_cifar.py:585-788``).
 
 ``Block_resnet`` (the reference's ``TT.py:160-185``)::
 
@@ -27,12 +28,18 @@ from torch import nn
 from ..device import exact_float32, resolve_device
 from ..layers.conv import BinConv2d, bin_conv2d, conv2d
 from ..layers.linear import BinLinear, bin_linear, linear
-from ..layers.norm import StatsBN, batch_norm, stats_bn
+from ..layers.norm import StatsBN, batch_norm, bn_scale_bias, stats_bn
 from ..layers.pool import avg_pool, flatten, max_pool
-from ..ops.binarize import heaviside01
+from ..ops.binarize import binarize01_act
 from ..ops.gelu import gelu
-from ..ops.quantize import activation_quantize, input_quantize
-from ..ops.weights import init_weight_mask
+from ..ops.quantize import activation_quantize, input_quantize, ste_round
+from ..ops.weights import binarize_weights, init_weight_mask
+from ..robust.interval import Interval, interval_batch_norm, \
+    interval_bin_linear_pos, interval_conv2d, interval_flatten, \
+    interval_from_eps_ball, interval_heaviside, interval_linear, \
+    interval_mono, interval_struct
+from ..robust.multisample import multi_sample_heaviside, \
+    multi_sample_pack, multi_sample_unpack_natural
 from .multihead import channel_interleave
 from .ttnet_imagenet import init_ttnet_imagenet
 
@@ -457,14 +464,14 @@ def model_general_apply(model: ModelGeneral, x: torch.Tensor,
     else:
         h = bin_conv2d(h, model.stem_conv, stride=st, padding=st,
                        rounding=False)
-    h = heaviside01(batch_norm(model.stem_bn, h, stats))
+    h = binarize01_act(batch_norm(model.stem_bn, h, stats))
     for i in range(len(cfg.filters)):
         g, stv, pad = cfg.groups[i], cfg.strides[i], cfg.paddings[i]
         ca, cb = getattr(model, f"conv{i}a"), getattr(model, f"conv{i}b")
         h = conv2d(h, ca.weight, ca.bias, stride=stv, padding=pad, groups=g)
         h = torch.relu(batch_norm(getattr(model, f"bn{i}a"), h, stats))
         h = conv2d(h, cb.weight, cb.bias, groups=g)
-        h = heaviside01(batch_norm(getattr(model, f"bn{i}b"), h, stats))
+        h = binarize01_act(batch_norm(getattr(model, f"bn{i}b"), h, stats))
     h = flatten(h)
     if cfg.type_weights_final == "float":
         logits = linear(h, model.fc.weight, model.fc.bias)
@@ -526,12 +533,12 @@ def mobilenet_v1_tt_apply(model: MobilenetV1TT, x: torch.Tensor,
     cells with a Heaviside between two, AvgPool(2), Flatten, Linear."""
     conv = model.stem_conv
     h = conv2d(nchw(x, model), conv.weight, conv.bias, padding=3)
-    h = heaviside01(batch_norm(model.stem_bn, h, stats))
+    h = binarize01_act(batch_norm(model.stem_bn, h, stats))
     blocks = blocks_of(model)
     for i, block in enumerate(blocks):
         h = block(h, stats)
         if i != len(blocks) - 1:
-            h = heaviside01(h)
+            h = binarize01_act(h)
     return linear(flatten(avg_pool(h, 2)), model.fc.weight, model.fc.bias)
 
 
@@ -575,11 +582,150 @@ def cifar10lownoise_apply(model: Cifar10LowNoise, x: torch.Tensor,
     and the scalar-scale stats BN (its ``aux`` left out)."""
     h = input_quantize(nchw(x, model), model.cfg.quant_step)
     h = activation_quantize(batch_norm(model.bn0, h, stats), 2)
-    h = heaviside01(bin_conv2d(h, model.conv1, stride=2, rounding=False))
+    h = binarize01_act(bin_conv2d(h, model.conv1, stride=2, rounding=False))
     h = conv2d(h, model.conv2.weight, model.conv2.bias, stride=2, groups=48)
     h = torch.relu(batch_norm(model.bn2, h, stats))
     h = conv2d(h, model.conv3.weight, model.conv3.bias, groups=48)
-    h = heaviside01(batch_norm(model.bn3, h, stats))
+    h = binarize01_act(batch_norm(model.bn3, h, stats))
     logits = bin_linear(flatten(h), model.fc, positive=True)
     return stats_bn(model.head_bn, logits, stats)
 
+
+
+# ---------------------------------------------------------------------------
+# certified-robustness forwards of cifar10lownoise and model_general
+# (``ttnet_cifar.py:585-788``; the reference's
+# compute_act_stabilizing_loss_abstract / forward_with_multi_sample,
+# netbin.py:703-738): NHWC images in, the bounds NCHW inside
+
+
+def _ball(model: nn.Module, x: torch.Tensor, eps, inputs_min,
+          inputs_max) -> Interval:
+    """The clipped eps-ball around the NHWC images, as NCHW bounds in the
+    model's dtype."""
+    iv = interval_from_eps_ball(x, eps, inputs_min, inputs_max)
+    return interval_struct(iv, lambda v: nchw(v, model))
+
+
+def _bin_weight(layer: nn.Module) -> torch.Tensor:
+    return binarize_weights(layer.binarizer, layer.weight, layer.weight_mask)
+
+
+def cifar10lownoise_interval(model: Cifar10LowNoise, x: torch.Tensor, eps,
+                             inputs_min=0.0, inputs_max=1.0) -> Interval:
+    """The interval forward through the features, up to and including the
+    last Heaviside (the reference's AbstractTensor walk over
+    ``features[:-2]``): the feature ``Interval``."""
+    iv = _ball(model, x, eps, inputs_min, inputs_max)
+    iv = interval_mono(iv, lambda v: input_quantize(v, model.cfg.quant_step))
+    iv = interval_batch_norm(iv, *bn_scale_bias(model.bn0))
+    iv = interval_mono(iv, lambda v: activation_quantize(v, 2))
+    iv = interval_heaviside(interval_conv2d(iv, _bin_weight(model.conv1),
+                                            stride=2))
+    iv = interval_conv2d(iv, model.conv2.weight, stride=2, groups=48,
+                         bias=model.conv2.bias)
+    iv = interval_mono(interval_batch_norm(iv, *bn_scale_bias(model.bn2)),
+                       torch.relu)
+    iv = interval_conv2d(iv, model.conv3.weight, groups=48,
+                         bias=model.conv3.bias)
+    return interval_heaviside(interval_batch_norm(
+        iv, *bn_scale_bias(model.bn3)))
+
+
+def cifar10lownoise_interval_loss(model: Cifar10LowNoise, x: torch.Tensor,
+                                  eps, inputs_min=0.0,
+                                  inputs_max=1.0) -> torch.Tensor:
+    """The activation-stability loss of the interval forward
+    (compute_act_stabilizing_loss_abstract, netbin.py:726-738)."""
+    return cifar10lownoise_interval(model, x, eps, inputs_min,
+                                    inputs_max).loss
+
+
+def cifar10lownoise_interval_logits(model: Cifar10LowNoise, x: torch.Tensor,
+                                    eps, inputs_min=0.0,
+                                    inputs_max=1.0) -> Interval:
+    """Sound logit bounds under the clipped eps-ball: the interval features
+    through the BinLinearPos head, its rounding and the stats BN."""
+    iv = interval_flatten(cifar10lownoise_interval(model, x, eps, inputs_min,
+                                                   inputs_max))
+    iv = interval_mono(interval_bin_linear_pos(iv, _bin_weight(model.fc)),
+                       ste_round)
+    return interval_batch_norm(iv, *bn_scale_bias(model.head_bn))
+
+
+def cifar10lownoise_multi_sample(model: Cifar10LowNoise, x: torch.Tensor,
+                                 x_adv: torch.Tensor, eps, key,
+                                 training: bool = True):
+    """``forward_with_multi_sample`` written out for this model
+    (netbin.py:710-724): ``(logits of the x_adv group, stability loss)``.
+    The BN statistics of the packed batch normalise in training and are
+    dropped, as in the JAX function; ``key.child(0)`` draws the signs."""
+    k, data = multi_sample_pack(x, x_adv, eps, key.child(0))
+    stats = {} if training else None
+    loss = torch.zeros((), dtype=x.dtype, device=x.device)
+    h = input_quantize(nchw(data, model), model.cfg.quant_step)
+    h = activation_quantize(batch_norm(model.bn0, h, stats), 2)
+    h, loss = multi_sample_heaviside(
+        bin_conv2d(h, model.conv1, stride=2, rounding=False), k, loss)
+    h = conv2d(h, model.conv2.weight, model.conv2.bias, stride=2, groups=48)
+    h = torch.relu(batch_norm(model.bn2, h, stats))
+    h = conv2d(h, model.conv3.weight, model.conv3.bias, groups=48)
+    h, loss = multi_sample_heaviside(batch_norm(model.bn3, h, stats), k,
+                                     loss)
+    logits = bin_linear(flatten(h), model.fc, positive=True)
+    logits = stats_bn(model.head_bn, logits, stats)
+    return multi_sample_unpack_natural(logits, k), loss
+
+
+def model_general_interval(model: ModelGeneral, x: torch.Tensor, eps,
+                           inputs_min=0.0, inputs_max=1.0) -> Interval:
+    """The interval forward of ``model_general`` through the features, up
+    to and including the last Heaviside: the feature ``Interval``."""
+    cfg = model.cfg
+    _, _, st = cfg.preprocessing_cnn
+    iv = _ball(model, x, eps, inputs_min, inputs_max)
+    stem = model.stem_conv
+    if cfg.type_weights_preprocessing == "float":
+        iv = interval_conv2d(iv, stem.weight, stride=st, padding=st,
+                             bias=stem.bias)
+    else:
+        iv = interval_conv2d(iv, _bin_weight(stem), stride=st, padding=st)
+    iv = interval_heaviside(interval_batch_norm(
+        iv, *bn_scale_bias(model.stem_bn)))
+    for i in range(len(cfg.filters)):
+        g, stv, pad = cfg.groups[i], cfg.strides[i], cfg.paddings[i]
+        ca, cb = getattr(model, f"conv{i}a"), getattr(model, f"conv{i}b")
+        iv = interval_conv2d(iv, ca.weight, stride=stv, padding=pad,
+                             groups=g, bias=ca.bias)
+        iv = interval_mono(interval_batch_norm(
+            iv, *bn_scale_bias(getattr(model, f"bn{i}a"))), torch.relu)
+        iv = interval_conv2d(iv, cb.weight, groups=g, bias=cb.bias)
+        iv = interval_heaviside(interval_batch_norm(
+            iv, *bn_scale_bias(getattr(model, f"bn{i}b"))))
+    return iv
+
+
+def model_general_interval_loss(model: ModelGeneral, x: torch.Tensor, eps,
+                                inputs_min=0.0,
+                                inputs_max=1.0) -> torch.Tensor:
+    """The activation-stability loss of the interval forward."""
+    return model_general_interval(model, x, eps, inputs_min,
+                                  inputs_max).loss
+
+
+def model_general_interval_logits(model: ModelGeneral, x: torch.Tensor, eps,
+                                  inputs_min=0.0,
+                                  inputs_max=1.0) -> Interval:
+    """Sound logit bounds under the clipped eps-ball: the interval features
+    through the classifier (a float Linear, or BinLinearPos with its
+    rounding) and the stats BN unless ``remove_last_bn``."""
+    iv = interval_flatten(model_general_interval(model, x, eps, inputs_min,
+                                                 inputs_max))
+    if model.cfg.type_weights_final == "float":
+        iv = interval_linear(iv, model.fc.weight, linear, bias=model.fc.bias)
+    else:
+        iv = interval_mono(interval_bin_linear_pos(iv, _bin_weight(model.fc)),
+                           ste_round)
+    if model.cfg.remove_last_bn:
+        return iv
+    return interval_batch_norm(iv, *bn_scale_bias(model.head_bn))

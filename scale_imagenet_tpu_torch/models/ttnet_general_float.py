@@ -33,7 +33,7 @@ from ..layers.conv import conv2d
 from ..layers.linear import linear
 from ..layers.norm import batch_norm
 from ..layers.pool import avg_pool, flatten
-from ..ops.binarize import heaviside01
+from ..ops.binarize import binarize01_act
 from ..ops.gelu import gelu
 from ..ops.quantize import activation_quantize
 from .multihead import channel_interleave
@@ -56,7 +56,7 @@ class BlockResnetBig(BlockResnet):
 
 def _act(x: torch.Tensor, a_bit: int) -> torch.Tensor:
     """The 2-bit quantizer, or the Heaviside at ``a_bit = 1``."""
-    return activation_quantize(x, a_bit) if a_bit > 1 else heaviside01(x)
+    return activation_quantize(x, a_bit) if a_bit > 1 else binarize01_act(x)
 
 
 def block_resnet_float(block: BlockResnet, x: torch.Tensor,

@@ -37,7 +37,7 @@ from ..kernels.stem import space_to_depth_stem
 from ..layers.conv import conv2d
 from ..layers.norm import batch_norm
 from ..layers.pool import avg_pool, flatten, max_pool
-from ..ops.binarize import Binarize01Act, heaviside01
+from ..ops.binarize import Binarize01Act, binarize01_act
 from .classifier import ClassifierScale, classifier_scale
 from .multihead import MultiHeadBlock, MultiHeadConfig, multihead_out_size
 
@@ -207,7 +207,7 @@ def stem(model: TTnetImageNet, x: torch.Tensor,
     else:
         h = conv2d(avg_pool(x, 2), conv.weight, conv.bias, stride=2,
                    padding=3)
-    return heaviside01(batch_norm(model.stem_bn, h, stats))
+    return binarize01_act(batch_norm(model.stem_bn, h, stats))
 
 
 def _remat_block(block: MultiHeadBlock, h: torch.Tensor,
@@ -356,7 +356,7 @@ def vgg_stem(model: TTnetVGGStem, x: torch.Tensor,
     h = torch.relu(conv2d(h, c1.weight, c1.bias, padding=1))
     h = torch.relu(conv2d(h, c2.weight, c2.bias, padding=1))
     h = batch_norm(model.stem_bn, h, stats)
-    return heaviside01(max_pool(h, 5))
+    return binarize01_act(max_pool(h, 5))
 
 
 def ttnet_vgg_stem_apply(model: TTnetVGGStem, x: torch.Tensor,

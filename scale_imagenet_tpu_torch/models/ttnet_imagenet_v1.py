@@ -37,7 +37,7 @@ from ..layers.conv import conv2d
 from ..layers.linear import linear
 from ..layers.norm import batch_norm
 from ..layers.pool import avg_pool, flatten, zero_pad2d
-from ..ops.binarize import Binarize01Act, heaviside01
+from ..ops.binarize import Binarize01Act, binarize01_act
 from ..ops.gelu import gelu
 from ..ops.quantize import activation_quantize
 from .multihead import channel_interleave
@@ -56,7 +56,7 @@ def block_resnet_bn(block: BlockResnet, x: torch.Tensor,
         return gelu(out)
     if cfg.a_bit > 1:
         return activation_quantize(out, cfg.a_bit)
-    return heaviside01(out)
+    return binarize01_act(out)
 
 
 # variant -> head kernels and pads, group divisors, the fuse head's
@@ -321,7 +321,7 @@ def ttnet_v1_features(model: TTnetV1, x: torch.Tensor,
     conv = model.stem_conv
     h = conv2d(avg_pool(_nchw(x, model), 2), conv.weight, conv.bias,
                stride=2, padding=3)
-    h = heaviside01(batch_norm(model.stem_bn, h, stats))
+    h = binarize01_act(batch_norm(model.stem_bn, h, stats))
     for block in model.blocks:
         h = block(h, stats)
     return flatten(avg_pool(h, 2))

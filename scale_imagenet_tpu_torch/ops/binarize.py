@@ -20,6 +20,13 @@ the site's index, as the JAX package folds and splits its PRNG keys.
 torch's generator cannot give JAX's bits; the tests replay JAX's draws
 through the same ``draw`` hook.
 
+``binarize01_act`` shows its input to the innermost of
+``ACTIVATION_OBSERVERS`` (``binarize.py:152-164``), the hook of the
+robust forwards (``robust/collect.py``): every model reaches its
+Heaviside through it, as every JAX model does, while the LUT, gate and
+fused-kernel forwards compute their bits without it.  ``rsloss`` is the
+activation-stability loss those forwards accumulate.
+
 ``bireal_act`` is the Bi-Real sign stem activation of the TT_FHE family
 (``binarize.py:130``) with its piecewise-polynomial surrogate backward
 (``binarize.py:108-127``), so that ``alpha``, ``beta`` and what lies
@@ -148,12 +155,19 @@ class NoiseKey:
         return f"NoiseKey({self.seed})"
 
 
+# observers of the pre-activation values: ``record(x)`` of the innermost
+# is called at every ``binarize01_act`` (``robust/collect.py`` registers)
+ACTIVATION_OBSERVERS: list = []
+
+
 def binarize01_act(x: torch.Tensor, T: float = 0.0,
                    noise: NoiseKey | None = None) -> torch.Tensor:
     """The user-facing activation (``binarize.py:155``): deterministic when
     ``T == 0``, else the dead-zone form with its flips drawn from
     ``noise`` (anything with ``draw(x)``), which it then needs, as the JAX
     function needs its key."""
+    if ACTIVATION_OBSERVERS:
+        ACTIVATION_OBSERVERS[-1].record(x)
     if T == 0.0:
         return heaviside01(x)
     if noise is None:
@@ -161,6 +175,12 @@ def binarize01_act(x: torch.Tensor, T: float = 0.0,
                          "(the port's NoiseKey, the JAX package's PRNG "
                          "key)")
     return heaviside01_noisy(x, T, noise.draw(x))
+
+
+def rsloss(vmin: torch.Tensor, vmax: torch.Tensor) -> torch.Tensor:
+    """The activation-stability loss ``sum(1 - tanh(1 + vmin * vmax))``
+    (``binarize.py:172``)."""
+    return torch.sum(1.0 - torch.tanh(1.0 + vmin * vmax))
 
 
 class Binarize01Act(nn.Module):

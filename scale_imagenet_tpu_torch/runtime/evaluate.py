@@ -10,12 +10,16 @@ import torch
 from ..train.metrics import AverageMeter
 
 _KEYS = ("loss", "top1", "top5", "n")
+# the robust steps' extras: certified and adversarial top-1
+_EXTRAS = ("cert", "adv")
 
 
 def evaluate(eval_step, loader, logger=None, epoch: int = 0,
              log_interval: int = 40, verbose: bool = True):
     """Run one evaluation epoch over ``loader`` (``(images, labels)``
-    batches on the step's device); returns ``(top1, top5, loss)``.
+    batches on the step's device); returns ``(top1, top5, loss)``, and the
+    averages of the step's ``cert``/``adv`` extras (weighted by ``n``, as
+    the other metrics) as a fourth item when it reports them.
 
     Per-batch metrics stay on the device until a log point or the end of
     the epoch, and then come to the host in one copy: a ``.item()`` per
@@ -27,18 +31,23 @@ def evaluate(eval_step, loader, logger=None, epoch: int = 0,
     losses = AverageMeter("Loss", ":.4e")
     top1 = AverageMeter("Acc@1", ":6.2f")
     top5 = AverageMeter("Acc@5", ":6.2f")
+    extras = {k: AverageMeter(k, ":6.2f") for k in _EXTRAS}
     pending = []        # device-side metric dicts not yet folded in
 
     def drain():
         if not pending:
             return
-        rows = torch.stack([torch.stack([m[k].float() for k in _KEYS])
+        keys = _KEYS + tuple(k for k in _EXTRAS if k in pending[0])
+        rows = torch.stack([torch.stack([m[k].float() for k in keys])
                             for m in pending]).cpu().tolist()
-        for loss, t1, t5, n in rows:
+        for row in rows:
+            loss, t1, t5, n, *more = row
             n = int(n)
             losses.update(loss, n)
             top1.update(t1, n)
             top5.update(t5, n)
+            for k, v in zip(keys[len(_KEYS):], more):
+                extras[k].update(v, n)
         pending.clear()
 
     end = time.time()
@@ -57,6 +66,10 @@ def evaluate(eval_step, loader, logger=None, epoch: int = 0,
                 logger.add_scalar("Loss/test", losses.avg, step)
                 logger.add_scalar("Accuracy/test", top1.avg, step)
     drain()
+    extra_avgs = {k: m.avg for k, m in extras.items() if m.count}
     if verbose:
-        print(f"Acc.. {top1.avg} {top5.avg}")
+        print(f"Acc.. {top1.avg} {top5.avg}"
+              + "".join(f" {k} {v}" for k, v in extra_avgs.items()))
+    if extra_avgs:
+        return top1.avg, top5.avg, losses.avg, extra_avgs
     return top1.avg, top5.avg, losses.avg

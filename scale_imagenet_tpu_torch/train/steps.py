@@ -1,5 +1,5 @@
 """The train and eval steps (counterpart of
-``scale_imagenet_tpu/train/steps.py:22-333``, its single-device branch).
+``scale_imagenet_tpu/train/steps.py``, its single-device branch).
 
 ``make_input_pipeline(normalize, augment)`` is the on-device input stage:
 uint8 -> f32 / 255 -> (x - mean) / std, exact, optionally with the random
@@ -7,8 +7,13 @@ flip of same-size shards or the full RandomResizedCrop + flip + ColorJitter
 of 256x256 pre-crop shards (``train/augment.py``), drawn from an explicit
 ``torch.Generator``.
 
-``make_eval_step(apply, normalize)`` returns a step whose metrics stay on
-the device (no host sync inside the step).
+``make_eval_step(apply, normalize, ...)`` returns a step whose metrics stay
+on the device (no host sync inside the step).  With ``certify_eps`` it
+also reports ``cert``, the certified top-1 % (correct and provably stable
+over the eps-ball, through the model definition's ``interval_logits``),
+and with ``attack`` ``adv``, the top-1 % under FGSM or PGD
+(``robust/attack.py``): both radii in pixel units, mapped through the
+input normalization by ``_pixel_ball`` (``steps.py:70-200``).
 
 ``make_train_step(model, opt, amp, accum, label_smooth)`` returns the
 training step over a ``TrainState``:
@@ -31,7 +36,11 @@ training step over a ``TrainState``:
   JAX step folds its key);
 * metrics are device tensors: nothing in the step waits for the card.
 
-The mesh, tensor-parallel and robust steps come with later slices
+``make_robust_train_step`` composes the reference's robustness losses
+(``steps.py:336-475``): the multi-sample stability loss, the
+interval-arithmetic one and the bias regulariser.
+
+The mesh and tensor-parallel steps come with later slices
 (``ROADMAP.md``).
 """
 
@@ -44,6 +53,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..robust.attack import fgsm_attack, frozen, pgd_attack
+from ..robust.collect import multi_sample_forward
+from ..robust.interval import certified_mask
+from ..robust.regularizer import bias_regularizer_loss, \
+    bn_internals_collector
 from .augment import make_rrc_flip_jitter
 from .losses import accuracy_topk, cross_entropy, masked_metric_sums
 
@@ -95,20 +109,93 @@ def make_input_pipeline(normalize=None, augment=False,
     return prepare
 
 
-def make_eval_step(apply, normalize=None):
-    """``apply``: NHWC float images -> logits (the conv or the LUT
-    forward).  Returns ``eval_step(images, labels) -> {"loss", "top1",
-    "top5", "n"}``, device scalars; labels < 0 mark pad rows, which the
-    sums leave out."""
-    prepare = make_input_pipeline(normalize)
+def _pixel_ball(eps: float, stats):
+    """An L-inf ball of ``eps`` in pixel ([0, 1]) units through the input
+    normalization ``stats = (mean, std)``: the per-channel radius
+    ``eps / std`` and clip bounds ``(0 - mean) / std``, ``(1 - mean) /
+    std``, f32 CPU tensors; ``stats=None``: raw [0, 1] inputs."""
+    if stats is None:
+        return eps, 0.0, 1.0
+    mean = torch.tensor(np.asarray(stats[0]), dtype=torch.float32)
+    std = torch.tensor(np.asarray(stats[1]), dtype=torch.float32)
+    return eps / std, (0.0 - mean) / std, (1.0 - mean) / std
 
-    @torch.inference_mode()
+
+def _on(ball: tuple, device) -> tuple:
+    return tuple(b.to(device) if isinstance(b, torch.Tensor) else b
+                 for b in ball)
+
+
+def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
+                   certify_eps: float = 0.0, certify_stats=None,
+                   attack=None):
+    """``apply(x, **kw)``: NHWC float images -> logits (the conv, LUT or
+    gate forward).  Returns ``eval_step(images, labels) -> {"loss",
+    "top1", "top5", "n"}``, device scalars; labels < 0 mark pad rows, which
+    the sums leave out.
+
+    ``noise``: the root ``NoiseKey`` of a stochastic forward: batch i is
+    keyed by ``noise.child(i)`` (passed as ``apply(x, noise=...)``), as the
+    JAX step folds a per-call counter into its key, so a run repeats from
+    its seed.
+
+    ``certify_eps`` > 0 adds ``cert``: the model definition ``md``'s
+    ``interval_logits`` of ``model`` over the ball of that radius; a model
+    without the hook is refused.  ``attack``: ``{"kind": "fgsm"|"pgd",
+    "eps", "steps", "step_size"}`` in pixel units adds ``adv``, the top-1
+    of ``apply`` on the attacked images, each attack step keyed as
+    ``pgd_attack`` says and ``model``'s parameters frozen meanwhile.
+    ``certify_stats``: the ``(mean, std)`` the inputs were normalized with
+    (both balls); ``None`` means raw [0, 1] inputs."""
+    prepare = make_input_pipeline(normalize)
+    if certify_eps > 0:
+        if md is None or md.interval_logits is None:
+            name = "the model" if md is None else md.name
+            raise ValueError(
+                f"{name} has no interval_logits hook — certified eval "
+                "supports the AbstractTensor families (tt_certif, "
+                "cifar10lownoise, model_general)")
+        cball = _pixel_ball(certify_eps, certify_stats)
+    if attack is not None:
+        aball = _pixel_ball(attack["eps"], certify_stats)
+        astep = None
+        if attack.get("step_size"):
+            astep = _pixel_ball(attack["step_size"], certify_stats)[0]
+    calls = itertools.count()
+
     def eval_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        logits = apply(prepare(images))
-        nll_sum, (c1, c5), n = masked_metric_sums(logits, labels)
-        denom = n.clamp(min=1.0)
-        return {"loss": nll_sum / denom, "top1": 100.0 * c1 / denom,
-                "top5": 100.0 * c5 / denom, "n": n}
+        kw = {} if noise is None else {"noise": noise.child(next(calls))}
+        # the attack differentiates tensors made here: no inference mode
+        with torch.no_grad() if attack is not None \
+                else torch.inference_mode():
+            x = prepare(images)
+            logits = apply(x, **kw)
+            nll_sum, (c1, c5), n = masked_metric_sums(logits, labels)
+            denom = n.clamp(min=1.0)
+            out = {"loss": nll_sum / denom, "top1": 100.0 * c1 / denom,
+                   "top5": 100.0 * c5 / denom, "n": n}
+            if certify_eps > 0:
+                iv = md.interval_logits(model, x, *_on(cball, x.device))
+                preds = logits.argmax(-1)
+                ok = (labels >= 0) & certified_mask(iv, preds) \
+                    & (preds == labels)
+                out["cert"] = 100.0 * ok.float().sum() / denom
+            if attack is not None:
+                eps, lo, hi = _on(aball, x.device)
+                with frozen(model):
+                    if attack["kind"] == "fgsm":
+                        adv = fgsm_attack(apply, x, labels, eps, lo, hi,
+                                          noise=kw.get("noise"))
+                    else:
+                        step = None if astep is None \
+                            else _on((astep,), x.device)[0]
+                        adv = pgd_attack(apply, x, labels, eps,
+                                         steps=attack.get("steps", 10),
+                                         step_size=step, lo=lo, hi=hi,
+                                         noise=kw.get("noise"))
+                _, (a1, _), _ = masked_metric_sums(apply(adv, **kw), labels)
+                out["adv"] = 100.0 * a1 / denom
+        return out
 
     return eval_step
 
@@ -190,5 +277,95 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
         opt.update(params, grads, ts.opt_state, ts.step)
         ts.step += 1
         return ts, dict(zip(("loss", "top1", "top5"), sums))
+
+    return train_step
+
+
+def make_robust_train_step(md, model: nn.Module, opt, eps: float,
+                           coeff: float, normalize=None, augment=False,
+                           input_bounds=None, abstract_eps: float = 0.0,
+                           abstract_coeff: float = 0.0,
+                           bias_coeff: float = 0.0,
+                           bias_thresh: float = 0.0):
+    """The training step with the reference's robustness losses, which
+    compose (``steps.py:336-475``):
+
+    * ``eps``/``coeff``: the multi-sample activation-stability loss, CE +
+      coeff * rsloss (netbin.py:710-724), the natural batch its own
+      adversarial sample; BN's new statistics come from the packed 3N
+      forward, as in the reference, with no second forward;
+    * ``abstract_eps``/``abstract_coeff``: the interval-arithmetic
+      stabilization loss of ``md.interval_loss`` (netbin.py:726-738),
+      reported with the first as ``stability_loss``;
+    * ``bias_coeff``/``bias_thresh``: the bias regulariser over every
+      ``stats_bn`` forward's effective ``(scale, bias)``.
+
+    ``normalize``/``augment``: as ``make_train_step``.  ``input_bounds``:
+    the ``(min, max)`` of the images as the model sees them, for images
+    normalized on the host; with ``normalize`` they are derived, else
+    [0, 1].  Returns ``train_step(ts, images, labels, generator=None,
+    noise=None) -> (ts, metrics)``; ``noise`` (a ``NoiseKey``, needed when
+    ``eps`` > 0 or the model draws coin flips) splits as the JAX key:
+    ``child(0)`` the signs, ``child(1)`` the forward's flips."""
+    if abstract_coeff > 0 and md.interval_loss is None:
+        raise ValueError(
+            f"model {md.name} has no interval-arithmetic forward "
+            "(the reference propagates AbstractTensor only through the "
+            "cifar10lownoise family); drop --abstract_coeff")
+    prepare = make_input_pipeline(normalize, augment,
+                                  image_size=model.cfg.image_size)
+    if normalize is not None:
+        m = torch.tensor(np.asarray(normalize[0]), dtype=torch.float32)
+        s = torch.tensor(np.asarray(normalize[1]), dtype=torch.float32)
+        bounds = ((0.0 - m) / s, (1.0 - m) / s)
+    elif input_bounds is not None:
+        bounds = tuple(torch.tensor(np.asarray(b), dtype=torch.float32)
+                       for b in input_bounds)
+    else:
+        bounds = (0.0, 1.0)
+    stochastic = getattr(model.cfg, "stochastic", False)
+    params = dict(model.named_parameters())
+
+    def train_step(ts: TrainState, images, labels, generator=None,
+                   noise=None):
+        for p in params.values():
+            p.grad = None
+        images = prepare(images, generator)
+        lo, hi = _on(bounds, images.device)
+        with bn_internals_collector() as bn_c:
+            if eps > 0:
+                logits, sloss, stats = multi_sample_forward(
+                    model, images, images, eps, noise, lo, hi,
+                    return_state=True)
+            else:
+                stats = {}
+                kw = {"noise": noise} if stochastic else {}
+                logits = model(images, stats, **kw)
+                sloss = torch.zeros(())
+        loss = cross_entropy(logits, labels) + coeff * sloss
+        if abstract_coeff > 0:
+            aloss = md.interval_loss(model, images, abstract_eps, lo, hi)
+            sloss = sloss + aloss    # reported together, as the
+            loss = loss + abstract_coeff * aloss     # reference's .loss
+        if bias_coeff > 0:
+            if not bn_c.pairs:
+                # the regulariser would add 0 forever: no accepted flag may
+                # do nothing
+                raise ValueError(
+                    f"model {md.name} has no BatchNormStatsCallbak-style "
+                    "BN (stats_bn) in its forward; --bias_decay "
+                    "regularizes those internals only (the reference's "
+                    "BiasRegularizer target, netbin.py:786-864) — drop "
+                    "the flag for this model")
+            loss = loss + bias_regularizer_loss(bn_c.pairs, bias_coeff,
+                                                bias_thresh)
+        loss.backward()
+        _write_bn_stats(stats)
+        top1, top5 = accuracy_topk(logits.detach(), labels, topk=(1, 5))
+        opt.update(params, {n: p.grad for n, p in params.items()},
+                   ts.opt_state, ts.step)
+        ts.step += 1
+        return ts, {"loss": loss.detach(), "top1": top1, "top5": top5,
+                    "stability_loss": sloss.detach()}
 
     return train_step

@@ -382,6 +382,9 @@ def test_fused_wrapper_refuses_mixed_devices_and_shapes(cuda):
         FB.fused_pointwise_block(x[:, :32], *params)
 
 
+# eval forwards: one that autograd records never takes the fused
+# kernel, which has no backward (``models/block_tt.py``)
+@torch.no_grad()
 def test_flagship_conv_forward_through_the_fused_kernel(cuda):
     """With the switch on, a flagship conv forward launches the fused
     kernel 6 times (head 3 and the fuse head of 3 blocks) and keeps the
@@ -408,7 +411,6 @@ def test_flagship_train_step_on_card_matches_cpu(cuda):
     import copy
     from unittest import mock
 
-    from scale_imagenet_tpu_torch.models import ttnet_imagenet
     from scale_imagenet_tpu_torch.ops import binarize
     from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
         make_train_step
@@ -431,9 +433,8 @@ def test_flagship_train_step_on_card_matches_cpu(cuda):
 
         opt, _ = make_optimizer(0.1)
         ts = TrainState(net, opt.init(dict(net.named_parameters())))
-        # the blocks reach it through ``binarize01_act``
-        with mock.patch.object(binarize, "heaviside01", rec), \
-                mock.patch.object(ttnet_imagenet, "heaviside01", rec):
+        # every model reaches it through ``binarize01_act``
+        with mock.patch.object(binarize, "heaviside01", rec):
             _, metrics = make_train_step(net, opt)(ts, xb, yb)
         return float(metrics["loss"]), bits
 
@@ -715,6 +716,9 @@ def test_gate_cubes_matches_plain_on_vgg_stem_shapes(cuda, case):
     _gate_case(cuda, *case, t_max=16, seed=sum(case))
 
 
+# eval forwards: one that autograd records never takes the fused
+# kernel, which has no backward (``models/block_tt.py``)
+@torch.no_grad()
 def test_vgg_stem_forwards_through_the_kernels(cuda, monkeypatch):
     """The VGG stem on the card: 2 window launches a LUT forward, 3 cube
     launches a gate forward, 1 fused launch a conv forward with the switch
@@ -778,6 +782,9 @@ def test_gate_cubes_matches_plain_on_fhe_shapes(cuda, case):
 
 
 @pytest.mark.parametrize("name", ["TT_FHE_SMALL", "TT_FHE_XSMALL_vAlexnet"])
+# eval forwards: one that autograd records never takes the fused
+# kernel, which has no backward (``models/block_tt.py``)
+@torch.no_grad()
 def test_fhe_forwards_through_the_kernels(cuda, name, monkeypatch):
     """A TT_FHE model at p = 64 on the card: its LUT forward through the
     window kernel equals the plain versions', its DNF and CNF circuits
@@ -813,6 +820,9 @@ def test_fhe_forwards_through_the_kernels(cuda, name, monkeypatch):
     assert torch.equal(fam.lut(luts, model, x), got)
 
 
+# eval forwards: one that autograd records never takes the fused
+# kernel, which has no backward (``models/block_tt.py``)
+@torch.no_grad()
 def test_v2_conv_forward_through_the_fused_kernel(cuda):
     """The v2 variant at p = 64 with the switch on: each of its 6 k=1
     blocks (ci = 32) launches the fused kernel, and the argmax is the
@@ -885,3 +895,60 @@ def test_v1_forward_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(got.argmax(1), want.argmax(1))
     err = float((got - want).abs().max())
     assert err <= 1e-2 * float(want.abs().max()), err
+
+
+def test_attack_takes_the_fused_kernel_only_when_undifferentiated(cuda):
+    """``make_eval_step`` with ``--attack pgd``'s step on the flagship, the
+    switch on: the clean and the adversarial forwards launch the kernel
+    (6 each), the two PGD steps' differentiated forwards none; the
+    parameters are frozen during the attack and thawed after it."""
+    from scale_imagenet_tpu_torch.train import make_eval_step
+
+    md = get_model("ttnet_imagenet_small")
+    model = md.init(seed=0, device=cuda)
+    x = torch.rand((4, 224, 224, 3), generator=torch.Generator()
+                   .manual_seed(3)).to(cuda)
+    step = make_eval_step(lambda a, **k: model(a, **k), md=md, model=model,
+                          attack={"kind": "pgd", "eps": 2 / 255,
+                                  "steps": 2})
+    FB.reset_launches()
+    with fused_on():
+        out = step(x, torch.tensor([0, 1, 2, -1], device=cuda))
+    torch.cuda.synchronize()
+    assert FB.fused_pointwise_block.launches == 12
+    assert set(out) == {"loss", "top1", "top5", "n", "adv"}
+    assert all(p.requires_grad for p in model.parameters())
+
+
+@pytest.mark.parametrize("name", ["cifar10lownoise", "tt_certif"])
+def test_interval_bounds_on_the_card_match_the_cpu(cuda, name):
+    """``interval_logits`` at the registry width on the card against the
+    CPU's from the same weights and images (TF32 off): within 1e-4
+    relative, and the card's concrete logits at points in the ball (fresh
+    coin flips for ``tt_certif``) inside its bounds."""
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+    from scale_imagenet_tpu_torch.train.steps import _pixel_ball
+
+    md = get_model(name)
+    model = md.init(seed=0, device="cpu")
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator()
+                   .manual_seed(4)) * 2 - 1
+    eps, lo, hi = _pixel_ball(4 / 255, ((0.5,) * 3, (0.25,) * 3))
+    with torch.no_grad():
+        want = md.interval_logits(model, x, eps, lo, hi)
+        model.to(cuda)
+        ball = [b.to(cuda) for b in (eps, lo, hi)]
+        got = md.interval_logits(model, x.to(cuda), *ball)
+        for i in range(4):
+            u = torch.rand(x.shape, generator=torch.Generator()
+                           .manual_seed(10 + i)).to(cuda) * 2 - 1
+            pt = torch.minimum(torch.maximum(x.to(cuda) + u * ball[0],
+                                             ball[1]), ball[2])
+            y = model(pt, **({"noise": NoiseKey(i)} if md.stochastic
+                             else {}))
+            tol = 1e-5 * got.vmax.abs().clamp(min=1.0)
+            assert bool((y >= got.vmin - tol).all())
+            assert bool((y <= got.vmax + tol).all())
+    for g, w in ((got.vmin, want.vmin), (got.vmax, want.vmax)):
+        err = ((g.cpu() - w).abs() / w.abs().clamp(min=1.0)).max()
+        assert float(err) <= 1e-4, float(err)

@@ -141,12 +141,14 @@ def test_refusals_are_the_jax_messages(name, argv, tmp_path):
 
 def test_train_and_imagefolder_name_the_roadmap(tmp_path):
     """FHE training and the 32^2 ImageFolder route run now
-    (``tests/test_torch_fhe_train.py``); on them, the flags still to come
-    (robust training, the native decoder) name ROADMAP.md."""
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    (``tests/test_torch_fhe_train.py``); on them, robust training refuses
+    the plain step's options with the JAX CLI's text, and the flag still
+    to come (the native decoder) names ROADMAP.md."""
+    with pytest.raises(ValueError, match="--grad_accum is not supported "
+                                         "with robust training"):
         cli.main(["--mode", "train", "--device", "cpu", "--shards_dir",
-                  str(tmp_path), "--stability_eps", "0.1",
-                  *_width("TT_FHE_SMALL")])
+                  str(tmp_path), "--stability_eps", "0.1", "--grad_accum",
+                  "2", *_width("TT_FHE_SMALL")])
     with pytest.raises(ValueError, match="ROADMAP.md"), \
             redirect_stdout(io.StringIO()):
         cli.main(["--mode", "eval", "--device", "cpu", "--data_dir",

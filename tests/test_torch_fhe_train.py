@@ -25,6 +25,7 @@ import torch
 
 from _torch_port import Replay, jax_and_port, jax_train_steps, \
     recorded_bernoulli, x64  # noqa: F401
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu.data import transforms as jtf
 from scale_imagenet_tpu.train import make_optimizer as jmake_optimizer
@@ -37,6 +38,10 @@ from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
 
 OPT = dict(lr=0.1, milestones=(1,), steps_per_epoch=1)
 W = ["--nfilter", "2", "--tfilter", "2"]
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _assert_trees_close(got, want):

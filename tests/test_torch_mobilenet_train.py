@@ -49,7 +49,7 @@ def test_v1_heaviside_ties(x64, batch):  # noqa: F811
     x = np.random.default_rng(13).uniform(0, 1, (batch, 32, 32, 3))
     sites = site_disagreements(jm, params, state, x, model,
                                (jcifar, "binarize01_act"),
-                               (pcifar, "heaviside01"), lambda a: a >= 0)
+                               (pcifar, "binarize01_act"), lambda a: a >= 0)
     apart = [s for s in sites if s[0]]
     if batch == 16:
         assert not apart, sites

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from _torch_port import images, jax_and_port, tree_np, x64  # noqa: F401
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu import main as jmain
 from scale_imagenet_tpu.convert import bn_fold as jfold
@@ -52,6 +53,10 @@ KW = dict(nfilter=4, tfilter=4, layers=0)
 SMALL = ["--model", NAME, "--nfilter", "4", "--tfilter", "4", "--layers",
          "0"]
 TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _out_first(w: torch.Tensor) -> np.ndarray:

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _torch_port import images, jax_and_port, jax_train_steps
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu.layers.norm import batch_norm as jbatch_norm
 from scale_imagenet_tpu.ops.binarize import heaviside01 as jheaviside01
@@ -55,16 +56,8 @@ VARIANTS = {"plain": ({}, None),
             "accum2_smooth_ema": ({"accum": 2, "label_smooth": 0.1}, 0.9)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tensors here are tiny: one intra-op thread is as fast, and
-    spares the cores that the other test workers share."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture(scope="module")
@@ -468,7 +461,8 @@ def test_main_train_from_image_folder_and_train_shards(tmp_path,
     (["--gates", "dnf"], "serve its boolean circuit"),
     (["--certify", "0.1"], "certified EVAL"),
     (["--attack", "fgsm"], "adversarial EVAL"),
-    (["--stability_eps", "0.1"], "ROADMAP.md"),
+    (["--stability_eps", "0.1", "--amp"],
+     "--amp is not supported with robust"),
     (["--tp"], "ROADMAP.md"),
     (["--grad_accum", "3"], "must be divisible by grad_accum"),
     (["--ema", "1.5"], "decay must be in"),

@@ -21,6 +21,7 @@ import torch
 
 from _torch_port import _FAST_COMPILE, images, perturb_state, tree_np, \
     x64  # noqa: F401
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu.models import ttnet_cifar as jcifar
 from scale_imagenet_tpu.models import ttnet_imagenet_v1 as jv1
@@ -34,6 +35,10 @@ from scale_imagenet_tpu_torch.ops import quantize as tq
 TOL = dict(rtol=1e-9, atol=1e-9)
 W = dict(nfilter=2, tfilter=2)
 CIFAR = [tv1.cifar_name(n) for n in tv1.V1_STAGES]
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _t(a) -> torch.Tensor:

@@ -12,8 +12,13 @@ from contextlib import redirect_stdout
 import pytest
 
 from _torch_port import jax_cli_refusal
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu_torch import main as cli
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.mark.parametrize("name,argv", [

@@ -14,10 +14,15 @@ import torch
 
 from _torch_port import _FAST_COMPILE, images, port_and_trees, \
     x64  # noqa: F401
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu_torch.models.ttnet_imagenet_v1 import V1_STAGES
 
 SMALLEST = dict(nfilter=1, tfilter=4)
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.mark.parametrize("name", list(V1_STAGES))

@@ -24,6 +24,7 @@ import torch
 
 from _torch_port import _FAST_COMPILE, images, jax_train_steps, \
     port_and_trees, x64  # noqa: F401
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu.train import make_optimizer as jmake_optimizer
 from scale_imagenet_tpu_torch import main as cli
@@ -38,6 +39,10 @@ from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
 TOL = dict(rtol=1e-9, atol=1e-9)
 W = dict(nfilter=2, tfilter=2)
 NAME = "TT_vf_19lv2_cifar"
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _t(a) -> torch.Tensor:

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from _torch_port import images, jax_and_port, jax_train_steps, tree_np
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu import main as jmain
 from scale_imagenet_tpu.convert.torch_export import \
@@ -47,6 +48,10 @@ NAME = "ttnet_imagenet_v2"
 KW = dict(nfilter=4, tfilter=8, layers=1)
 WIDTH = ["--model", NAME, "--nfilter", "4", "--tfilter", "8"]
 TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture(scope="module")

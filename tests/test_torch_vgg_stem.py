@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from _torch_port import images, jax_and_port, nchw, x64  # noqa: F401
+from _torch_port import few_threads  # noqa: F401
 
 from scale_imagenet_tpu import compile as jcompile
 from scale_imagenet_tpu import main as jmain
@@ -48,6 +49,10 @@ from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, \
 NAME = "ttnet_imagenet_vgg_stem"
 VGG = ["--model", NAME]
 TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture(scope="module")
@@ -404,14 +409,17 @@ def test_vgg_refusals_are_the_jax_messages(argv, tmp_path):
 
 def test_vgg_train_names_the_roadmap(tmp_path):
     """The VGG stem trains now (``tests/test_torch_vgg_train.py``): its
-    ``--remat`` is refused with the JAX CLI's text, and a training flag
-    still missing (robust training) names ROADMAP.md."""
+    ``--remat`` is refused with the JAX CLI's text, and so is robust
+    training with a label-smoothed loss."""
     shards, _, _ = _vgg_shards(tmp_path, n=1)
     argv = ["--mode", "train", "--shards_dir", shards, "--remat", *VGG]
     want = _jax_refusal(argv, tmp_path)
     with pytest.raises(ValueError) as err, redirect_stdout(io.StringIO()):
         cli.main(argv + ["--device", "cpu", "--root_dir", str(tmp_path)])
     assert str(err.value) == want and "TTnetVGGStemConfig" in want
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        cli.main(["--mode", "train", "--device", "cpu", "--shards_dir",
-                  shards, "--stability_eps", "0.1", *VGG])
+    argv = ["--mode", "train", "--shards_dir", shards, "--stability_eps",
+            "0.1", "--label_smooth", "0.1", *VGG]
+    want = _jax_refusal(argv, tmp_path)
+    with pytest.raises(ValueError) as err, redirect_stdout(io.StringIO()):
+        cli.main(argv + ["--device", "cpu", "--root_dir", str(tmp_path)])
+    assert str(err.value) == want and "robust steps" in want
