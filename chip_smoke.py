@@ -19,8 +19,11 @@ the v1 family's ``TT_vf_19lv2_imgnet`` at full width (eval, serve,
 train) with one forward of each other v1 model; and the rest of the
 registry's families at their widths (TT_general, the CIFAR zoo with
 ``tt_certif``, the DoReFa ResNets: eval, serve, train), and the robust
-models certified, attacked and trained with the robustness losses.  It
-holds every
+models certified, attacked and trained with the robustness losses; the
+flagship's eval and training data-parallel over two rank processes on the
+one card (``--num_processes 2``, gloo), and its ImageFolder eval through
+the native decoder (``--native_data``) where libjpeg and Pillow exist.
+It holds every
 CUDA kernel against its plain PyTorch version.  Phases, each printing
 one line of its numbers:
 
@@ -244,7 +247,35 @@ one line of its numbers:
            fuse head runs through the fused kernel), and each B=256
            forward's device time by kernel (``torch.profiler``); a LUT
            forward runs no convolution but the stem's and the last float
-           fuse head's.
+           fuse head's;
+21. distributed (after 19, before 20): two ranks of this script
+           (``--dist_rank``) on the one card, joined over gloo (NCCL refuses
+           two ranks on one card), the flagship at full width: (a) ``main
+           --mode eval --num_processes 2`` over the eval phase's 5,000
+           shard images at the global B, as conv and ``--lut --lut_path``
+           with that phase's archive (the fused switch on, as its
+           one-process run): the images scored, summed over the ranks,
+           exactly 5,000; top-1/5 within 0.1 points and the loss within
+           1e-3 relative of the one-process runs; img/s, each rank's idle
+           share and kernel launches; (b) ``main --mode train
+           --num_processes 2``, one epoch of 10 steps from the train
+           phase's pre-crop shards with the eval shards as validation:
+           the two ranks' final weights bit-equal, img/s over steps 2-10,
+           idle shares, peak memory; (c) one data-parallel f32 step of the
+           flagship against its plain version in this process (the two
+           half-batches in turn, their gradients and BN statistics
+           averaged): in the bounds of 19 (a), its update's norm within
+           ``DIST_UPDATE_NORM_TOL`` and its BN statistics within
+           ``DIST_BN_STAT_TOL`` of the plain step's.  A rank that fails or
+           runs past ``DIST_TIMEOUT_S`` fails the phase, and every rank is
+           stopped;
+22. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
+           imports (checked first), 512 seeded JPEGs of mixed sizes,
+           ``main --mode eval --data_dir`` with and without
+           ``--native_data``: equal metrics (identical pixels), both eval
+           rates and both decode rates; else the line ``native_data: not
+           run: <what is missing>``.  The whole smoke's seconds are the
+           ``smoke`` line.
 
 The card's name and power limit come before the ``kernels`` JSON, which is
 the line before the last; the last line is the
@@ -858,9 +889,9 @@ def eval_phase(args, model, out_dir: Path) -> dict:
               for k in ("top1", "top5", "loss")),
           "eval from the loaded LUT archive differs from the run that "
           "wrote it")
-    # the shards and the weights stay: the gates phase scores them, the
-    # train phase validates on the shards
-    lut_path.unlink()
+    # the shards, the weights and the archive stay: the gates phase scores
+    # the shards, the train phase validates on them, the distributed phase
+    # scores them again through the archive
     return results
 
 
@@ -1130,7 +1161,7 @@ def gates_phase(args, md, model, luts, x, out_dir: Path) -> dict:
         f"{summary['total_gates']} gates ({float_heads} in float heads), "
         f"the in-process compile {total}; differing heads {bad}")
     shutil.rmtree(work)
-    (eval_dir / "weights.pth").unlink()
+    # the eval weights stay: the distributed phase reads them
 
     # (h) the kernel's card tests, in a subprocess (no conftest: it
     # configures JAX)
@@ -1408,8 +1439,7 @@ def train_phase(args, model, out_dir: Path) -> dict:
     check(resumed["start_step"] == steps and first_step == steps + 1
           and np.isfinite(first_loss) and resumed["step"] == 2 * steps,
           f"resume from {last}: {resumed}")
-    shutil.rmtree(work)
-    shutil.rmtree(Path("build") / "chip_smoke_eval")
+    # the pre-crop shards stay for the distributed phase
     return {"parity": parity, "overfit": losses, "runs": runs}
 
 
@@ -3370,6 +3400,539 @@ def robust_phase(args, model, out_dir: Path) -> dict:
             "phase_s": phase_s}
 
 
+# ------------------------------------------------------------ distributed
+
+DIST_WORLD = 2                     # two ranks on the one card, over gloo
+DIST_TIMEOUT_S = 900               # a rank past this is killed (a deadlock)
+DIST_TOP_POINTS = 0.1              # top-1/5 within 0.1 points of one process
+DIST_LOSS_REL = 1e-3               # loss within 1e-3 relative of it
+# (c) the DP step's update and BN statistics against the plain step's: a
+# sum of the ranks' gradients (twice the mean) or rank 0's statistics in
+# place of their mean each lands far outside these
+DIST_UPDATE_NORM_TOL = 1e-6        # |du| / |dv| within 1e-6 of 1
+DIST_BN_STAT_TOL = 1e-6            # running mean/var within 1e-6 absolute
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def params_digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes, in state-dict
+    order: equal digests are bit-equal weights and statistics."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).contiguous()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_eval(argv: list) -> dict:
+    """One rank's ``main --mode eval`` (``argv`` joins the ranks): the
+    global metrics it returns, the images this rank scored (counted on the
+    card), the eval loop's wall time and this rank's device idle share
+    over it (its own kernels), the loop's time after its first batch
+    (which, in a fresh process, also loads the kernels and sets up cuDNN:
+    the card is synchronised once after it), and its kernel launches (the
+    counts set to 0 just before the run and read just after)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scale_imagenet_tpu_torch import main as cli
+
+    stats, scored = {}, []
+    real_evaluate, real_step = cli.evaluate, cli.make_eval_step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            res = real_evaluate(*a, **k)
+            torch.cuda.synchronize()
+            stats["end_t"] = time.perf_counter()
+            stats["wall_s"] = stats["end_t"] - t
+        stats["busy_s"] = busy_ns(device_spans(prof)) / 1e9
+        stats["images"] = k["totals"]["images"]
+        return res
+
+    def counting(*a, **k):
+        step = real_step(*a, **k)
+
+        def counted(images, labels):
+            scored.append((labels >= 0).sum())
+            out = step(images, labels)
+            if len(scored) == 1:
+                torch.cuda.synchronize()
+                stats["first_t"] = time.perf_counter()
+                stats["first_images"] = int(scored[0])
+            return out
+        return counted
+
+    reset_kernel_launches()
+    with mock.patch.object(cli, "evaluate", timed), \
+            mock.patch.object(cli, "make_eval_step", counting):
+        top1, top5, loss = cli.main(argv)
+    torch.cuda.synchronize()
+    return {"top1": top1, "top5": top5, "loss": loss,
+            "rank_images": int(torch.stack(scored).sum()),
+            "images": stats["images"], "eval_s": stats["wall_s"],
+            "first_batch_images": stats["first_images"],
+            "after_first_s": stats["end_t"] - stats["first_t"],
+            "device_idle_share": 1 - stats["busy_s"] / stats["wall_s"],
+            "launches": kernel_launches()}
+
+
+def rank_train(argv: list, steps: int, batch: int) -> dict:
+    """One rank's ``main --mode train`` of one epoch: img/s of the global
+    batch over steps 2..``steps``, this rank's idle share and peak memory,
+    the losses, the digest of its final weights, its launches."""
+    from scale_imagenet_tpu_torch import main as cli
+
+    timer = StepTimer(steps)
+    models = []
+    real_make, real_state = cli.make_train_step, cli.TrainState
+
+    def capture(model, *a, **k):
+        models.append(model)
+        return real_state(model, *a, **k)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    with mock.patch.object(cli, "make_train_step",
+                           lambda *a, **k: timer.wrap(real_make(*a, **k))), \
+            mock.patch.object(cli, "TrainState", capture), \
+            torch.enable_grad():
+        summary = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = timer.t1 - timer.t0
+    return {"steps": timer.calls, "step": summary["step"],
+            "train_img_s": (steps - 1) * batch / wall,
+            "step_ms": wall * 1e3 / (steps - 1),
+            "device_idle_share": 1 - timer.busy_s / wall,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [float(v) for v in timer.losses],
+            "val": summary["val"], "digest": params_digest(models[-1]),
+            "launches": kernel_launches()}
+
+
+def dp_step_batch(seed: int, B: int):
+    gen = torch.Generator().manual_seed(seed + 9)
+    return (torch.randn((B, 224, 224, 3), generator=gen),
+            torch.randint(0, 1000, (B,), generator=gen))
+
+
+def flagship(seed: int):
+    from scale_imagenet_tpu_torch.models import get_model
+
+    model = get_model("ttnet_imagenet_small", nfilter=8, tfilter=8,
+                      layers=1).init(seed=seed, device="cuda")
+    perturb_bn(model, seed)
+    return model
+
+
+def pack_bits(bits: list) -> np.ndarray:
+    return np.packbits(torch.cat([b.reshape(-1) for b in bits])
+                       .cpu().numpy())
+
+
+def rank_dp_step(seed: int, B: int, rank: int, world: int,
+                 work: Path) -> dict:
+    """(c) one data-parallel f32 step of the flagship (the port's
+    ``make_train_step``, which averages over the ranks) on this rank's
+    half of a seeded batch: its loss, and its Heaviside outputs (packed)
+    and, on rank 0, its weights written under ``work``."""
+    from scale_imagenet_tpu_torch.parallel import broadcast_module_
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    model = flagship(seed)
+    broadcast_module_(model)
+    opt, _ = make_optimizer(0.1)
+    ts = TrainState(model, opt.init(dict(model.named_parameters())))
+    step = make_train_step(model, opt)
+    x, y = dp_step_batch(seed, B)
+    b = B // world
+    bits = []
+    reset_kernel_launches()
+    with torch.enable_grad(), heaviside_outputs(bits):
+        _, metrics = step(ts, x[rank * b:(rank + 1) * b].cuda(),
+                          y[rank * b:(rank + 1) * b].cuda())
+    np.save(work / f"dp_bits_rank{rank}.npy", pack_bits(bits))
+    if rank == 0:
+        torch.save(model.state_dict(), work / "dp_rank0.pth")
+    return {"loss": float(metrics["loss"]), "heavisides": len(bits),
+            "launches": kernel_launches()}
+
+
+def dist_worker(args) -> int:
+    """A rank of the distributed phase (``--dist_rank``): joins the group
+    through ``main``'s flags, runs the jobs of ``--dist_jobs`` in order and
+    writes their results to ``--dist_out`` as JSON."""
+    from scale_imagenet_tpu_torch import config
+    from scale_imagenet_tpu_torch.parallel import initialize
+
+    spec = json.loads(Path(args.dist_jobs).read_text())
+    rank, world = args.dist_rank, spec["world"]
+    join = ["--num_processes", str(world), "--process_id", str(rank),
+            "--coordinator_address", spec["address"]]
+    initialize(spec["address"], world, rank)
+    results = []
+    for job in spec["jobs"]:
+        config.performance.fused_pointwise_blocks = job.get("fused", False)
+        t = time.perf_counter()
+        if job["kind"] == "eval":
+            res = rank_eval(job["argv"] + join)
+        elif job["kind"] == "train":
+            res = rank_train(job["argv"] + join, job["steps"], job["batch"])
+        else:
+            res = rank_dp_step(job["seed"], job["batch"], rank, world,
+                               Path(job["work"]))
+        res["run_s"] = time.perf_counter() - t
+        results.append(res)
+    Path(args.dist_out).write_text(json.dumps(results))
+    return 0
+
+
+def launch_dist(jobs: list, out_dir: Path) -> list:
+    """Run ``jobs`` on ``DIST_WORLD`` rank processes of this script (each
+    on the card, joined over gloo); every rank's results.  A rank that
+    fails, or outlives ``DIST_TIMEOUT_S``, fails the phase, and every rank
+    is stopped."""
+    spec = out_dir / "dist_jobs.json"
+    spec.write_text(json.dumps({"world": DIST_WORLD, "jobs": jobs,
+                                "address": f"localhost:{free_port()}"}))
+    procs, logs = [], []
+    try:
+        for r in range(DIST_WORLD):
+            log = open(out_dir / f"dist_rank{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--dist_rank", str(r), "--dist_jobs", str(spec),
+                 "--dist_out", str(out_dir / f"dist_rank{r}.json")],
+                stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + DIST_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"distributed rank {r} exited "
+              f"{p.returncode}; its log: "
+              f"{(out_dir / f'dist_rank{r}.log').read_text()[-3000:]}")
+    return [json.loads((out_dir / f"dist_rank{r}.json").read_text())
+            for r in range(DIST_WORLD)]
+
+
+def emulated_dp_step(seed: int, B: int, world: int):
+    """The plain version of (c) in one process: the ``world`` slices of the
+    batch in turn, each a training forward and backward from the same
+    weights, their gradients, new BN statistics and losses averaged, then
+    one SGD update.  Returns ``(model, loss, bits of each slice, the
+    largest gap between slice 0's new BN statistics and their mean)``: the
+    last is what a step that took rank 0's statistics would be off by."""
+    from scale_imagenet_tpu_torch.train import make_optimizer
+    from scale_imagenet_tpu_torch.train.losses import cross_entropy
+
+    model = flagship(seed)
+    opt, _ = make_optimizer(0.1)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    x, y = dp_step_batch(seed, B)
+    b = B // world
+    grads, stats, losses, bits, first = None, {}, [], [], {}
+    for r in range(world):
+        for p in params.values():
+            p.grad = None
+        got, sink = {}, []
+        with torch.enable_grad(), heaviside_outputs(sink):
+            logits = model(x[r * b:(r + 1) * b].cuda(), got)
+            loss = cross_entropy(logits, y[r * b:(r + 1) * b].cuda())
+            loss.backward()
+        losses.append(float(loss))
+        bits.append(pack_bits(sink))
+        g = {n: p.grad.detach().clone() for n, p in params.items()}
+        grads = g if grads is None else {n: grads[n] + g[n] for n in g}
+        for bn, (mean, var) in got.items():
+            first.setdefault(bn, (mean.detach(), var.detach()))
+            m0, v0 = stats.get(bn, (0.0, 0.0))
+            stats[bn] = (m0 + mean.detach(), v0 + var.detach())
+    with torch.no_grad():
+        for bn, (mean, var) in stats.items():
+            bn.running_mean.copy_(mean / world)
+            bn.running_var.copy_(var / world)
+    rank0_gap = max(float((f - t / world).abs().max())
+                    for bn, pair in stats.items()
+                    for f, t in zip(first[bn], pair))
+    opt.update(params, {n: g / world for n, g in grads.items()}, state, 0)
+    return model, sum(losses) / world, bits, rank0_gap
+
+
+def distributed_phase(args, out_dir: Path) -> dict:
+    """21: two ranks on the one card over gloo, the flagship at full
+    width: (a) ``main --mode eval --num_processes 2`` over the eval
+    phase's 5,000 shard images, conv and ``--lut --lut_path`` with that
+    phase's archive (global B = --batch): every image scored once over
+    the ranks, top-1/5 within 0.1 points and the loss within 1e-3
+    relative of the one-process runs, img/s, each rank's idle share and
+    launches; (b) ``main --mode train --num_processes 2``, one epoch of 10
+    steps from the train phase's pre-crop shards (global B): the ranks'
+    final weights bit-equal, img/s over steps 2-10, idle shares, peak
+    memory; (c) one data-parallel step against its plain version in one
+    process, in ``train_step_parity``'s bounds, its update's norm and BN
+    statistics within ``DIST_UPDATE_NORM_TOL`` and ``DIST_BN_STAT_TOL``."""
+    B = args.batch
+    torch.cuda.empty_cache()
+    work = Path("build") / "chip_smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    eval_dir = Path("build") / "chip_smoke_eval"
+    train_dir = Path("build") / "chip_smoke_train"
+    common = ["--eval_batch_size", str(B), "--seed", str(args.seed),
+              "--root_dir", str(work / "logs")]
+    evals = ["--mode", "eval", "--shards_dir", str(eval_dir / "shards"),
+             "--ckpt", str(eval_dir / "weights.pth"), *common]
+    jobs = [{"kind": "eval", "name": "conv", "argv": evals},
+            {"kind": "eval", "name": "lut", "fused": True,
+             "argv": evals + ["--lut", "--lut_path",
+                              str(eval_dir / "luts.npz")]},
+            {"kind": "train", "name": "train", "steps": TRAIN_IMAGES // B,
+             "batch": B, "argv": [
+                 "--mode", "train", "--shards_dir", str(train_dir /
+                                                        "shards"),
+                 "--eval_shards_dir", str(eval_dir / "shards"),
+                 "--train_batch_size", str(B), "--max_epochs", "1",
+                 *common]},
+            {"kind": "dp_step", "name": "dp_step", "seed": args.seed,
+             "batch": B, "work": str(work)}]
+    t0 = time.perf_counter()
+    ranks = launch_dist(jobs, out_dir)
+    launch_s = time.perf_counter() - t0
+    res = {job["name"]: [r[i] for r in ranks] for i, job in enumerate(jobs)}
+    return {"jobs": jobs, "results": res, "launch_s": launch_s,
+            "work": work}
+
+
+def check_distributed(dist: dict, evals: dict, args) -> dict:
+    """The checks and lines of phase 21 (``distributed_phase``), against
+    the eval phase's one-process runs; returns each kernel's launches by
+    rank and run."""
+    B = args.batch
+    res = dist["results"]
+    launches = {}
+    for name, one in (("conv", evals["conv"]), ("lut", evals["lut_load"])):
+        r0, r1 = res[name]
+        images = r0["rank_images"] + r1["rank_images"]
+        emit("distributed_eval", run=name, world=DIST_WORLD, batch=B,
+             images=images, images_reduced=r0["images"],
+             img_s=EVAL_IMAGES / max(r0["eval_s"], r1["eval_s"]),
+             img_s_after_first_batch=(
+                 EVAL_IMAGES - r0["first_batch_images"]
+                 - r1["first_batch_images"]) / max(r0["after_first_s"],
+                                                   r1["after_first_s"]),
+             top1=r0["top1"], top5=r0["top5"], loss=r0["loss"],
+             one_process={k: one[k] for k in ("top1", "top5", "loss",
+                                             "img_s")},
+             rank_eval_s=[r0["eval_s"], r1["eval_s"]],
+             rank_idle_share=[r0["device_idle_share"],
+                              r1["device_idle_share"]],
+             rank_launches=[r0["launches"], r1["launches"]],
+             run_s=[r0["run_s"], r1["run_s"]])
+        check(images == EVAL_IMAGES and r0["images"] == EVAL_IMAGES
+              and r1["images"] == EVAL_IMAGES,
+              f"distributed {name} eval scored {images} images "
+              f"(reduced {r0['images']}, {r1['images']}), expected "
+              f"{EVAL_IMAGES}")
+        check(all(r0[k] == r1[k] for k in ("top1", "top5", "loss")),
+              f"distributed {name} eval: the ranks' metrics differ")
+        for k in ("top1", "top5"):
+            check(abs(r0[k] - one[k]) <= DIST_TOP_POINTS,
+                  f"distributed {name} {k} {r0[k]} vs one process "
+                  f"{one[k]}")
+        check(abs(r0["loss"] - one["loss"]) <= DIST_LOSS_REL
+              * abs(one["loss"]), f"distributed {name} loss {r0['loss']} "
+              f"vs one process {one['loss']}")
+        for r, rr in enumerate((r0, r1)):
+            for kname, n in rr["launches"].items():
+                launches.setdefault(kname, {})[
+                    f"eval_dp_{name}_rank{r}"] = n
+    for r, rr in enumerate(res["lut"]):
+        check(rr["launches"]["lut_window_bits"] > 0,
+              f"rank {r} of the distributed LUT eval launched no "
+              "lut_window_bits")
+    t0, t1 = res["train"]
+    emit("distributed_train", world=DIST_WORLD, batch=B,
+         images=TRAIN_IMAGES, steps=t0["steps"], train_img_s=min(
+             t0["train_img_s"], t1["train_img_s"]),
+         step_ms=max(t0["step_ms"], t1["step_ms"]),
+         rank_idle_share=[t0["device_idle_share"], t1["device_idle_share"]],
+         rank_max_memory_allocated_gb=[t0["max_memory_allocated_gb"],
+                                       t1["max_memory_allocated_gb"]],
+         first_loss=t0["losses"][0], last_loss=t0["losses"][-1],
+         val=t0["val"], weights_equal=t0["digest"] == t1["digest"],
+         rank_launches=[t0["launches"], t1["launches"]],
+         run_s=[t0["run_s"], t1["run_s"]])
+    check(t0["steps"] == t1["steps"] == TRAIN_IMAGES // B
+          and t0["step"] == TRAIN_IMAGES // B,
+          f"distributed train ran {t0['steps']}, {t1['steps']} steps")
+    check(t0["digest"] == t1["digest"],
+          "distributed train: the ranks' final weights differ")
+    check(t0["losses"] == t1["losses"] and t0["val"] == t1["val"],
+          "distributed train: the ranks' metrics differ")
+    check(all(np.isfinite(t0["losses"])), f"losses {t0['losses']}")
+    for r, rr in enumerate((t0, t1)):
+        check(not any(rr["launches"].values()),
+              f"distributed train rank {r} launched {rr['launches']}")
+        for kname, n in rr["launches"].items():
+            launches.setdefault(kname, {})[f"train_dp_rank{r}"] = n
+    # (c) the DP step against its plain version in one process
+    work = dist["work"]
+    model, loss, bits, rank0_gap = emulated_dp_step(args.seed, B,
+                                                    DIST_WORLD)
+    start = flagship(args.seed)
+    dp = copy.deepcopy(start)
+    dp.load_state_dict(torch.load(work / "dp_rank0.pth"))
+    du = torch.cat([(p - s).double().ravel() for p, s in
+                    zip(dp.parameters(), start.parameters())])
+    dv = torch.cat([(p - s).double().ravel() for p, s in
+                    zip(model.parameters(), start.parameters())])
+    flips = outputs = 0
+    for r in range(DIST_WORLD):
+        got = np.load(work / f"dp_bits_rank{r}.npy")
+        check(got.shape == bits[r].shape,
+              f"rank {r} ran other Heavisides than its plain version")
+        flips += int(np.unpackbits(got ^ bits[r]).sum())
+        outputs += got.size * 8
+    bn_diff = max(float((a - b).abs().max()) for (n, a), (_, b) in zip(
+        dp.state_dict().items(), model.state_dict().items())
+        if n.endswith(("running_mean", "running_var")))
+    dloss = res["dp_step"][0]["loss"]
+    parity = {"batch": B, "world": DIST_WORLD, "dp_loss": dloss,
+              "plain_loss": loss,
+              "rel_loss_gap": abs(dloss - loss) / abs(loss),
+              "update_cosine": float(du @ dv / (du.norm() * dv.norm())),
+              "update_norm_ratio": float(du.norm() / dv.norm()),
+              "heaviside_outputs": outputs, "heaviside_flipped": flips,
+              "flip_share": flips / outputs,
+              "bn_stat_max_abs_diff": bn_diff,
+              "bn_stat_rank0_gap": rank0_gap,
+              "fused_launches_in_training": sum(
+                  r["launches"]["fused_pointwise_block"]
+                  for r in res["dp_step"])}
+    emit("distributed_step_parity", **parity)
+    check_parity(parity, "data-parallel step")
+    check(abs(parity["update_norm_ratio"] - 1) <= DIST_UPDATE_NORM_TOL,
+          f"data-parallel step: update norm {parity['update_norm_ratio']} "
+          f"times the plain step's, beyond 1 +- {DIST_UPDATE_NORM_TOL}")
+    check(bn_diff <= DIST_BN_STAT_TOL < rank0_gap,
+          f"data-parallel step: BN statistics {bn_diff} from the plain "
+          f"step's (limit {DIST_BN_STAT_TOL}; rank 0's alone would be "
+          f"{rank0_gap} off)")
+    shutil.rmtree(work)
+    return launches
+
+
+def native_data_missing() -> str | None:
+    """What the native decode phase lacks on this machine, or None: g++
+    with ``jpeglib.h`` and libjpeg (one tiny program compiled and linked),
+    and Pillow (to write the JPEGs and run the PIL route)."""
+    import importlib.util
+
+    if shutil.which("g++") is None:
+        return "g++"
+    r = subprocess.run(
+        ["g++", "-x", "c++", "-", "-ljpeg", "-o", "/dev/null"],
+        input="#include <cstdio>\n#include <jpeglib.h>\nint main() { "
+              "jpeg_decompress_struct c; jpeg_create_decompress(&c); "
+              "return 0; }\n", capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        errors = [ln for ln in r.stderr.splitlines() if "error" in ln]
+        return "jpeglib.h or libjpeg (g++: " + \
+            (errors or r.stderr.splitlines() or ["?"])[0][:200] + ")"
+    if importlib.util.find_spec("PIL") is None:
+        return "Pillow"
+    return None
+
+
+NATIVE_IMAGES = 512
+
+
+def native_data_phase(args, out_dir: Path) -> dict | None:
+    """22: where g++ finds libjpeg and Pillow imports, 512 seeded JPEGs of
+    mixed sizes (four classes) under ``build/``, ``main --mode eval
+    --data_dir`` over them with and without ``--native_data``: equal
+    metrics (identical pixels), both eval rates, and both decode rates
+    alone (one thread, the same images)."""
+    missing = native_data_missing()
+    if missing is not None:
+        print(f"native_data: not run: {missing}", flush=True)
+        return None
+    from PIL import Image
+
+    from scale_imagenet_tpu_torch.data import ImageFolder, \
+        imagenet_eval_transform
+    from scale_imagenet_tpu_torch.native.ttdata import load_eval_batch
+
+    work = Path("build") / "chip_smoke_native"
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(args.seed + 11)
+    sizes = [(500, 375), (375, 500), (640, 480), (256, 256), (300, 257),
+             (1024, 683)]
+    for i in range(NATIVE_IMAGES):
+        d = work / "val" / f"n{i % 4:08d}"
+        d.mkdir(parents=True, exist_ok=True)
+        w, h = sizes[i % len(sizes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        smooth = np.stack([(xx * (i % 7 + 1)) % 256, (yy * 3) % 256,
+                           ((xx + yy) // 2) % 256], -1)
+        noise = rng.integers(0, 64, (h, w, 3))
+        Image.fromarray(((smooth + noise) % 256).astype(np.uint8)).save(
+            d / f"{i:04d}.jpg", quality=90)
+    argv = ["--mode", "eval", "--data_dir", str(work), "--eval_batch_size",
+            str(args.batch), "--seed", str(args.seed), "--root_dir",
+            str(work / "logs")]
+    runs = {"pil": main_eval(argv, False, NATIVE_IMAGES),
+            "native": main_eval(argv + ["--native_data"], False,
+                                NATIVE_IMAGES)}
+    ds = ImageFolder(str(work / "val"), imagenet_eval_transform)
+    paths = [p for p, _ in ds.samples]
+    t = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    pil_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(0, len(paths), 64):
+        load_eval_batch(paths[i:i + 64])
+    native_s = time.perf_counter() - t
+    emit("native_data", images=NATIVE_IMAGES,
+         **{f"{k}_{m}": v[m] for k, v in runs.items()
+            for m in ("top1", "top5", "loss", "img_s",
+                      "device_idle_share")},
+         pil_decode_img_s=NATIVE_IMAGES / pil_s,
+         native_decode_img_s=NATIVE_IMAGES / native_s)
+    check(all(runs["pil"][k] == runs["native"][k]
+              for k in ("top1", "top5", "loss")),
+          f"--native_data metrics {runs['native']} differ from the PIL "
+          f"route's {runs['pil']}")
+    shutil.rmtree(work)
+    return runs
+
+
 def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
     """``main --mode serve --serve_batch batch`` (and ``argv``) in a
     thread, one concurrent raw-f32 request an image of ``reqs``: the
@@ -3419,11 +3982,20 @@ def main() -> int:
     ap.add_argument("--out_dir", type=Path, default=Path("build/chip_smoke"),
                     help="where the profile tables, the per-launch kernel "
                          "cases and the ptxas logs go")
+    # a rank of the distributed phase (``launch_dist`` starts them)
+    ap.add_argument("--dist_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist_jobs", type=str, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist_out", type=str, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     with torch.no_grad():
+        if args.dist_rank is not None:
+            return dist_worker(args)
         return run(args)
 
 
@@ -3437,6 +4009,14 @@ def run(args) -> int:
     from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, stem, \
         ttnet_imagenet_apply
 
+    smoke_t0 = time.perf_counter()
+    laps, lap_t = {}, [smoke_t0]
+
+    def lap(name):
+        """The seconds since the last lap, under ``name`` (the smoke
+        line's ``phase_s``: where the time limit goes)."""
+        now = time.perf_counter()
+        laps[name], lap_t[0] = now - lap_t[0], now
     card = card_line()
     print(card, flush=True)
     out_dir = args.out_dir
@@ -3475,6 +4055,7 @@ def run(args) -> int:
 
     gen = torch.Generator().manual_seed(args.seed + 2)
     x = torch.rand((B, 224, 224, 3), generator=gen).to(dev)
+    lap("setup")
 
     # ---------------------------------------------------------- kernels
     captured = []
@@ -3504,6 +4085,7 @@ def run(args) -> int:
     (out_dir / "kernel_cases.json").write_text(json.dumps(cases, indent=1))
     del captured
     torch.cuda.synchronize()
+    lap("kernels")
 
     # ------------------------------------------------------------ model
     ref = ttnet_imagenet_apply(model, x)
@@ -3555,6 +4137,7 @@ def run(args) -> int:
           f"table-exact launches {table_exact_launches}")
     check(torch.allclose(got_tab, got, rtol=1e-4, atol=1e-4),
           f"table-exact logits differ from the default by {tab_err}")
+    lap("model")
 
     # ------------------------------------------------------------ serve
     imgs = torch.rand((16, 224, 224, 3), generator=gen)
@@ -3579,47 +4162,58 @@ def run(args) -> int:
     check(serve_launches["lut_window_bits"] == 8 * (health["batches"] + 1),
           f"serve ran {serve_launches} launches")
     del smodel, sluts
+    lap("serve")
 
     # ---------------------------------------------------- fused kernels
     fused_rows = fused_kernels_phase(model, x, out_dir)
     torch.cuda.synchronize()
+    lap("fused_kernels")
 
     # ------------------------------------------------------------- eval
     evals = eval_phase(args, model, out_dir)
+    lap("eval")
 
     # ----------------------------------------------- serving transforms
     transforms = serving_transforms_phase(args, md, model, x, out_dir)
     torch.cuda.synchronize()
+    lap("serving_transforms")
 
     # ------------------------------------------------------------ gates
     gates = gates_phase(args, md, model, luts, x, out_dir)
     torch.cuda.synchronize()
+    lap("gates")
 
     # --------------------------------------------------------- VGG stem
     vgg = vgg_stem_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("vgg_stem")
 
     # --------------------------------------------------------------- v2
     v2 = v2_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("v2")
 
     # ------------------------------------------------- VGG-stem training
     with torch.enable_grad():
         vgg_train_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("vgg_stem_training")
 
     # ------------------------------------------------------ TT_FHE family
     fhe = fhe_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("tt_fhe_family")
 
     # ---------------------------------------------- TT_FHE training
     with torch.enable_grad():
         fhe_train_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("tt_fhe_training")
 
     # -------------------------------------------------------- v1 family
     v1_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("v1_family")
 
     # --------------------------------- TT_general, the CIFAR zoo, ResNets
     zoo = {"general": general_phase(args, out_dir)}
@@ -3628,14 +4222,34 @@ def run(args) -> int:
     torch.cuda.synchronize()
     zoo["resnet"] = resnet_phase(args, out_dir)
     torch.cuda.synchronize()
+    lap("tt_general_the_cifar_zoo_resnets")
 
     # ------------------------------------------------------------ robust
     zoo["robust"] = robust_phase(args, model, out_dir)
     torch.cuda.synchronize()
+    lap("robust")
 
     # ------------------------------------------------------------ train
     with torch.enable_grad():
         train_phase(args, model, out_dir)
+    lap("train")
+
+    # ------------------------------------------------------- distributed
+    t0 = time.perf_counter()
+    dist = distributed_phase(args, out_dir)
+    dist_launches = check_distributed(dist, evals, args)
+    shutil.rmtree(Path("build") / "chip_smoke_train")
+    shutil.rmtree(Path("build") / "chip_smoke_eval")
+    emit("distributed_phase", seconds=time.perf_counter() - t0,
+         ranks_s=dist["launch_s"])
+    lap("distributed")
+
+    # ------------------------------------------------------- native data
+    t0 = time.perf_counter()
+    native = native_data_phase(args, out_dir)
+    emit("native_data_phase", ran=native is not None,
+         seconds=time.perf_counter() - t0)
+    lap("native_data")
 
     # ------------------------------------------------------------- perf
     x1 = x[:1].contiguous()
@@ -3774,6 +4388,11 @@ def run(args) -> int:
         for phase, res in zoo.items():
             line["launches_by_path"][phase] = res["launches"][line["name"]]
             line["launches"] += res["launches"][line["name"]]
+        # the distributed phase's ranks, each run counted from 0 in its
+        # rank's process
+        for path, n in dist_launches.get(line["name"], {}).items():
+            line["launches_by_path"][path] = n
+            line["launches"] += n
     # the cases under the serving transforms: bf16 x, folded biases
     fused_line = kernels[2]
     fused_line["max_abs_err"] = max(
@@ -3786,6 +4405,8 @@ def run(args) -> int:
     kernels[3]["max_abs_err"] = max(
         r["max_abs_err"] for r in [*gates["cases"], *vgg["gates"],
                                    *fhe["gates"]])
+    lap("perf")
+    emit("smoke", seconds=time.perf_counter() - smoke_t0, phase_s=laps)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

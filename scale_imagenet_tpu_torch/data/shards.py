@@ -121,12 +121,13 @@ class ShardDataset:
 
         ``rank``/``world``: each process serves the shards assigned
         round-robin to its rank, and every rank yields the same number of
-        batches (``rank_batches``): short ranks pad their tail and append
-        all-pad batches (labels -1).  Multi-process training (``drop_last``
-        across ranks) comes with a later slice (``ROADMAP.md``)."""
-        if world > 1 and drop_last:
-            raise ValueError("drop_last across ranks is multi-process "
-                             "training, not ported yet (see ROADMAP.md)")
+        batches (``rank_batches``), so that the ranks' collectives stay in
+        lockstep (a rank with one batch more would wait for the others
+        forever).  Without ``drop_last`` (eval) short ranks pad their tail
+        and append all-pad batches (labels -1), so every image is scored;
+        with it (training) every rank stops at the fewest full batches of
+        any rank (``shards.py:127-190``).  Every rank computes every rank's
+        count from the shared metadata, with no communication."""
         mine = [s for s in range(len(self._paths)) if s % world == rank]
         rng = None
         if shuffle is not None:
@@ -153,6 +154,12 @@ class ShardDataset:
         if world == 1:
             yield from batches
             return
+        if drop_last:
+            cap = self.rank_batches(batch_size, world, drop_last=True)
+            for _, batch in zip(range(cap), batches):
+                yield batch
+            batches.close()      # stop the read-ahead threads
+            return
         count = 0
         for batch in pad_batches(batches, batch_size):
             count += 1
@@ -164,7 +171,8 @@ class ShardDataset:
                      drop_last: bool = False) -> int:
         """The per-rank batch count every rank computes from the shared
         metadata: the most ceil count of any rank (short ranks emit filler
-        batches); with ``drop_last`` the full-batch count (one rank)."""
+        batches); with ``drop_last`` the fewest full batches of any rank
+        (the others drop the rest)."""
         counts = [sum(len(self._images[s])
                       for s in range(r, len(self._paths), world))
                   for r in range(world)]
@@ -195,12 +203,14 @@ class ShardDataset:
 
 
 def shard_loader(root: str, batch_size: int, drop_last: bool = False,
-                 shuffle: bool = False, seed: int = 0):
+                 shuffle: bool = False, seed: int = 0, rank: int = 0,
+                 world: int = 1):
     """An iterable over a shard dir, usable where ``DataLoader`` is:
     ``dataset``, ``len()``, ``set_epoch`` and a fresh ``iter_batches`` per
-    pass; ``shuffle`` draws each epoch's order from ``seed + epoch``."""
+    pass; ``shuffle`` draws each epoch's order from ``seed + epoch``;
+    ``rank``/``world`` pick this process's shards (``iter_batches``)."""
     ds = ShardDataset(root)
-    n_batches = ds.rank_batches(batch_size, 1, drop_last)
+    n_batches = ds.rank_batches(batch_size, world, drop_last)
 
     class _Iter:
         dataset = ds
@@ -214,7 +224,7 @@ def shard_loader(root: str, batch_size: int, drop_last: bool = False,
 
         def __iter__(self):
             return ds.iter_batches(
-                batch_size, drop_last=drop_last,
+                batch_size, rank=rank, world=world, drop_last=drop_last,
                 shuffle=(seed + self._epoch) if shuffle else None)
 
     return _Iter()

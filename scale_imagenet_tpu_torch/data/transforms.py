@@ -8,7 +8,9 @@ train shards store for the on-device augmentation (``train/augment.py``).
 The 32x32 models' pipeline (``transforms.py:132-150``): eval ToTensor +
 Normalize with the CIFAR statistics; train HFlip + reflect-pad 4 +
 RandomCrop(32) + Normalize with the ImageNet statistics, as the reference
-does.  HWC layout as in the JAX package.  Pillow is imported inside the functions
+does.  The library readers' transforms (``make_dataset_loader``):
+ToTensor keeping the channel count, grayscale, and the Tiny training
+rotation and flip.  HWC layout as in the JAX package.  Pillow is imported inside the functions
 that use it, so the package imports where Pillow is absent (the shard path
 needs numpy only).
 """
@@ -150,3 +152,46 @@ def cifar_train_transform(img, rng: random.Random | None = None) \
     left = rng.randint(0, arr.shape[1] - 32)
     return _normalize(arr[top:top + 32, left:left + 32], IMAGENET_MEAN,
                       IMAGENET_STD)
+
+
+# The transforms of ``make_dataset_loader`` (``transforms.py:153-190``):
+# MNIST, CIFAR10 and Tiny with the channel count kept, grayscale when
+# nchannel == 1; Tiny training adds RandomRotation(20) + HFlip(0.5).  Bare
+# ToTensor, no normalization, as the reference has it.
+
+def _to_float_hwc(img) -> np.ndarray:
+    """ToTensor keeping the channel count: an 'L' image stays one channel
+    (``_to_float_chw_last`` repeats it to three for the RGB pipelines)."""
+    arr = np.asarray(img, dtype=np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
+
+def to_tensor_transform(img) -> np.ndarray:
+    """torchvision ToTensor in HWC layout: float32 in [0, 1]."""
+    return _to_float_hwc(img)
+
+
+def grayscale_transform(img) -> np.ndarray:
+    """Grayscale(num_output_channels=1) + ToTensor: PIL's 'L' (ITU-R 601-2
+    luma, as torchvision) -> (H, W, 1) float32."""
+    return _to_float_hwc(img.convert("L"))
+
+
+def tiny_train_transform(img, rng: random.Random | None = None,
+                         nchannel: int = 3) -> np.ndarray:
+    """RandomRotation(20) (angle ~ U(-20, 20), NEAREST, no expand) +
+    RandomHorizontalFlip(0.5) + ToTensor, grayscale first when ``nchannel
+    == 1``; every choice drawn from ``rng`` in the JAX package's order, so
+    the same state gives its output exactly."""
+    from PIL import Image
+
+    rng = rng or random
+    if nchannel == 1:
+        img = img.convert("L")
+    img = img.rotate(rng.uniform(-20.0, 20.0), resample=Image.NEAREST,
+                     expand=False)
+    if rng.random() < 0.5:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    return _to_float_hwc(img)

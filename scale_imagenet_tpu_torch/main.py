@@ -28,6 +28,12 @@ export`` and single-device ``--mode train`` subsets, and ``--list_models``.
     python -m scale_imagenet_tpu_torch.main --mode train \\
         --model cifar10lownoise --shards_dir T32 --stability_eps 0.01 \\
         --abstract_eps 0.01 --bias_decay 1e-3
+    python -m scale_imagenet_tpu_torch.main --mode eval --data_dir R \\
+        --native_data
+    python -m scale_imagenet_tpu_torch.main --mode train|eval ... \\
+        --num_processes 2 --process_id R --coordinator_address HOST:PORT
+    torchrun --nproc_per_node 2 -m scale_imagenet_tpu_torch.main \\
+        --mode train|eval ...
 
 ``--mode eval`` scores the model on pre-decoded uint8 shards
 (``--shards_dir``, normalized on the device) or on an ImageFolder
@@ -101,10 +107,24 @@ white-box attack (``robust/attack.py``): ``final:`` then carries
 [--abstract_coeff C] --bias_decay D [--bias_thresh T]`` trains with the
 robustness losses, which compose (``train/steps.py::
 make_robust_train_step``).
+``--native_data`` decodes the ImageFolder of ``--mode eval`` with the native
+libjpeg loader (``native/ttdata.py``: the same pixels as the PIL route;
+224^2 models only, as in JAX).
+``--num_processes N --process_id R --coordinator_address HOST:PORT`` (or
+torchrun's environment) runs eval and training data-parallel, one process
+a card (``parallel/``): each rank reads its slice of the data (the last
+batch padded and masked, filler batches keeping the ranks in lockstep in
+eval; every rank cut to the fewest full batches in training), the train
+step averages the gradients, the new BN statistics and the metrics over
+the ranks once a step, eval sums its metrics over them, and rank 0 alone
+prints, logs, writes checkpoints and the LUT archive.  ``--mesh_data``
+-1 (every rank) or the world; ``--platform`` and ``--cpu_devices`` (the
+JAX package's platform and virtual devices) are refused: the device is
+``--device``, the ranks ``--num_processes``.
 
-Every other flag of the JAX CLI arrives with a later slice and raises here
-naming ``ROADMAP.md``; the flags that the JAX CLI refuses in a mode raise
-with its messages.
+``--tp``, ``--sp`` and ``--mesh_model`` > 1 arrive with later slices and
+raise here naming ``ROADMAP.md``; the flags that the JAX CLI refuses in a
+mode raise with its messages.
 """
 
 from __future__ import annotations
@@ -145,6 +165,11 @@ from .device import resolve_device
 from .convert.from_jax import state_dict_from_jax
 from .convert.fuse_quant import fuse_resnet
 from .convert.torch_import import IMPORTERS
+from .native.ttdata import NativeImageFolder
+from .parallel import backend, barrier, broadcast_module_, initialize, \
+    is_coordinator, local_batch_size, make_mesh, rank_key, rank_seed, \
+    requested_world
+from .parallel.mesh import MESH_MODEL
 from .models import get_model, list_models
 from .models.multihead import MultiHeadBlock
 from .models.registry import ZOO_MODULES
@@ -304,6 +329,22 @@ _COMPILE_CACHE = ("--compile_cache is the JAX package's persistent XLA "
                   "compilation cache; the port runs no XLA programs (its "
                   "CUDA kernels are built once into build/kernels/) — drop "
                   "the flag")
+_PLATFORM = ("--platform/--cpu_devices pick the JAX package's platform and "
+             "its virtual CPU devices; the port runs one process a device: "
+             "pick the device with --device (cuda or cpu) and the ranks "
+             "with --num_processes — drop the flag")
+# ``scale_imagenet_tpu/main.py:1003-1005,1076-1081``
+_GATES_WORLD = ("--gates is a single-host verification runtime; drop "
+                "--num_processes")
+_NATIVE_SIZE = ("--native_data is the 256->224 ImageNet decode pipeline; "
+                "this model's resolution needs the PIL path")
+# the port's own rules: flags that would do nothing where they are given
+_NATIVE_SHARDS = ("--native_data decodes the JPEGs of --data_dir; "
+                  "--shards_dir holds decoded images — drop one")
+_ONE_PROCESS = "--{} runs in one process on one device; {} does not apply"
+_JOIN_ALONE = ("--coordinator_address/--process_id join a run of several "
+               "processes; give --num_processes N > 1 (or torchrun's "
+               "WORLD_SIZE)")
 
 # ``scale_imagenet_tpu/main.py:1222-1229``
 _REMAT_FAMILY = ("--remat rematerializes the ttnet_imagenet block stack, "
@@ -547,6 +588,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--native_data", action="store_true",
+                   help="--mode eval: decode the ImageFolder with the native "
+                        "libjpeg loader (native/ttdata.cpp; the same pixels "
+                        "as the PIL route, 224^2 models)")
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="data-parallel axis over the ranks: -1 (every rank) "
+                        "or the world (one process a card)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel axis: 1 (tensor parallelism and "
+                        "spatial partitioning come with later slices)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0's rendezvous (tcp://)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="the number of processes (ranks), one a card")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank")
+    p.add_argument("--platform", type=str, default=None,
+                   help="the JAX CLI's platform: refused here (--device)")
+    p.add_argument("--cpu_devices", type=int, default=None,
+                   help="the JAX CLI's virtual CPU devices: refused here "
+                        "(--num_processes)")
     p.add_argument("--ckpt", type=str, default=None,
                    help="reference-layout .pth state dict (loaded strict), "
                         "or a checkpoint dir (its model.pth; training "
@@ -559,6 +621,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"{', '.join(_MODES)}")
     if args.compile_cache:
         raise ValueError(_COMPILE_CACHE)
+    if args.platform or args.cpu_devices:
+        raise ValueError(_PLATFORM)
+    if args.mesh_model != 1:
+        raise ValueError(MESH_MODEL.format(model=args.mesh_model))
+    # set by ``main`` once the process group is joined
+    args.rank, args.world = 0, 1
+    world = requested_world(args.num_processes)
+    if world <= 1 and (args.coordinator_address
+                       or args.process_id is not None):
+        raise ValueError(_JOIN_ALONE)
     if args.verilog and args.mode != "compile":
         raise ValueError("--verilog exports --mode compile artifacts; "
                          f"it does nothing in --mode {args.mode}")
@@ -584,17 +656,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "--fold_bn": args.fold_bn, "--bf16": args.bf16,
                      "--fuse_quant": args.fuse_quant}
     if args.mode == "eval":
-        _refuse_in_eval(args, training_flags, robust_train)
+        _refuse_in_eval(args, training_flags, robust_train, world)
     if args.mode == "serve":
         # ``scale_imagenet_tpu/main.py:862-880``, in its order
         for flag, on in {"--amp": args.amp, **eval_flags, **robust_flags,
                          "--shards_dir": args.shards_dir is not None,
-                         **training_flags}.items():
+                         "--native_data": args.native_data,
+                         **training_flags,
+                         "--num_processes": world > 1}.items():
             if on:
                 raise ValueError(f"--mode serve is single-host inference "
                                  f"serving; {flag} does not apply")
     if args.mode == "train":
         _refuse_in_train(args, unknown, robust_train)
+    if args.mode in ("compile", "export") or args.write_shards:
+        what = "write_shards" if args.write_shards else f"mode {args.mode}"
+        for flag, on in (("--mesh_data", args.mesh_data != -1),
+                         ("--native_data", args.native_data
+                          and args.mode == "compile"),
+                         ("--num_processes", world > 1
+                          and args.mode != "export")):
+            if on:
+                raise ValueError(_ONE_PROCESS.format(what, flag))
     if args.mode == "compile":
         given = {f for f, on in {**training_flags, **eval_flags}.items()
                  if on} | {f.split("=")[0] for f in unknown}
@@ -612,7 +695,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         # ``scale_imagenet_tpu/main.py:743-770``, for the flags the port has
         for flag, on in {**serving_flags, **training_flags, **eval_flags,
                          **robust_flags,
-                         "--shards_dir": args.shards_dir is not None}.items():
+                         "--shards_dir": args.shards_dir is not None,
+                         "--native_data": args.native_data,
+                         "--num_processes": world > 1}.items():
             if on:
                 raise ValueError(f"--mode export writes the UNMODIFIED "
                                  f"weights in the reference layout; {flag} "
@@ -646,10 +731,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                                                or args.data_dir):
         raise ValueError(f"--mode {args.mode} reads --shards_dir or "
                          "--data_dir; give one")
+    if args.native_data and args.shards_dir and args.mode == "eval":
+        raise ValueError(_NATIVE_SHARDS)
     return args
 
 
-def _refuse_in_eval(args, training_flags: dict, robust_train: bool) -> None:
+def _refuse_in_eval(args, training_flags: dict, robust_train: bool,
+                    world: int) -> None:
     """The JAX CLI's eval refusals (``scale_imagenet_tpu/main.py:959-1029``)
     in its order, for the flags the port has."""
     ordered = {"--amp": training_flags["--amp"],
@@ -665,6 +753,8 @@ def _refuse_in_eval(args, training_flags: dict, robust_train: bool) -> None:
             raise ValueError(_GATES_WITH_BF16)
         if args.fold_bn:
             raise ValueError(_GATES_WITH_FOLD)
+        if world > 1:
+            raise ValueError(_GATES_WORLD)
     unmodified = (("--lut", args.lut), ("--gates", args.gates),
                   ("--bf16", args.bf16), ("--fold_bn", args.fold_bn))
     if args.certify > 0:
@@ -683,14 +773,14 @@ def _refuse_in_eval(args, training_flags: dict, robust_train: bool) -> None:
 
 def _refuse_in_train(args, unknown: list, robust_train: bool) -> None:
     """The JAX CLI's train refusals (``scale_imagenet_tpu/main.py:1184-1266,
-    1385-1388``) in its order, for the flags the port has (``--native_data``
-    and ``--sp`` among the unported ones)."""
+    1385-1388``) in its order, for the flags the port has (``--sp`` among
+    the unported ones)."""
     named = {f.split("=")[0] for f in unknown}
     given = {"--lut": args.lut, "--gates": bool(args.gates),
              "--certify": args.certify > 0,
              "--attack": bool(args.attack) or args.attack_eps > 0,
              "--attack_lr": args.attack_lr > 0, "--bf16": args.bf16,
-             "--native_data": "--native_data" in named,
+             "--native_data": args.native_data,
              "--fold_bn": args.fold_bn, "--fuse_quant": args.fuse_quant,
              "--sp": "--sp" in named}
     for flag, on in given.items():
@@ -832,15 +922,17 @@ def _pick_transforms(image_size: int):
     return cifar_eval_transform, cifar_train_transform
 
 
-def _keyed(forward, stochastic: bool, seed: int):
+def _keyed(forward, stochastic: bool, seed: int, rank: int = 0,
+           world: int = 1):
     """``forward(x, **kw)`` as ``x -> logits``.  A stochastic model
     (``TT_FHE_small``) gets fresh coin flips at every call, the key
     ``NoiseKey(seed).child(call index)``, as the JAX eval step folds a
     per-call counter into ``PRNGKey(seed)`` (``main.py:1129-1138``): a run
-    repeats from its seed."""
+    repeats from its seed.  Each of several ranks keys its own flips
+    (``rank_key``)."""
     if not stochastic:
         return forward
-    root, calls = NoiseKey(seed), itertools.count()
+    root, calls = rank_key(NoiseKey(seed), rank, world), itertools.count()
     return lambda x: forward(x, noise=root.child(next(calls)))
 
 
@@ -881,19 +973,25 @@ def _refuse_compile(config) -> None:
 
 def load_or_compile_luts(model, lut_path: str | None = None):
     """The model's truth tables: loaded from ``lut_path`` when it exists,
-    else compiled (2^n patterns a head) and written there if given."""
+    else compiled (2^n patterns a head) and written there if given, by the
+    coordinator only (ranks racing one archive would tear it,
+    ``scale_imagenet_tpu/main.py:370-394``).  With several ranks every
+    rank looks for the archive before any rank writes it (a barrier), so
+    that none reads a half-written file."""
     family = _family(model.cfg)
     if family.lut_compile is None:
         raise ValueError(_SERVING_FAMILY.format(
             "--lut", type(model.cfg).__name__))
     if lut_path and not lut_path.endswith(".npz"):
         lut_path += ".npz"
-    if lut_path and os.path.exists(lut_path):
+    found = bool(lut_path) and os.path.exists(lut_path)
+    barrier()
+    if found:
         print(f"loading LUTs from {lut_path}")
         return load_luts(lut_path, model)
     print("compiling truth tables (2^n patterns per head)...")
     luts = family.lut_compile(model)
-    if lut_path:
+    if lut_path and is_coordinator():
         save_luts(lut_path, luts, model)
         print(f"saved LUTs -> {lut_path}")
     return luts
@@ -997,26 +1095,40 @@ def _val_loader(cfg, shards_dir: str | None, image_size: int):
     """``(loader, normalize)`` of an eval pass: uint8 shards (normalized
     on the device with the ImageNet statistics, at every size, as in the
     JAX package), else the ImageFolder ``<data_dir>/val`` through the
-    model's eval transform."""
-    bs = cfg.eval_batch_size
+    model's eval transform, or decoded by the native loader under
+    ``--native_data``.  Each of several ranks reads its slice, at its
+    local batch, padded to the same number of batches as every other
+    rank's."""
+    if cfg.eval_batch_size % cfg.world:
+        raise ValueError(f"eval batch {cfg.eval_batch_size} not divisible "
+                         f"by {cfg.world} processes")
+    bs = cfg.eval_batch_size // cfg.world
     if shards_dir:
-        return shard_loader(shards_dir, bs), (IMAGENET_MEAN, IMAGENET_STD)
-    ds = ImageFolder(os.path.join(cfg.data_dir, "val"),
-                     _pick_transforms(image_size)[0])
-    return DataLoader(ds, bs, num_workers=cfg.num_workers), None
+        return shard_loader(shards_dir, bs, rank=cfg.rank,
+                            world=cfg.world), (IMAGENET_MEAN, IMAGENET_STD)
+    root = os.path.join(cfg.data_dir, "val")
+    if cfg.native_data:
+        if image_size != 224:
+            raise ValueError(_NATIVE_SIZE)
+        ds = NativeImageFolder(root)
+    else:
+        ds = ImageFolder(root, _pick_transforms(image_size)[0])
+    return DataLoader(ds, bs, num_workers=cfg.num_workers, rank=cfg.rank,
+                      world=cfg.world), None
 
 
 def _score(cfg, apply, loader, normalize, device, logger, epoch: int = 0,
-           verbose: bool = True, **step):
+           verbose: bool = True, totals: dict | None = None, **step):
     """One eval pass (last batch padded and masked): ``(top1, top5,
     loss)``, and the robust extras as a fourth item when ``step``
-    (``make_eval_step``'s keywords) asks for them."""
-    bs = cfg.eval_batch_size
+    (``make_eval_step``'s keywords) asks for them; over every rank."""
+    bs = cfg.eval_batch_size // cfg.world
     feed = device_prefetch(pad_batches(iter(loader), bs), device)
     try:
         return evaluate(make_eval_step(apply, normalize, **step), feed,
                         logger=logger, epoch=epoch,
-                        log_interval=cfg.log_interval, verbose=verbose)
+                        log_interval=cfg.log_interval, verbose=verbose,
+                        totals=totals)
     finally:
         feed.close()
 
@@ -1026,13 +1138,16 @@ def _eval(cfg, apply, device, md, model, noise=None):
     ``--attack`` a fourth item, ``{"cert": ..., "adv": ...}``, whose tags
     ``final:`` prints as the JAX CLI does (``main.py:1162-1169``)."""
     image_size = md.config.image_size
+    coord = cfg.rank == 0
     loader, normalize = _val_loader(cfg, cfg.shards_dir, image_size)
     if cfg.shards_dir:
-        print(f"eval shards: {len(loader.dataset)} images")
+        if coord:
+            print(f"eval shards: {len(loader.dataset)} images")
         certify_stats = normalize
     else:
-        print(f"eval dataset: {len(loader.dataset)} images / "
-              f"{len(loader.dataset.classes)} classes")
+        if coord:
+            print(f"eval dataset: {len(loader.dataset)} images / "
+                  f"{len(loader.dataset.classes)} classes")
         # the ball in pixel units through the transform's normalization
         certify_stats = (IMAGENET_MEAN, IMAGENET_STD) if image_size == 224 \
             else (CIFAR_MEAN, CIFAR_STD)
@@ -1041,76 +1156,102 @@ def _eval(cfg, apply, device, md, model, noise=None):
         attack = {"kind": cfg.attack, "eps": cfg.attack_eps,
                   "steps": cfg.attack_steps,
                   "step_size": cfg.attack_lr or None}
-    logger = MetricsLogger(_run_dir(cfg, "logs"))
+    # logs are the coordinator's (``scale_imagenet_tpu/main.py:952-954``)
+    logger = MetricsLogger(_run_dir(cfg, "logs")) if coord else None
+    totals: dict = {}
     try:
         res = _score(cfg, apply, loader, normalize, device, logger,
-                     noise=noise, md=md, model=model,
-                     certify_eps=cfg.certify, certify_stats=certify_stats,
-                     attack=attack)
+                     verbose=coord, totals=totals, noise=noise, md=md,
+                     model=model, certify_eps=cfg.certify,
+                     certify_stats=certify_stats, attack=attack)
         top1, top5, loss = res[:3]
         extras = res[3] if len(res) > 3 else {}
         tags = {"cert": f"certified@eps={cfg.certify:g}",
                 "adv": f"adversarial@eps={cfg.attack_eps:g}"}
-        for k, v in extras.items():
-            logger.add_scalar(f"Accuracy/{tags[k]}", v, 0)
+        if logger is not None:
+            for k, v in extras.items():
+                logger.add_scalar(f"Accuracy/{tags[k]}", v, 0)
     finally:
-        logger.close()
-    print(f"final: top1 {top1:.3f}% top5 {top5:.3f}% loss {loss:.4f}"
-          + "".join(f" {tags[k]} {v:.3f}%" for k, v in extras.items()))
+        if logger is not None:
+            logger.close()
+    if coord:
+        print(f"scored {totals['images']} images"
+              + (f" over {cfg.world} ranks" if cfg.world > 1 else ""))
+        print(f"final: top1 {top1:.3f}% top5 {top5:.3f}% loss {loss:.4f}"
+              + "".join(f" {tags[k]} {v:.3f}%" for k, v in extras.items()))
     if extras:
         return top1, top5, loss, extras
     return top1, top5, loss
 
 
-def _train_loader(cfg, image_size: int):
-    """``(loader, train-step kwargs)``: shards, with the full augmentation
-    on the card from pre-crop shards (stored larger than the model input)
-    and the flip alone from same-size ones (the 32x32 models' shards); or
-    ``<data_dir>/train`` through the model's PIL train transform, drawn
-    from a ``random.Random(seed)``."""
-    tbs = cfg.train_batch_size
+def _train_loader(cfg, image_size: int, tbs: int):
+    """``(loader, train-step kwargs)`` at the local batch ``tbs``: shards,
+    with the full augmentation on the card from pre-crop shards (stored
+    larger than the model input) and the flip alone from same-size ones
+    (the 32x32 models' shards); or ``<data_dir>/train`` through the
+    model's PIL train transform, drawn from a ``random.Random`` of the
+    seed (and of the rank, with several).  Each rank reads its slice, cut
+    to the fewest full batches of any rank."""
+    rank, world = cfg.rank, cfg.world
     if cfg.shards_dir:
         loader = shard_loader(cfg.shards_dir, tbs, drop_last=True,
-                              shuffle=True, seed=cfg.seed)
+                              shuffle=True, seed=cfg.seed, rank=rank,
+                              world=world)
         shard_hw = loader.dataset.meta["shape"][0]
         full = shard_hw > image_size
-        if full:
+        if full and rank == 0:
             print(f"on-device augmentation: RandomResizedCrop({shard_hw}"
                   f"->{image_size}) + flip + ColorJitter")
         return loader, dict(normalize=(IMAGENET_MEAN, IMAGENET_STD),
                             augment="full" if full else True)
-    transform = functools.partial(_pick_transforms(image_size)[1],
-                                  rng=random.Random(cfg.seed))
+    transform = functools.partial(
+        _pick_transforms(image_size)[1],
+        rng=random.Random(rank_seed(cfg.seed, rank, world)))
     ds = ImageFolder(os.path.join(cfg.data_dir, "train"), transform)
     return DataLoader(ds, tbs, shuffle=True, num_workers=cfg.num_workers,
-                      drop_last=True, seed=cfg.seed), {}
+                      drop_last=True, seed=cfg.seed, rank=rank,
+                      world=world), {}
 
 
-def _step_seed(seed: int, step: int) -> int:
+def _step_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
     """The augmentation generator's seed at ``step``: a resumed run draws
-    what an uninterrupted one would."""
-    return (seed << 32) + step
+    what an uninterrupted one would, and each of several ranks draws its
+    own (``rank_seed``)."""
+    return rank_seed((seed << 32) + step, rank, world)
 
 
 def _train(cfg, md, model, device):
-    """``--mode train`` (``scale_imagenet_tpu/main.py:1178-1551`` without a
-    mesh).  Returns a summary: the steps, the logged train metrics, each
-    epoch's validation and the checkpoint dir."""
+    """``--mode train`` (``scale_imagenet_tpu/main.py:1178-1551``; with
+    several ranks its data-parallel step).  Returns a summary: the steps,
+    the logged train metrics, each epoch's validation and the checkpoint
+    dir."""
+    rank, world = cfg.rank, cfg.world
+    coord = rank == 0
     if cfg.remat:
         model.cfg = dataclasses.replace(model.cfg, remat=True)
-    if cfg.train_batch_size % cfg.grad_accum:
+    if cfg.train_batch_size % world:
+        raise ValueError(f"train batch {cfg.train_batch_size} not "
+                         f"divisible by {world} processes")
+    local_tbs = cfg.train_batch_size // world
+    # one card a process: a rank's batch is its one shard's
+    if local_tbs % cfg.grad_accum:
         raise ValueError(f"--grad_accum {cfg.grad_accum}: per-shard batch "
-                         f"{cfg.train_batch_size}/1 must be divisible by "
-                         "grad_accum")
+                         f"{local_tbs}/1 must be divisible by grad_accum")
     size = md.config.image_size
-    loader, train_kwargs = _train_loader(cfg, size)
+    loader, train_kwargs = _train_loader(cfg, size, local_tbs)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
+        # ``scale_imagenet_tpu/main.py:1310-1320``
+        hint = ("multi-process shard training needs >= 1 shard FILE per "
+                "rank (round-robin assignment + lockstep truncation) — "
+                "rewrite with a smaller --shard_size, or shrink "
+                "--train_batch_size") if cfg.shards_dir else \
+            ("the train/ directory holds fewer images than one batch "
+             "(drop_last) — shrink --train_batch_size or add data")
         raise ValueError(
-            f"0 train steps per epoch: rank 0's data slice is smaller than "
-            f"its local batch {cfg.train_batch_size} (world=1; the training "
-            "data holds fewer images than one batch (drop_last) — shrink "
-            "--train_batch_size or add data)")
+            f"0 train steps per epoch: rank {rank}'s data slice is "
+            f"smaller than its local batch {local_tbs} (world={world}; "
+            + hint + ")")
     # the reference picks its MultiStepLR milestones by run length
     milestones = (30, 60, 90) if cfg.max_epochs == 90 else (60, 100, 140)
     opt, _ = make_optimizer(cfg.lr, weight_decay=cfg.wd,
@@ -1123,6 +1264,8 @@ def _train(cfg, md, model, device):
         opt = dataclasses.replace(opt, ema=params_ema(cfg.ema))
     if cfg.ckpt:
         load_checkpoint(model, cfg.ckpt, md.name)
+    # every rank starts from rank 0's weights and statistics
+    broadcast_module_(model)
     ts = TrainState(model, opt.init(dict(model.named_parameters())))
     if cfg.ckpt:
         try:
@@ -1152,7 +1295,9 @@ def _train(cfg, md, model, device):
                                      accum=cfg.grad_accum,
                                      label_smooth=cfg.label_smooth,
                                      **train_kwargs)
-    logger = MetricsLogger(_run_dir(cfg, "logs"))
+    # logs and checkpoints are the coordinator's
+    # (``scale_imagenet_tpu/main.py:1410-1415,1545-1555``)
+    logger = MetricsLogger(_run_dir(cfg, "logs")) if coord else None
     validate = None
     if cfg.eval_shards_dir or (
             cfg.data_dir and os.path.isdir(os.path.join(cfg.data_dir,
@@ -1166,11 +1311,13 @@ def _train(cfg, md, model, device):
     ckpt_dir = _run_dir(cfg, "ckpt")
     # best tracking lives at the stable <root>/ckpt/<log_name>/ parent, so
     # it runs across resumed runs
-    ckpt = CheckpointManager(ckpt_dir, best_root=os.path.dirname(ckpt_dir))
+    ckpt = CheckpointManager(ckpt_dir, best_root=os.path.dirname(
+        ckpt_dir)) if coord else None
     conv_apply = _family(model.cfg).conv
     # a step's key: the coin flips of a stochastic forward, and the robust
-    # step's sign pattern
-    noise_root = NoiseKey(cfg.seed) if md.stochastic or robust else None
+    # step's sign pattern; each rank its own
+    noise_root = rank_key(NoiseKey(cfg.seed), rank, world) \
+        if md.stochastic or robust else None
     metadata = {"model_name": md.name,
                 "config": dataclasses.asdict(model.cfg)}
     generator = torch.Generator(device)
@@ -1182,7 +1329,8 @@ def _train(cfg, md, model, device):
             feed = device_prefetch(iter(loader), device)
             try:
                 for i, (images, labels) in enumerate(feed):
-                    generator.manual_seed(_step_seed(cfg.seed, ts.step))
+                    generator.manual_seed(_step_seed(cfg.seed, ts.step,
+                                                     rank, world))
                     # the step's coin flips, keyed by the step: a resumed
                     # run draws what an uninterrupted one would
                     noise = None if noise_root is None else \
@@ -1190,6 +1338,8 @@ def _train(cfg, md, model, device):
                     ts, metrics = train_step(ts, images, labels, generator,
                                              noise)
                     if i % cfg.log_interval == 0:
+                        # every rank reads the metrics (the means over
+                        # the ranks), the coordinator logs them
                         loss = float(metrics["loss"])
                         top1 = float(metrics["top1"])
                         step = epoch * steps_per_epoch + i
@@ -1199,11 +1349,14 @@ def _train(cfg, md, model, device):
                             sloss = float(metrics["stability_loss"])
                             row += (sloss,)
                             more = f" stability_loss {sloss:.4f}"
-                            logger.add_scalar("Loss/stability", sloss, step)
-                        print(f"epoch {epoch} [{i}/{steps_per_epoch}] "
-                              f"loss {loss:.4f} top1 {top1:.2f}{more}")
-                        logger.add_scalar("Loss/train", loss, step)
-                        logger.add_scalar("Accuracy/train", top1, step)
+                            if coord:
+                                logger.add_scalar("Loss/stability", sloss,
+                                                  step)
+                        if coord:
+                            print(f"epoch {epoch} [{i}/{steps_per_epoch}] "
+                                  f"loss {loss:.4f} top1 {top1:.2f}{more}")
+                            logger.add_scalar("Loss/train", loss, step)
+                            logger.add_scalar("Accuracy/train", top1, step)
                         summary["train"].append(row)
             finally:
                 feed.close()
@@ -1212,33 +1365,41 @@ def _train(cfg, md, model, device):
                 row = {"epoch": epoch, "step": ts.step}
                 top1, top5, vloss = validate(_keyed(
                     lambda x, **k: conv_apply(model, x, **k),
-                    md.stochastic, cfg.seed), epoch)
-                print(f"epoch {epoch} val: top1 {top1:.3f}% "
-                      f"top5 {top5:.3f}% loss {vloss:.4f}")
-                logger.add_scalar("Accuracy/val", top1, epoch)
+                    md.stochastic, cfg.seed, rank, world), epoch)
+                if coord:
+                    print(f"epoch {epoch} val: top1 {top1:.3f}% "
+                          f"top5 {top5:.3f}% loss {vloss:.4f}")
+                    logger.add_scalar("Accuracy/val", top1, epoch)
                 row["top1"], row["top5"], row["loss"] = top1, top5, vloss
                 metric = top1
                 ema = get_ema(ts.opt_state)
                 if ema is not None:
                     e1, e5, eloss = validate(_keyed(
                         lambda x, **k: torch.func.functional_call(
-                            model, ema, (x,), k), md.stochastic, cfg.seed),
-                        epoch)
-                    print(f"epoch {epoch} val[ema]: top1 {e1:.3f}% "
-                          f"top5 {e5:.3f}% loss {eloss:.4f}")
-                    logger.add_scalar("Accuracy/val_ema", e1, epoch)
+                            model, ema, (x,), k), md.stochastic, cfg.seed,
+                        rank, world), epoch)
+                    if coord:
+                        print(f"epoch {epoch} val[ema]: top1 {e1:.3f}% "
+                              f"top5 {e5:.3f}% loss {eloss:.4f}")
+                        logger.add_scalar("Accuracy/val_ema", e1, epoch)
                     row["ema_top1"] = metric = e1   # the deployable weights
                 summary["val"].append(row)
-            ckpt.save(ts.step, train_payload(ts), metric=metric,
-                      metadata=metadata)
+            if ckpt is not None:
+                ckpt.save(ts.step, train_payload(ts), metric=metric,
+                          metadata=metadata)
+        # no rank returns before the coordinator's last checkpoint is
+        # written
+        barrier()
     except (KeyboardInterrupt, Exception):
         # a snapshot of the full train state, so the run resumes from the
         # crash point
-        ckpt.save(ts.step, train_payload(ts),
-                  metadata={**metadata, "crash": True})
+        if ckpt is not None:
+            ckpt.save(ts.step, train_payload(ts),
+                      metadata={**metadata, "crash": True})
         raise
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     summary["step"] = ts.step
     return summary
 
@@ -1262,7 +1423,22 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
                             num_workers=cfg.num_workers)
         print(f"wrote {meta['n']} images -> {cfg.write_shards}")
         return meta
-    device = resolve_device(cfg.device)
+    # the process group (and each rank's card) before any other CUDA call
+    cfg.rank, cfg.world, device = initialize(
+        cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+        resolve_device(cfg.device))
+    if cfg.mode in ("eval", "train"):
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, cfg.world)
+        if cfg.rank == 0:
+            # ``scale_imagenet_tpu/main.py:948-951``
+            print(f"mesh: {mesh} over {cfg.world} devices"
+                  + (f" / {cfg.world} processes ({backend()})"
+                     if cfg.world > 1 else ""))
+        if cfg.mode == "eval":
+            local_batch_size(cfg.eval_batch_size, mesh)
+    elif cfg.mode == "serve":
+        # one process, one card
+        make_mesh(cfg.mesh_data, cfg.mesh_model, 1)
     md = get_model(cfg.model, **{
         "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
         **parse_model_args(cfg.model_arg)})
@@ -1273,6 +1449,8 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         return _train(cfg, md, model, device)
     if cfg.ckpt:
         load_checkpoint(model, cfg.ckpt, md.name)
+    # every rank serves rank 0's weights
+    broadcast_module_(model)
     if cfg.mode == "compile":
         return _compile(cfg, md, model)
     if cfg.mode == "export":
@@ -1298,9 +1476,11 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
             return conv_apply(model, x, **k)
         if cfg.mode == "eval":
             # fresh coin flips a batch for a stochastic model, from --seed:
-            # the eval step keys batch i with NoiseKey(seed).child(i)
-            return _eval(cfg, forward, device, md, model,
-                         NoiseKey(cfg.seed) if md.stochastic else None)
+            # the eval step keys batch i with NoiseKey(seed).child(i) (each
+            # rank from its own root)
+            return _eval(cfg, forward, device, md, model, rank_key(
+                NoiseKey(cfg.seed), cfg.rank, cfg.world)
+                if md.stochastic else None)
         apply = _keyed(forward, md.stochastic, cfg.seed)
     size = md.config.image_size
     if cfg.mode == "eval":

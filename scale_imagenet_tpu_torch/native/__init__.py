@@ -1,6 +1,8 @@
-"""The port's binding of the native logic engine ``native/ttlogic.cpp``
-(built at first use into ``build/native/``; no fallback)."""
+"""The port's bindings of the native logic engine ``native/ttlogic.cpp``
+and of the native image loader ``native/ttdata.cpp`` (each built at first
+use into ``build/native/``; no fallback)."""
 
+from .ttdata import NativeImageFolder, load_eval_batch
 from .ttlogic import (
     count_term_gates,
     espresso_cover,
@@ -14,6 +16,8 @@ from .ttlogic import (
 )
 
 __all__ = [
+    "NativeImageFolder",
+    "load_eval_batch",
     "count_term_gates",
     "espresso_cover",
     "eval_covers",

@@ -7,6 +7,7 @@ import time
 
 import torch
 
+from ..parallel.data_parallel import all_reduce_sums
 from ..train.metrics import AverageMeter
 
 _KEYS = ("loss", "top1", "top5", "n")
@@ -15,11 +16,19 @@ _EXTRAS = ("cert", "adv")
 
 
 def evaluate(eval_step, loader, logger=None, epoch: int = 0,
-             log_interval: int = 40, verbose: bool = True):
+             log_interval: int = 40, verbose: bool = True,
+             totals: dict | None = None):
     """Run one evaluation epoch over ``loader`` (``(images, labels)``
     batches on the step's device); returns ``(top1, top5, loss)``, and the
     averages of the step's ``cert``/``adv`` extras (weighted by ``n``, as
     the other metrics) as a fourth item when it reports them.
+
+    With several ranks, each scoring its slice, the sums are added over
+    the ranks at the end (``parallel/data_parallel.py::all_reduce_sums``):
+    the metrics returned are then those of the whole set (the running ones
+    printed and logged at a log point stay this rank's).  Every rank must
+    call it, in lockstep.  ``totals``: a dict that receives ``{"images":
+    n}``, the images scored (over every rank).
 
     Per-batch metrics stay on the device until a log point or the end of
     the epoch, and then come to the host in one copy: a ``.item()`` per
@@ -66,6 +75,13 @@ def evaluate(eval_step, loader, logger=None, epoch: int = 0,
                 logger.add_scalar("Loss/test", losses.avg, step)
                 logger.add_scalar("Accuracy/test", top1.avg, step)
     drain()
+    meters = [losses, top1, top5, *extras.values()]
+    sums = all_reduce_sums([v for m in meters for v in (m.sum, m.count)])
+    for m, total, count in zip(meters, sums[::2], sums[1::2]):
+        m.sum, m.count = total, int(count)
+        m.avg = total / max(m.count, 1)
+    if totals is not None:
+        totals["images"] = losses.count
     extra_avgs = {k: m.avg for k, m in extras.items() if m.count}
     if verbose:
         print(f"Acc.. {top1.avg} {top5.avg}"

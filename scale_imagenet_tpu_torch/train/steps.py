@@ -40,8 +40,14 @@ training step over a ``TrainState``:
 (``steps.py:336-475``): the multi-sample stability loss, the
 interval-arithmetic one and the bias regulariser.
 
-The mesh and tensor-parallel steps come with later slices
-(``ROADMAP.md``).
+Data parallelism (the JAX steps' ``shard_map`` branch, ``steps.py:308-345,
+437-470``): each rank runs the step on its slice of the batch, and
+``parallel/data_parallel.py::all_reduce_mean_`` is called once after the
+gradient phase, all microbatches done, on the gradients, the new BN running
+statistics and the metrics: their means over the ranks, as JAX's
+``pmean``s; then each rank takes the same update.  Without a process group
+of several ranks it does nothing.  The
+tensor-parallel step comes with a later slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.data_parallel import all_reduce_mean_
 from ..robust.attack import fgsm_attack, frozen, pgd_attack
 from ..robust.collect import multi_sample_forward
 from ..robust.interval import certified_mask
@@ -218,6 +225,12 @@ def _write_bn_stats(stats: dict) -> None:
         bn.running_var.copy_(var)
 
 
+def _bn_buffers(written: dict) -> list:
+    """The running statistics of the BNs a step wrote, in forward order
+    (the same on every rank)."""
+    return [t for bn in written for t in (bn.running_mean, bn.running_var)]
+
+
 def make_train_step(model: nn.Module, opt, amp: bool = False,
                     normalize=None, augment=False, accum: int = 1,
                     label_smooth: float = 0.0):
@@ -228,15 +241,17 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
     ``train/optim.py`` optimizer.  ``generator`` draws the augmentation on
     the images' device, ``noise`` (a ``NoiseKey``) keys the coin flips of a
     stochastic forward, which then needs it.  Metrics: ``loss``, ``top1``,
-    ``top5`` as device scalars."""
+    ``top5`` as device scalars, averaged over the ranks (module
+    docstring)."""
     prepare = make_input_pipeline(
         normalize, augment, image_size=model.cfg.image_size,
         dtype=torch.bfloat16 if amp else torch.float32)
     params = dict(model.named_parameters())
 
-    def micro(images, labels, generator, noise):
+    def micro(images, labels, generator, noise, written):
         """Forward and backward of one microbatch; gradients accumulate
-        into ``.grad``; the BN statistics are written after it."""
+        into ``.grad``; the BN statistics are written after it, and their
+        BNs noted in ``written``."""
         images = prepare(images, generator)
         stats: dict = {}
         kwargs = {"stats": stats}
@@ -251,6 +266,7 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
         loss = cross_entropy(logits, labels, smoothing=label_smooth)
         loss.backward()
         _write_bn_stats(stats)
+        written.update(dict.fromkeys(stats))
         top1, top5 = accuracy_topk(logits.detach(), labels, topk=(1, 5))
         return loss.detach(), top1, top5
 
@@ -263,17 +279,20 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
             p.grad = None
         mb = images.shape[0] // accum
         sums = None
+        written: dict = {}
         for i in range(accum):
             key = noise.child(i) if noise is not None and accum > 1 \
                 else noise
             out = micro(images[i * mb:(i + 1) * mb],
-                        labels[i * mb:(i + 1) * mb], generator, key)
+                        labels[i * mb:(i + 1) * mb], generator, key,
+                        written)
             sums = out if sums is None else tuple(
                 a + b for a, b in zip(sums, out))
         grads = {n: p.grad for n, p in params.items()}
         if accum > 1:
             torch._foreach_mul_(list(grads.values()), 1.0 / accum)
             sums = tuple(s * (1.0 / accum) for s in sums)
+        all_reduce_mean_([*grads.values(), *_bn_buffers(written), *sums])
         opt.update(params, grads, ts.opt_state, ts.step)
         ts.step += 1
         return ts, dict(zip(("loss", "top1", "top5"), sums))
@@ -306,7 +325,9 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
     [0, 1].  Returns ``train_step(ts, images, labels, generator=None,
     noise=None) -> (ts, metrics)``; ``noise`` (a ``NoiseKey``, needed when
     ``eps`` > 0 or the model draws coin flips) splits as the JAX key:
-    ``child(0)`` the signs, ``child(1)`` the forward's flips."""
+    ``child(0)`` the signs, ``child(1)`` the forward's flips.  Over
+    several ranks the step averages as ``make_train_step``'s
+    (``stability_loss`` too)."""
     if abstract_coeff > 0 and md.interval_loss is None:
         raise ValueError(
             f"model {md.name} has no interval-arithmetic forward "
@@ -341,7 +362,7 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
                 stats = {}
                 kw = {"noise": noise} if stochastic else {}
                 logits = model(images, stats, **kw)
-                sloss = torch.zeros(())
+                sloss = torch.zeros((), device=images.device)
         loss = cross_entropy(logits, labels) + coeff * sloss
         if abstract_coeff > 0:
             aloss = md.interval_loss(model, images, abstract_eps, lo, hi)
@@ -362,10 +383,13 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
         loss.backward()
         _write_bn_stats(stats)
         top1, top5 = accuracy_topk(logits.detach(), labels, topk=(1, 5))
-        opt.update(params, {n: p.grad for n, p in params.items()},
-                   ts.opt_state, ts.step)
+        grads = {n: p.grad for n, p in params.items()}
+        metrics = {"loss": loss.detach(), "top1": top1, "top5": top5,
+                   "stability_loss": sloss.detach()}
+        all_reduce_mean_([*grads.values(), *_bn_buffers(stats),
+                          *metrics.values()])
+        opt.update(params, grads, ts.opt_state, ts.step)
         ts.step += 1
-        return ts, {"loss": loss.detach(), "top1": top1, "top5": top5,
-                    "stability_loss": sloss.detach()}
+        return ts, metrics
 
     return train_step

@@ -6,6 +6,11 @@ fixture, the Pallas gather in interpret mode.
 """
 
 import contextlib
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -289,3 +294,41 @@ def jax_cli_refusal(argv: list, root: str) -> BaseException:
             jmain.main(argv + ["--root_dir", root, "--mesh_data", "1"])
         _REFUSALS[key] = err.value
     return _REFUSALS[key]
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(argv_for, world: int = 2, env_for=None,
+                 timeout: float = 240) -> list:
+    """Start ``world`` Python processes (``argv_for(rank)`` after the
+    interpreter; ``env_for(rank)`` added to the environment), one thread
+    of torch each, and wait for all: their outputs, each process's
+    return code checked.  A process past ``timeout`` seconds (a rank
+    waiting forever on a collective) is killed, and so are the others."""
+    procs = []
+    try:
+        for rank in range(world):
+            env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   "OMP_NUM_THREADS": "1",
+                   **(env_for(rank) if env_for else {})}
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv_for(rank)], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{out}"
+    return outs

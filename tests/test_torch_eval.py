@@ -259,7 +259,9 @@ def test_main_eval_image_folder_and_write_shards(tmp_path):
     (["--bias_decay", "1e-3"], "robust TRAINING"),
     (["--tp"], "ROADMAP.md"),
     (["--lut_path", "x.npz"], "add --lut"),
-    (["--native_data"], "ROADMAP.md"),
+    # --native_data is ported (tests/test_torch_native_data.py); the
+    # model axis still names the roadmap
+    (["--mesh_model", "2"], "ROADMAP.md"),
     ([], "--shards_dir or --data_dir"),
     (["--write_shards", "d"], "--write_shards decodes --data_dir")])
 def test_eval_refuses_flags_it_does_not_carry(argv, match):

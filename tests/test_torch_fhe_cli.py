@@ -142,14 +142,18 @@ def test_refusals_are_the_jax_messages(name, argv, tmp_path):
 def test_train_and_imagefolder_name_the_roadmap(tmp_path):
     """FHE training and the 32^2 ImageFolder route run now
     (``tests/test_torch_fhe_train.py``); on them, robust training refuses
-    the plain step's options with the JAX CLI's text, and the flag still
-    to come (the native decoder) names ROADMAP.md."""
+    the plain step's options with the JAX CLI's text, and the native
+    decoder, ported since, refuses a 32^2 model with the JAX CLI's text
+    (``scale_imagenet_tpu/main.py:1076-1081``)."""
     with pytest.raises(ValueError, match="--grad_accum is not supported "
                                          "with robust training"):
         cli.main(["--mode", "train", "--device", "cpu", "--shards_dir",
                   str(tmp_path), "--stability_eps", "0.1", "--grad_accum",
                   "2", *_width("TT_FHE_SMALL")])
-    with pytest.raises(ValueError, match="ROADMAP.md"), \
+    with pytest.raises(ValueError, match="--native_data is the 256->224 "
+                                         "ImageNet decode pipeline; this "
+                                         "model's resolution needs the PIL "
+                                         "path"), \
             redirect_stdout(io.StringIO()):
         cli.main(["--mode", "eval", "--device", "cpu", "--data_dir",
                   str(tmp_path), "--native_data", *_width("TT_FHE_SMALL")])

@@ -1,8 +1,9 @@
-"""The port stands alone: no file of it, nor ``chip_smoke.py``, imports JAX
-or anything of the JAX package, and every module imports without a card,
-``nvcc``, ``triton``, Pillow or sympy (the card's machine has none of the
-last three: the shard path needs numpy only, and the gate compiler uses
-the native engine, which the port builds itself)."""
+"""The port stands alone: no file of it, nor ``chip_smoke.py``, nor the
+helper scripts its multi-process tests launch, imports JAX or anything of
+the JAX package, and every module imports without a card, ``nvcc``,
+``triton``, Pillow or sympy (the card's machine has none of the last
+three: the shard path needs numpy only, and the gate compiler uses the
+native engine, which the port builds itself)."""
 
 import ast
 import pkgutil
@@ -14,7 +15,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "scale_imagenet_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "tests" / name for name in ("_torch_dp_worker.py",
+                                       "_torch_main_rank.py")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "scale_imagenet_tpu")
 
 
@@ -75,6 +78,11 @@ def test_every_module_imports_without_jax():
     # and the serving transforms'
     assert {"scale_imagenet_tpu_torch.convert.bn_fold",
             "scale_imagenet_tpu_torch.convert.export"} <= set(mods)
+    # and the native decoder's and the data-parallel runtime's
+    assert {"scale_imagenet_tpu_torch.native.ttdata",
+            "scale_imagenet_tpu_torch.parallel.mesh",
+            "scale_imagenet_tpu_torch.parallel.multihost",
+            "scale_imagenet_tpu_torch.parallel.data_parallel"} <= set(mods)
 
 
 def test_port_builds_and_loads_its_own_native_engine():

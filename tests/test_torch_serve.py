@@ -121,7 +121,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "eval", "--native_data"], "ROADMAP.md"),
+    # --native_data is ported (tests/test_torch_native_data.py)
+    (["--mode", "eval", "--mesh_model", "2"], "ROADMAP.md"),
     (["--mode", "export", "--tp"], "ROADMAP.md"),
     # ported: serving refuses certified eval with the JAX CLI's text
     (["--mode", "serve", "--certify", "0.1"],
