@@ -21,7 +21,8 @@ registry's families at their widths (TT_general, the CIFAR zoo with
 ``tt_certif``, the DoReFa ResNets: eval, serve, train), and the robust
 models certified, attacked and trained with the robustness losses; the
 flagship's eval and training data-parallel over two rank processes on the
-one card (``--num_processes 2``, gloo), and its ImageFolder eval through
+one card (``--num_processes 2``, gloo) and tensor-parallel over them
+(``--mesh_model 2 --tp``), and its ImageFolder eval through
 the native decoder (``--native_data``) where libjpeg and Pillow exist.
 It holds every
 CUDA kernel against its plain PyTorch version.  Phases, each printing
@@ -124,7 +125,7 @@ one line of its numbers:
            versions (``fused_case``) with ms and bound; (b) the conv
            forward with the switch off and on: argmax agreement >= 99 %,
            6 fused launches, ms, device profiles; (c) ``main --mode eval``
-           over 2,560 seeded images labelled by the unfused forward, the
+           over 1,280 seeded images labelled by the unfused forward, the
            switch off and on, with their launch counts; (d) ``main --mode
            serve`` with the switch on, 8 requests, top-5 equal to the
            direct forward's; (e) three f32 train steps at B=256 (the
@@ -153,9 +154,9 @@ one line of its numbers:
            its served answers are finite, well-formed top-5, and ``--lut``
            and ``--gates`` refuse;
 13. fhe_train: each model of phase 12 at full width: (a) ``main --mode
-           train`` from 2,560 seeded 32² uint8 shards (the flip on the
-           card), B = 256, one epoch of 10 steps: step ms and img/s over
-           steps 2-10, the idle share, peak device memory, no launch of
+           train`` from 1,280 seeded 32² uint8 shards (the flip on the
+           card), B = 256, one epoch of 5 steps: step ms and img/s over
+           steps 2-5, the idle share, peak device memory, no launch of
            the port's kernels; (b) ten steps on one batch lower the loss
            (the Bi-Real stem's ``alpha_a`` and ``beta_a`` get non-zero
            gradients); (c) one f32 step on the card and on the CPU from
@@ -164,7 +165,7 @@ one line of its numbers:
 14. v1:    ``TT_vf_19lv2_imgnet`` at full width (p = 64, 224²), BN
            statistics perturbed: (a) forward ms at B = 256 and B = 1 and
            the device time by kernel (``profile_v1``); (b) ``main --mode
-           eval`` over 2,560 seeded images labelled by its forward, top-1
+           eval`` over 1,280 seeded images labelled by its forward, top-1
            >= 99.9 %, img/s and idle share; (c) ``main --mode serve``,
            top-5 equal to the direct forward's; (d) three f32 train steps
            at B = 256 (128 if 256 does not fit; the line says which): ms
@@ -174,29 +175,29 @@ one line of its numbers:
            224²), its BNs set to the first batch's statistics and its
            Linear standardized over it: (a) forward ms at B = 256 and 1
            and the device time by kernel; (b) ``main --mode eval`` over
-           2,560 seeded images labelled by its forward, top-1 >= 99.9 %;
+           1,280 seeded images labelled by its forward, top-1 >= 99.9 %;
            (c) five served requests, top-5 equal to the direct forward's;
            (d) three f32 train steps (B = 128 where 256 does not fit; the
            line says which); (e) ``TT_general_big``, ``TT_general_8`` and
            ``TT_general_correctBN`` give finite logits at B = 16;
 16. cifar_zoo: each CIFAR-zoo model at its registry width (32², B =
            256; ``CIFAR_ZOO``), BNs calibrated as in 15: forward ms;
-           ``main --mode eval`` over 2,560 self-labelled images (top-1 >=
+           ``main --mode eval`` over 1,280 self-labelled images (top-1 >=
            99.9 %; ``tt_certif``: two evals from one ``--seed`` equal);
            eight served requests (top-5 equal to the direct forward's up
            to tied logits; ``tt_certif``: five distinct classes); ``main
-           --mode train`` over 2,560 seeded 32² shards (step ms, img/s,
+           --mode train`` over 1,280 seeded 32² shards (step ms, img/s,
            idle share, peak memory); ten steps on a batch of 32, the loss
            falling (``OVERFIT_LR``); ``model_general`` and ``tt_certif``
            one f32 step card vs CPU in the bounds of 19 (a);
 17. resnet: ``resnet50`` with 4-bit weights and activations (224²): (a)
            forward ms at B = 256 and 1 and the device time by kernel; (b)
-           ``main --mode eval`` over 2,560 self-labelled images (top-1 >=
+           ``main --mode eval`` over 1,280 self-labelled images (top-1 >=
            99.9 %), with ``--fuse_quant`` and ``--fold_bn`` (recorded), and
            the transforms' top-1 agreement with the unfolded forward in
            f32 (recorded) and in f64 (``--fuse_quant``, and ``--fold_bn``
            at wbit 32, where it is exact: >= 99 %); (c) three f32 train
-           steps; (d) ``resnet18_cifar``: eval over 2,560 self-labelled
+           steps; (d) ``resnet18_cifar``: eval over 1,280 self-labelled
            32² images, ten steps on a batch of 32; (e) the other eight
            ResNets give finite logits at B = 16.  Phases 15-17 launch no
            port kernel: each counts from 0 over all of its work (the
@@ -205,7 +206,7 @@ one line of its numbers:
 18. robust: (a) ``tt_certif``, ``cifar10lownoise`` and ``model_general``
            at their registry widths (32², B = 256), BNs calibrated as in
            15: ``main --mode eval --certify 2/255 --attack pgd
-           --attack_eps 2/255`` over 2,560 self-labelled images each
+           --attack_eps 2/255`` over 1,280 self-labelled images each
            (img/s, top-1, adv, cert; cert <= adv for all three, adv <=
            top-1 for the two deterministic ones); soundness: for 256
            images x 16 points drawn in the ball (``tt_certif``: fresh coin
@@ -215,21 +216,21 @@ one line of its numbers:
            certified masks agreeing on >= 99 % (TF32 off);
            (b) the flagship (its classifier BN fitted as in 6) under
            ``--attack fgsm`` and ``--attack pgd`` (10 steps) at 2/255 over
-           1,024 self-labelled images with the fused switch on: img/s,
+           512 self-labelled images with the fused switch on: img/s,
            clean and adversarial top-1, peak memory, and the fused
            launches: 6 a forward of the clean and the adversarial logits,
            none in the differentiated forwards;
            (c) robust training: ``main --mode train`` of
            ``cifar10lownoise`` with the three losses
            (``--stability_eps``, ``--abstract_eps``, ``--bias_decay``) over
-           2,560 seeded 32² shards (step ms, idle share, peak memory); ten
+           1,280 seeded 32² shards (step ms, idle share, peak memory); ten
            robust steps on one batch of 32 lower the loss; one f32 robust
            step card vs CPU (the signs drawn on the CPU) in the bounds of
            19 (a); the flagship's ``--stability_eps`` step (the packed 3N
            forward) at B = 128, or 64 where 128 does not fit (the line
            says which): ms and peak memory.  The phase's launches are
            added to each kernel's line;
-19. train: (a) one f32 step of the flagship at B=256, no augmentation, on
+19. train: (a) one f32 step of the flagship at B = 128, no augmentation, on
            the card (the fused switch on: training must not launch it) and
            on the CPU from the same weights and batch: relative loss gap
            <= 1e-3, update cosine >= 0.99, flipped Heaviside outputs <= 1e-3;
@@ -269,7 +270,30 @@ one line of its numbers:
            ``DIST_BN_STAT_TOL`` of the plain step's.  A rank that fails or
            runs past ``DIST_TIMEOUT_S`` fails the phase, and every rank is
            stopped;
-22. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
+22. tp (its jobs on 21's launch of the ranks): the two ranks on the
+           one card over gloo, ``--mesh_data 1 --mesh_model 2 --tp``:
+           each holds half of the flagship's channels
+           (``parallel/tp.py``): (a) ``main --mode eval`` over the
+           5,000 shard images, the switch off: each rank scores every
+           image (one data index), top-1/5 within 0.1 points and the loss
+           within 1e-3 relative of the one-process conv run, img/s, idle
+           share and peak memory a rank, no launch; (b) ``--lut
+           --lut_path`` with the eval
+           phase's archive (whole tables, each rank slicing its own), the
+           switch on: the same bounds against the one-process LUT run, 8
+           ``lut_window_bits`` and 1 fused launch a batch a rank; every
+           launch of one TP forward of the first 256 images held against
+           its plain version in each rank's process (``window_case``,
+           ``fused_case`` at the local G, the ranks taking turns on the
+           card); (c) ``main --mode train`` of 10 steps from the pre-crop
+           shards: img/s over steps 2-10, idle share and peak memory a
+           rank, the ranks' classifier BN and ``lin2`` bit-equal, and the
+           gathered checkpoint's one-process ``--mode eval --ckpt`` within
+           (a)'s bounds of the TP validation of the same weights; (d) one
+           TP f32 step against the one-process plain step from the same
+           weights and batch: the bounds of 19 (a), and 21 (c)'s update
+           norm and BN statistics;
+23. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
            imports (checked first), 512 seeded JPEGs of mixed sizes,
            ``main --mode eval --data_dir`` with and without
            ``--native_data``: equal metrics (identical pixels), both eval
@@ -319,18 +343,18 @@ OPS_PER_S = 67e12
 # integer op) take no f32 instruction and are not counted
 GELU_OPS = 41
 EVAL_IMAGES = 5000
-V2_EVAL_IMAGES = 2560              # 10 batches of B = 256
+V2_EVAL_IMAGES = 1280              # 5 batches of B = 256
 V2_TRAIN_STEPS = 3
 FHE_EVAL_IMAGES = 5000
-FHE_TRAIN_IMAGES = 2560            # 10 steps of B = 256 a model
+FHE_TRAIN_IMAGES = 1280            # 5 steps of B = 256 a model
 V1_NAME = "TT_vf_19lv2_imgnet"     # the reference's "BEST" v1 model
-V1_EVAL_IMAGES = 2560              # 10 batches of B = 256
+V1_EVAL_IMAGES = 1280              # 5 batches of B = 256
 V1_TRAIN_STEPS = 3
 TRAIN_IMAGES = 2560                # 10 steps of B = 256 an epoch
 GENERAL_NAME = "TT_general"        # p = 64, --layers 18, 224x224
 GENERAL_OTHERS = ("TT_general_big", "TT_general_8", "TT_general_correctBN")
-ZOO_EVAL_IMAGES = 2560             # 10 batches of B = 256 a model
-ZOO_TRAIN_IMAGES = 2560            # 10 steps of B = 256 a model
+ZOO_EVAL_IMAGES = 1280             # 5 batches of B = 256 a model
+ZOO_TRAIN_IMAGES = 1280            # 5 steps of B = 256 a model
 ZOO_TRAIN_STEPS = 3
 # the CIFAR zoo at 32x32, each at its registry default width; the CLI
 # flags that give the two whose widths its defaults (--nfilter 8
@@ -360,6 +384,10 @@ RESNET_OTHERS = ("resnet18", "resnet34", "resnet101", "resnet152",
 TRAIN_LOSS_GAP = 1e-3
 TRAIN_UPDATE_COSINE = 0.99
 TRAIN_FLIP_SHARE = 1e-3
+# the batch of a card/CPU step (19 (a), and the TT_FHE and CIFAR-zoo
+# models'): the flagship's CPU step took 47-61 s at B = 256, the smoke's
+# largest host cost
+PARITY_BATCH = 128
 # clock cycles the card spins ahead of a timed run (~1.2 ms at 1.7 GHz)
 HOST_LEAD_CYCLES = 2_000_000
 
@@ -1331,7 +1359,7 @@ def train_phase(args, model, out_dir: Path) -> dict:
 
     B = args.batch
     # (a) one step, card against CPU
-    parity = step_parity(copy.deepcopy(model), B, args.seed)
+    parity = step_parity(copy.deepcopy(model), PARITY_BATCH, args.seed)
     emit("train_step_parity", **parity)
     check_parity(parity, "flagship")
 
@@ -2518,7 +2546,8 @@ def fhe_train_phase(args, out_dir: Path) -> dict:
         # (c) one f32 step on the card and on the CPU, the same weights,
         # batch and flips
         parity = card_cpu_step(
-            md.init(seed=args.seed, device="cuda"), x, y,
+            md.init(seed=args.seed, device="cuda"), x[:PARITY_BATCH],
+            y[:PARITY_BATCH],
             cpu_drawn_key(args.seed + 52) if md.stochastic else None)
         check_parity(parity, f"{name} step")
         results[name] = {"train": run, "overfit": overfit,
@@ -2965,7 +2994,8 @@ def cifar_zoo_phase(args, out_dir: Path) -> dict:
         if name in ("model_general", "tt_certif"):
             with torch.enable_grad():
                 parity = card_cpu_step(
-                    md.init(seed=args.seed, device="cuda"), xt, yt,
+                    md.init(seed=args.seed, device="cuda"),
+                    xt[:PARITY_BATCH], yt[:PARITY_BATCH],
                     cpu_drawn_key(args.seed + 3) if md.stochastic else None)
             check_parity(parity, f"{name} step")
         results[name] = {"forward_ms": fwd_ms, "eval": ev, "serve": serve,
@@ -3129,8 +3159,8 @@ def resnet_phase(args, out_dir: Path) -> dict:
 
 ROBUST_MODELS = ("tt_certif", "cifar10lownoise", "model_general")
 ROBUST_EPS = 2 / 255               # the certify and attack radius, pixels
-ROBUST_EVAL_IMAGES = 2560          # 10 batches of B = 256 a model
-ROBUST_FLAGSHIP_IMAGES = 1024      # 4 batches of B = 256 an attack
+ROBUST_EVAL_IMAGES = 1280          # 5 batches of B = 256 a model
+ROBUST_FLAGSHIP_IMAGES = 512       # 2 batches of B = 256 an attack
 ROBUST_POINTS = 16                 # soundness: points a image in the ball
 ROBUST_TRAIN_LOSSES = ["--stability_eps", "0.01", "--abstract_eps", "0.01",
                        "--bias_decay", "0.001"]
@@ -3421,13 +3451,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def params_digest(model) -> str:
-    """sha256 of every parameter's and buffer's bytes, in state-dict
-    order: equal digests are bit-equal weights and statistics."""
+def params_digest(model, keep=None) -> str:
+    """sha256 of every parameter's and buffer's bytes (those whose name
+    ``keep`` accepts), in state-dict order: equal digests are bit-equal
+    weights and statistics."""
     import hashlib
 
     h = hashlib.sha256()
     for k, v in model.state_dict().items():
+        if keep is not None and not keep(k):
+            continue
         h.update(k.encode())
         h.update(v.detach().cpu().reshape(-1).contiguous()
                  .view(torch.uint8).numpy().tobytes())
@@ -3440,8 +3473,9 @@ def rank_eval(argv: list) -> dict:
     card), the eval loop's wall time and this rank's device idle share
     over it (its own kernels), the loop's time after its first batch
     (which, in a fresh process, also loads the kernels and sets up cuDNN:
-    the card is synchronised once after it), and its kernel launches (the
-    counts set to 0 just before the run and read just after)."""
+    the card is synchronised once after it), its kernel launches (the
+    counts set to 0 just before the run and read just after) and its peak
+    device memory over the run."""
     from torch.profiler import ProfilerActivity, profile
 
     from scale_imagenet_tpu_torch import main as cli
@@ -3475,6 +3509,7 @@ def rank_eval(argv: list) -> dict:
         return counted
 
     reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(cli, "evaluate", timed), \
             mock.patch.object(cli, "make_eval_step", counting):
         top1, top5, loss = cli.main(argv)
@@ -3485,6 +3520,8 @@ def rank_eval(argv: list) -> dict:
             "first_batch_images": stats["first_images"],
             "after_first_s": stats["end_t"] - stats["first_t"],
             "device_idle_share": 1 - stats["busy_s"] / stats["wall_s"],
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
             "launches": kernel_launches()}
 
 
@@ -3519,7 +3556,14 @@ def rank_train(argv: list, steps: int, batch: int) -> dict:
                 torch.cuda.max_memory_allocated() / 1e9,
             "losses": [float(v) for v in timer.losses],
             "val": summary["val"], "digest": params_digest(models[-1]),
-            "launches": kernel_launches()}
+            "head_digest": params_digest(models[-1], replicated_leaf),
+            "ckpt_dir": summary["ckpt_dir"], "launches": kernel_launches()}
+
+
+def replicated_leaf(name: str) -> bool:
+    """The classifier's BN and ``lin2``: whole on every model rank under
+    ``--tp``."""
+    return ".BN2." in name or ".lin2." in name
 
 
 def dp_step_batch(seed: int, B: int):
@@ -3591,6 +3635,12 @@ def dist_worker(args) -> int:
             res = rank_eval(job["argv"] + join)
         elif job["kind"] == "train":
             res = rank_train(job["argv"] + join, job["steps"], job["batch"])
+        elif job["kind"] == "tp_kernels":
+            res = rank_tp_kernels(Path(job["eval_dir"]), job["batch"],
+                                  job["seed"], rank, world)
+        elif job["kind"] == "tp_step":
+            res = rank_tp_step(job["seed"], job["batch"], rank, world,
+                               Path(job["work"]))
         else:
             res = rank_dp_step(job["seed"], job["batch"], rank, world,
                                Path(job["work"]))
@@ -3683,8 +3733,9 @@ def emulated_dp_step(seed: int, B: int, world: int):
     return model, sum(losses) / world, bits, rank0_gap
 
 
-def distributed_phase(args, out_dir: Path) -> dict:
-    """21: two ranks on the one card over gloo, the flagship at full
+def distributed_phase(args) -> dict:
+    """21's jobs (run by ``launch_phases``): two ranks on the one card
+    over gloo, the flagship at full
     width: (a) ``main --mode eval --num_processes 2`` over the eval
     phase's 5,000 shard images, conv and ``--lut --lut_path`` with that
     phase's archive (global B = --batch): every image scored once over
@@ -3720,12 +3771,7 @@ def distributed_phase(args, out_dir: Path) -> dict:
                  *common]},
             {"kind": "dp_step", "name": "dp_step", "seed": args.seed,
              "batch": B, "work": str(work)}]
-    t0 = time.perf_counter()
-    ranks = launch_dist(jobs, out_dir)
-    launch_s = time.perf_counter() - t0
-    res = {job["name"]: [r[i] for r in ranks] for i, job in enumerate(jobs)}
-    return {"jobs": jobs, "results": res, "launch_s": launch_s,
-            "work": work}
+    return {"jobs": jobs, "work": work}
 
 
 def check_distributed(dist: dict, evals: dict, args) -> dict:
@@ -3751,6 +3797,8 @@ def check_distributed(dist: dict, evals: dict, args) -> dict:
              rank_eval_s=[r0["eval_s"], r1["eval_s"]],
              rank_idle_share=[r0["device_idle_share"],
                               r1["device_idle_share"]],
+             rank_max_memory_allocated_gb=[r0["max_memory_allocated_gb"],
+                                           r1["max_memory_allocated_gb"]],
              rank_launches=[r0["launches"], r1["launches"]],
              run_s=[r0["run_s"], r1["run_s"]])
         check(images == EVAL_IMAGES and r0["images"] == EVAL_IMAGES
@@ -3845,6 +3893,332 @@ def check_distributed(dist: dict, evals: dict, args) -> dict:
           f"{rank0_gap} off)")
     shutil.rmtree(work)
     return launches
+
+
+# ------------------------------------------------------- tensor parallel
+
+# the flagship as two ranks on the one card, over gloo: one data index, the
+# channels split over a model axis of two
+TP_MESH = ["--mesh_data", "1", "--mesh_model", str(DIST_WORLD), "--tp"]
+
+
+def _tp_rank_mesh(rank: int, world: int):
+    """This rank's place on the 1 x ``world`` mesh."""
+    from scale_imagenet_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(1, world, world, rank)
+
+
+def rank_tp_kernels(eval_dir: Path, B: int, seed: int, rank: int,
+                    world: int) -> dict:
+    """(b) in each rank: one ``--tp --lut`` forward of the first B eval
+    images with the fused switch on, every launch of ``lut_window_bits``
+    and ``fused_pointwise_block`` in it captured, then each held against
+    its plain version and timed (``window_case``, ``fused_case``), the
+    ranks taking turns on the card so that each times its launches
+    alone.  Its launches are counted from 0 over the forward."""
+    from scale_imagenet_tpu_torch.compile import lut_eval
+    from scale_imagenet_tpu_torch.compile.lut_store import load_luts
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD, \
+        shard_loader
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.parallel import barrier
+    from scale_imagenet_tpu_torch.parallel.tp import shard_luts, \
+        shard_model, tp_lut_apply
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    model = flagship(seed)
+    model.load_state_dict(torch.load(eval_dir / "weights.pth"))
+    mesh = _tp_rank_mesh(rank, world)
+    local = shard_model(model, world, rank, mesh.model_group)
+    luts = shard_luts(load_luts(str(eval_dir / "luts.npz"), model), local)
+    images, _ = next(iter(shard_loader(str(eval_dir / "shards"), B)))
+    x = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))(
+        torch.as_tensor(images).cuda())
+    bits, fused = [], []
+    real_bits, real_block = lut_eval.lut_window_bits, lut_eval.block_tt
+
+    def rec_bits(xb, words, k, stride, padding, heads=1):
+        bits.append(("bits", xb, words, k, stride, padding, heads))
+        return real_bits(xb, words, k, stride, padding, heads)
+
+    def rec_block(block, h, *a, **k):
+        fused.append((block, h))
+        return real_block(block, h, *a, **k)
+
+    reset_kernel_launches()
+    with mock.patch.object(lut_eval, "lut_window_bits", rec_bits), \
+            mock.patch.object(lut_eval, "block_tt", rec_block), \
+            fused_blocks(True):
+        logits = tp_lut_apply(luts, local, x)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    rows = {"bits": [], "fused": []}
+    for r in range(world):
+        if r == rank:
+            rows["bits"] = [window_case(*launch, K) for launch in bits]
+            rows["fused"] = [fused_case(block, h, FB)
+                             for block, h in fused]
+        barrier()
+    return {"launches": launches, "rows": rows,
+            "logits": list(logits.shape),
+            "finite": bool(torch.isfinite(logits).all())}
+
+
+def rank_tp_step(seed: int, B: int, rank: int, world: int,
+                 work: Path) -> dict:
+    """(d) one f32 TP step of the flagship (``make_train_step`` over the
+    rank's slice, reducing over the data group) on the whole seeded batch
+    (one data index): its loss, this rank's Heaviside outputs (packed a
+    site) and, from rank 0, the gathered weights."""
+    from scale_imagenet_tpu_torch.parallel.tp import gather_train_payload, \
+        shard_train_state
+    from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    model, mesh = flagship(seed), _tp_rank_mesh(rank, world)
+    opt, _ = make_optimizer(0.1)
+    local, opt_state = shard_train_state(
+        model, opt.init(dict(model.named_parameters())), mesh)
+    del model
+    ts = TrainState(local, opt_state)
+    step = make_train_step(local, opt, group=mesh.data_group)
+    x, y = dp_step_batch(seed, B)
+    bits = []
+    reset_kernel_launches()
+    with torch.enable_grad(), heaviside_outputs(bits):
+        _, metrics = step(ts, x.cuda(), y.cuda())
+    np.savez(work / f"tp_bits_rank{rank}.npz",
+             *[np.packbits(b.cpu().numpy().reshape(-1)) for b in bits])
+    payload = gather_train_payload(ts, mesh)
+    if rank == 0:
+        torch.save(payload["model"], work / "tp_step.pth")
+    return {"loss": float(metrics["loss"]), "heavisides": len(bits),
+            "launches": kernel_launches()}
+
+
+def tp_phase(args) -> dict:
+    """22's jobs (run by ``launch_phases``): the flagship at full width as
+    two ranks on the one card over
+    gloo, ``--mesh_data 1 --mesh_model 2 --tp``, each rank holding half of
+    every channel-indexed tensor: (a) ``main --mode eval`` over the eval
+    phase's 5,000 shard images, switch off; (b) ``--lut`` with that
+    phase's archive, switch on, and every launch of one TP forward held
+    against its plain version in each rank; (c) ten ``main --mode train``
+    steps from the pre-crop shards, then a one-process ``--mode eval
+    --ckpt`` of the gathered checkpoint (in ``check_tp``); (d) one TP
+    step.  The checks are ``check_tp``'s."""
+    B = args.batch
+    torch.cuda.empty_cache()
+    work = Path("build") / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    eval_dir = Path("build") / "chip_smoke_eval"
+    train_dir = Path("build") / "chip_smoke_train"
+    common = ["--eval_batch_size", str(B), "--seed", str(args.seed),
+              "--root_dir", str(work / "logs"), *TP_MESH]
+    evals_argv = ["--mode", "eval", "--shards_dir", str(eval_dir / "shards"),
+                  "--ckpt", str(eval_dir / "weights.pth"), *common]
+    jobs = [{"kind": "eval", "name": "conv", "argv": evals_argv},
+            {"kind": "eval", "name": "lut", "fused": True,
+             "argv": evals_argv + ["--lut", "--lut_path",
+                                   str(eval_dir / "luts.npz")]},
+            {"kind": "tp_kernels", "name": "kernels", "batch": B,
+             "seed": args.seed, "eval_dir": str(eval_dir)},
+            {"kind": "train", "name": "train", "steps": TRAIN_IMAGES // B,
+             "batch": B, "argv": [
+                 "--mode", "train", "--shards_dir", str(train_dir /
+                                                        "shards"),
+                 "--eval_shards_dir", str(eval_dir / "shards"),
+                 "--train_batch_size", str(B), "--max_epochs", "1",
+                 *common]},
+            {"kind": "tp_step", "name": "tp_step", "seed": args.seed,
+             "batch": B, "work": str(work)}]
+    return {"jobs": jobs, "work": work}
+
+
+def launch_phases(phases: tuple, out_dir: Path) -> float:
+    """Every job of ``phases`` (21's and 22's) on one launch of the rank
+    processes: a launch costs about 18 s of process start and set-up.
+    Each phase gets its ``results`` by job name and its ``ranks_s``, the
+    seconds of its own jobs (the slower rank's, job by job); returns the
+    launch's seconds."""
+    jobs = [job for phase in phases for job in phase["jobs"]]
+    t0 = time.perf_counter()
+    ranks = launch_dist(jobs, out_dir)
+    launch_s = time.perf_counter() - t0
+    i = 0
+    for phase in phases:
+        res, phase["ranks_s"] = {}, 0.0
+        for job in phase["jobs"]:
+            res[job["name"]] = [r[i] for r in ranks]
+            phase["ranks_s"] += max(r[i]["run_s"] for r in ranks)
+            i += 1
+        phase["results"] = res
+    return launch_s
+
+
+def _within(got: dict, want: dict, what: str) -> None:
+    for k in ("top1", "top5"):
+        check(abs(got[k] - want[k]) <= DIST_TOP_POINTS,
+              f"{what} {k} {got[k]} vs {want[k]}")
+    check(abs(got["loss"] - want["loss"]) <= DIST_LOSS_REL
+          * abs(want["loss"]), f"{what} loss {got['loss']} vs {want['loss']}")
+
+
+def check_tp(tp: dict, evals: dict, args) -> dict:
+    """The checks and lines of phase 22 (``tp_phase``); returns each
+    kernel's launches by rank and run, and the captured launches' rows."""
+    B = args.batch
+    res = tp["results"]
+    launches = {}
+    batches = -(-EVAL_IMAGES // B)
+    for name, one in (("conv", evals["conv"]), ("lut", evals["lut_load"])):
+        r0, r1 = res[name]
+        emit("tp_eval", run=name, mesh="1x2", batch=B,
+             rank_images=[r0["rank_images"], r1["rank_images"]],
+             images=r0["images"],
+             img_s=EVAL_IMAGES / max(r0["eval_s"], r1["eval_s"]),
+             img_s_after_first_batch=(
+                 EVAL_IMAGES - r0["first_batch_images"]) / max(
+                     r0["after_first_s"], r1["after_first_s"]),
+             top1=r0["top1"], top5=r0["top5"], loss=r0["loss"],
+             one_process={k: one[k] for k in ("top1", "top5", "loss",
+                                             "img_s")},
+             rank_idle_share=[r0["device_idle_share"],
+                              r1["device_idle_share"]],
+             rank_max_memory_allocated_gb=[r0["max_memory_allocated_gb"],
+                                           r1["max_memory_allocated_gb"]],
+             rank_launches=[r0["launches"], r1["launches"]],
+             run_s=[r0["run_s"], r1["run_s"]])
+        # one data index: each rank scores every image, on its channels
+        check(r0["images"] == r1["images"] == EVAL_IMAGES
+              and r0["rank_images"] == r1["rank_images"] == EVAL_IMAGES,
+              f"tp {name} eval scored {r0['images']}, {r1['images']} "
+              f"(rank counts {r0['rank_images']}, {r1['rank_images']}), "
+              f"expected {EVAL_IMAGES}")
+        check(all(r0[k] == r1[k] for k in ("top1", "top5", "loss")),
+              f"tp {name} eval: the ranks' metrics differ")
+        _within(r0, one, f"tp {name} eval vs one process")
+        for r, rr in enumerate((r0, r1)):
+            for kname, n in rr["launches"].items():
+                launches.setdefault(kname, {})[f"eval_tp_{name}_rank{r}"] = n
+    for r, rr in enumerate(res["conv"]):
+        check(not any(rr["launches"].values()),
+              f"tp conv eval rank {r} (switch off) launched "
+              f"{rr['launches']}")
+    for r, rr in enumerate(res["lut"]):
+        got = rr["launches"]
+        check(got["lut_window_bits"] == 8 * batches
+              and got["fused_pointwise_block"] == batches,
+              f"tp --lut eval rank {r} launched {got}, expected "
+              f"{8 * batches} lut_window_bits and {batches} fused")
+    # (b) every launch of one TP forward against its plain version
+    rows = {"bits": [], "fused": []}
+    for r, rr in enumerate(res["kernels"]):
+        got = rr["launches"]
+        check(got["lut_window_bits"] == 8
+              and got["fused_pointwise_block"] == 1 and rr["finite"]
+              and rr["logits"] == [B, 1000],
+              f"tp forward rank {r}: launches {got}, logits {rr['logits']}")
+        for kind in rows:
+            for row in rr["rows"][kind]:
+                row["rank"] = r
+                rows[kind].append(row)
+                emit("tp_kernels", kernel="lut_window_bits" if kind == "bits"
+                     else "fused_pointwise_block", **row)
+        for kname, n in got.items():
+            launches.setdefault(kname, {})[f"tp_forward_rank{r}"] = n
+    # (c) training, and the gathered checkpoint in one process
+    t0, t1 = res["train"]
+    reload = main_eval(["--mode", "eval", "--shards_dir",
+                        str(Path("build") / "chip_smoke_eval" / "shards"),
+                        "--eval_batch_size", str(B), "--ckpt",
+                        str(Path(t0["ckpt_dir"]) / "last"), "--root_dir",
+                        str(tp["work"] / "logs")], False)
+    val = t0["val"][0]
+    emit("tp_train", mesh="1x2", batch=B, images=TRAIN_IMAGES,
+         steps=t0["steps"], train_img_s=min(t0["train_img_s"],
+                                            t1["train_img_s"]),
+         step_ms=max(t0["step_ms"], t1["step_ms"]),
+         rank_idle_share=[t0["device_idle_share"], t1["device_idle_share"]],
+         rank_max_memory_allocated_gb=[t0["max_memory_allocated_gb"],
+                                       t1["max_memory_allocated_gb"]],
+         first_loss=t0["losses"][0], last_loss=t0["losses"][-1], val=val,
+         replicated_leaves_equal=t0["head_digest"] == t1["head_digest"],
+         reload={k: reload[k] for k in ("top1", "top5", "loss", "img_s")},
+         rank_launches=[t0["launches"], t1["launches"]],
+         run_s=[t0["run_s"], t1["run_s"]])
+    check(t0["steps"] == t1["steps"] == TRAIN_IMAGES // B
+          and t0["step"] == TRAIN_IMAGES // B,
+          f"tp train ran {t0['steps']}, {t1['steps']} steps")
+    check(t0["head_digest"] == t1["head_digest"],
+          "tp train: the ranks' classifier BN and lin2 differ")
+    check(t0["digest"] != t1["digest"],
+          "tp train: the ranks hold the same channels")
+    check(t0["losses"] == t1["losses"] and t0["val"] == t1["val"],
+          "tp train: the ranks' metrics differ")
+    check(all(np.isfinite(t0["losses"])), f"losses {t0['losses']}")
+    _within(reload, val, "the gathered TP checkpoint in one process vs the "
+                         "TP validation")
+    for r, rr in enumerate((t0, t1)):
+        check(not any(rr["launches"].values()),
+              f"tp train rank {r} launched {rr['launches']}")
+        for kname, n in rr["launches"].items():
+            launches.setdefault(kname, {})[f"train_tp_rank{r}"] = n
+    # (d) the TP step against the one-process plain step
+    work = tp["work"]
+    start = flagship(args.seed)
+    model = copy.deepcopy(start)
+    x, y = dp_step_batch(args.seed, B)
+    sink = []
+    with torch.enable_grad():
+        loss = one_train_step(model, x.cuda(), y.cuda(), sink)
+    tp_model = copy.deepcopy(start)
+    tp_model.load_state_dict(torch.load(work / "tp_step.pth"))
+    du = torch.cat([(p - s).double().ravel() for p, s in
+                    zip(tp_model.parameters(), start.parameters())])
+    dv = torch.cat([(p - s).double().ravel() for p, s in
+                    zip(model.parameters(), start.parameters())])
+    flips = outputs = 0
+    for r in range(DIST_WORLD):
+        with np.load(work / f"tp_bits_rank{r}.npz") as got:
+            check(len(got.files) == len(sink),
+                  f"tp rank {r} ran other Heavisides than the plain step")
+            for i, plain in enumerate(sink):
+                half = plain.chunk(DIST_WORLD, dim=1)[r]
+                want = np.packbits(half.cpu().numpy().reshape(-1))
+                mine = got[f"arr_{i}"]
+                check(mine.shape == want.shape,
+                      f"tp rank {r} Heaviside site {i} has another shape")
+                flips += int(np.unpackbits(mine ^ want).sum())
+                outputs += half.numel()
+    bn_diff = max(float((a - b).abs().max()) for (n, a), (_, b) in zip(
+        tp_model.state_dict().items(), model.state_dict().items())
+        if n.endswith(("running_mean", "running_var")))
+    tloss = res["tp_step"][0]["loss"]
+    parity = {"batch": B, "mesh": "1x2", "tp_loss": tloss,
+              "plain_loss": loss, "rel_loss_gap": abs(tloss - loss)
+              / abs(loss),
+              "update_cosine": float(du @ dv / (du.norm() * dv.norm())),
+              "update_norm_ratio": float(du.norm() / dv.norm()),
+              "heaviside_outputs": outputs, "heaviside_flipped": flips,
+              "flip_share": flips / outputs,
+              "bn_stat_max_abs_diff": bn_diff,
+              "fused_launches_in_training": sum(
+                  r["launches"]["fused_pointwise_block"]
+                  for r in res["tp_step"])}
+    emit("tp_step_parity", **parity)
+    check_parity(parity, "tensor-parallel step")
+    check(abs(parity["update_norm_ratio"] - 1) <= DIST_UPDATE_NORM_TOL,
+          f"tensor-parallel step: update norm {parity['update_norm_ratio']}"
+          f" times the plain step's, beyond 1 +- {DIST_UPDATE_NORM_TOL}")
+    check(bn_diff <= DIST_BN_STAT_TOL,
+          f"tensor-parallel step: BN statistics {bn_diff} from the plain "
+          f"step's (limit {DIST_BN_STAT_TOL})")
+    shutil.rmtree(work)
+    return {"launches": launches, "rows": rows}
 
 
 def native_data_missing() -> str | None:
@@ -4234,15 +4608,26 @@ def run(args) -> int:
         train_phase(args, model, out_dir)
     lap("train")
 
-    # ------------------------------------------------------- distributed
+    # ------------------------------------ distributed and tensor parallel
+    # one launch of the rank processes runs both phases' jobs; the tp lap
+    # takes its own jobs' seconds, the launch's set-up stays with 21
     t0 = time.perf_counter()
-    dist = distributed_phase(args, out_dir)
+    dist, tp = distributed_phase(args), tp_phase(args)
+    launch_s = launch_phases((dist, tp), out_dir)
     dist_launches = check_distributed(dist, evals, args)
+    emit("distributed_phase", seconds=time.perf_counter() - t0
+         - tp["ranks_s"], ranks_s=dist["ranks_s"], launch_s=launch_s)
+    lap("distributed")
+    laps["distributed"] -= tp["ranks_s"]
+
+    t0 = time.perf_counter()
+    tp_checked = check_tp(tp, evals, args)
     shutil.rmtree(Path("build") / "chip_smoke_train")
     shutil.rmtree(Path("build") / "chip_smoke_eval")
-    emit("distributed_phase", seconds=time.perf_counter() - t0,
-         ranks_s=dist["launch_s"])
-    lap("distributed")
+    emit("tp_phase", seconds=time.perf_counter() - t0 + tp["ranks_s"],
+         ranks_s=tp["ranks_s"])
+    lap("tp")
+    laps["tp"] += tp["ranks_s"]
 
     # ------------------------------------------------------- native data
     t0 = time.perf_counter()
@@ -4388,11 +4773,20 @@ def run(args) -> int:
         for phase, res in zoo.items():
             line["launches_by_path"][phase] = res["launches"][line["name"]]
             line["launches"] += res["launches"][line["name"]]
-        # the distributed phase's ranks, each run counted from 0 in its
-        # rank's process
-        for path, n in dist_launches.get(line["name"], {}).items():
-            line["launches_by_path"][path] = n
-            line["launches"] += n
+        # the distributed and tensor-parallel phases' ranks, each run
+        # counted from 0 in its rank's process
+        for runs in (dist_launches, tp_checked["launches"]):
+            for path, n in runs.get(line["name"], {}).items():
+                line["launches_by_path"][path] = n
+                line["launches"] += n
+    # the launches of one TP --lut forward, each rank's at its local width,
+    # against their plain versions: times summed over rank 0's forward
+    for line, kind, err in ((kernels[0], "bits", "max_abs_err"),
+                            (kernels[2], "fused", "max_abs_err_float32")):
+        tp_rows = tp_checked["rows"][kind]
+        line.update(sums([r for r in tp_rows if r["rank"] == 0], "tp_"))
+        line["max_abs_err"] = max(line["max_abs_err"],
+                                  *(r[err] for r in tp_rows))
     # the cases under the serving transforms: bf16 x, folded biases
     fused_line = kernels[2]
     fused_line["max_abs_err"] = max(

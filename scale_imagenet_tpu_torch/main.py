@@ -118,13 +118,24 @@ eval; every rank cut to the fewest full batches in training), the train
 step averages the gradients, the new BN statistics and the metrics over
 the ranks once a step, eval sums its metrics over them, and rank 0 alone
 prints, logs, writes checkpoints and the LUT archive.  ``--mesh_data``
--1 (every rank) or the world; ``--platform`` and ``--cpu_devices`` (the
+-1 (``world / mesh_model``) or that; ``--platform`` and ``--cpu_devices`` (the
 JAX package's platform and virtual devices) are refused: the device is
 ``--device``, the ranks ``--num_processes``.
 
-``--tp``, ``--sp`` and ``--mesh_model`` > 1 arrive with later slices and
-raise here naming ``ROADMAP.md``; the flags that the JAX CLI refuses in a
-mode raise with its messages.
+``--mesh_model M`` > 1 lays the ranks out as a (data, model) mesh, the
+model axis innermost: the ranks of one data index read the same rows and
+draw the same augmentation, and the steps reduce over the data axis only;
+without ``--tp`` the model axis's ranks run the plain steps replicated.
+``--tp`` (the ttnet_imagenet family) gives each model rank its channel
+slice of the weights (``parallel/tp.py``): eval as conv or ``--lut`` (each
+rank its slice of the tables), and training with ``--grad_accum`` and
+``--ema``, rank 0 writing the gathered checkpoint, the same files a
+one-process run writes; it refuses ``--amp``, ``--remat``, robust
+training, ``--label_smooth``, ``--gates``, ``--certify``, ``--attack``,
+serve, compile and export as the JAX CLI does, and the other families
+with a ``ValueError`` naming JAX's crash.  ``--sp`` comes with the next
+slice and raises here naming ``ROADMAP.md``; the flags that the JAX CLI
+refuses in a mode raise with its messages.
 """
 
 from __future__ import annotations
@@ -169,7 +180,8 @@ from .native.ttdata import NativeImageFolder
 from .parallel import backend, barrier, broadcast_module_, initialize, \
     is_coordinator, local_batch_size, make_mesh, rank_key, rank_seed, \
     requested_world
-from .parallel.mesh import MESH_MODEL
+from .parallel.tp import gather_train_payload, local_config, shard_luts, \
+    shard_model, shard_train_state, tp_lut_apply
 from .models import get_model, list_models
 from .models.multihead import MultiHeadBlock
 from .models.registry import ZOO_MODULES
@@ -293,6 +305,27 @@ _COMPILE_REFUSALS["--attack_lr"] = _COMPILE_REFUSALS["--attack"]
 _COMPILE_ROBUST = ("--stability_eps/--abstract_eps/--bias_decay enable "
                    "robust TRAINING (--mode train); compilation evaluates "
                    "the forward only — drop the flag")
+
+# ``scale_imagenet_tpu/main.py:553-556,989-992,1230-1233,1256-1269``: the
+# --tp refusals
+_FUSE_WITH_TP = ("--tp shards TTnet channel groups; --fuse_quant serves the "
+                 "resnet family — drop one")
+_GATES_WITH_TP = ("--gates is the HOST circuit runtime; mesh-sharded "
+                  "compiled serving is --tp --lut")
+_TP_REMAT = ("--tp training runs its own shard_map blocks; --remat applies "
+             "to the plain/amp step — drop one")
+_TP_AMP = ("--tp training runs f32 (channel-sharded amp is not "
+           "implemented); drop --amp")
+_TP_ROBUST = ("--tp is not supported with robust training (--stability_eps/"
+              "--abstract_eps/--bias_decay); drop one")
+_TP_TRAIN_FAMILY = "--tp training supports the ttnet_imagenet family, not {}"
+_TP_LUT_FAMILY = ("--tp --lut (mesh-sharded compiled serving) supports the "
+                  "ttnet_imagenet family; serve {} with --lut alone")
+_TP_CRASH = "crash snapshot skipped: TP state is sharded across processes"
+# the port's own: --sp is the one JAX CLI flag still to port
+_SP = ("not ported yet: --sp (spatial partitioning of the image height over "
+       "the model axis, with a halo exchange for each height-mixing op of "
+       "each family, comes with the next slice; see ROADMAP.md)")
 
 # ``scale_imagenet_tpu/main.py:887,986``
 _GATES_WITH_LUT = ("--gates and --lut are two serving modes for the same "
@@ -596,8 +629,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="data-parallel axis over the ranks: -1 (every rank) "
                         "or the world (one process a card)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel axis: 1 (tensor parallelism and "
-                        "spatial partitioning come with later slices)")
+                   help="model-parallel axis over the ranks (the model axis "
+                        "innermost: rank r at data r // M, model r % M); "
+                        "without --tp its ranks run replicated")
+    p.add_argument("--tp", action="store_true",
+                   help="channel-group tensor parallelism over the model "
+                        "axis (ttnet_imagenet family): eval (conv, --lut) "
+                        "and training, each rank holding its channel slice")
+    p.add_argument("--sp", action="store_true",
+                   help="the JAX CLI's spatial partitioning: refused here "
+                        "(see ROADMAP.md)")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of rank 0's rendezvous (tcp://)")
     p.add_argument("--num_processes", type=int, default=None,
@@ -623,10 +664,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise ValueError(_COMPILE_CACHE)
     if args.platform or args.cpu_devices:
         raise ValueError(_PLATFORM)
-    if args.mesh_model != 1:
-        raise ValueError(MESH_MODEL.format(model=args.mesh_model))
-    # set by ``main`` once the process group is joined
+    # set by ``main`` once the process group is joined: the rank, the
+    # world, the mesh and the rank's data index and data axis size
     args.rank, args.world = 0, 1
+    args.mesh, args.shard, args.shards = make_mesh(1, 1), 0, 1
     world = requested_world(args.num_processes)
     if world <= 1 and (args.coordinator_address
                        or args.process_id is not None):
@@ -659,7 +700,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         _refuse_in_eval(args, training_flags, robust_train, world)
     if args.mode == "serve":
         # ``scale_imagenet_tpu/main.py:862-880``, in its order
-        for flag, on in {"--amp": args.amp, **eval_flags, **robust_flags,
+        for flag, on in {"--tp": args.tp, "--amp": args.amp, **eval_flags,
+                         **robust_flags,
                          "--shards_dir": args.shards_dir is not None,
                          "--native_data": args.native_data,
                          **training_flags,
@@ -684,6 +726,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         for flag in ("--gates", "--fold_bn", "--fuse_quant"):
             if serving_flags[flag]:
                 given.add(flag)
+        given |= {f for f, on in (("--tp", args.tp), ("--sp", args.sp))
+                  if on}
         for flag, refusal in _COMPILE_REFUSALS.items():
             if flag in given:
                 raise ValueError(refusal)
@@ -693,8 +737,8 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise ValueError(_COMPILE_ROBUST)
     if args.mode == "export":
         # ``scale_imagenet_tpu/main.py:743-770``, for the flags the port has
-        for flag, on in {**serving_flags, **training_flags, **eval_flags,
-                         **robust_flags,
+        for flag, on in {**serving_flags, "--tp": args.tp, "--sp": args.sp,
+                         **training_flags, **eval_flags, **robust_flags,
                          "--shards_dir": args.shards_dir is not None,
                          "--native_data": args.native_data,
                          "--num_processes": world > 1}.items():
@@ -702,6 +746,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                 raise ValueError(f"--mode export writes the UNMODIFIED "
                                  f"weights in the reference layout; {flag} "
                                  "does not apply")
+    if args.sp:
+        raise ValueError(_SP)
     if unknown:
         raise ValueError(f"not ported yet: {' '.join(unknown)} (the port "
                          "has the --mode eval/serve/train/compile/export "
@@ -718,6 +764,8 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise ValueError(_FUSE_WITH_FOLD)
         if args.lut or args.gates:
             raise ValueError(_FUSE_WITH_COMPILED)
+        if args.tp:
+            raise ValueError(_FUSE_WITH_TP)
     if args.lut and args.fold_bn:
         raise ValueError(_LUT_WITH_FOLD)
     if args.lut and args.bf16:
@@ -749,6 +797,8 @@ def _refuse_in_eval(args, training_flags: dict, robust_train: bool,
     if args.gates:
         if args.lut:
             raise ValueError(_GATES_WITH_LUT)
+        if args.tp:
+            raise ValueError(_GATES_WITH_TP)
         if args.bf16:
             raise ValueError(_GATES_WITH_BF16)
         if args.fold_bn:
@@ -756,7 +806,8 @@ def _refuse_in_eval(args, training_flags: dict, robust_train: bool,
         if world > 1:
             raise ValueError(_GATES_WORLD)
     unmodified = (("--lut", args.lut), ("--gates", args.gates),
-                  ("--bf16", args.bf16), ("--fold_bn", args.fold_bn))
+                  ("--bf16", args.bf16), ("--fold_bn", args.fold_bn),
+                  ("--tp", args.tp))
     if args.certify > 0:
         for flag, on in unmodified:
             if on:
@@ -773,8 +824,8 @@ def _refuse_in_eval(args, training_flags: dict, robust_train: bool,
 
 def _refuse_in_train(args, unknown: list, robust_train: bool) -> None:
     """The JAX CLI's train refusals (``scale_imagenet_tpu/main.py:1184-1266,
-    1385-1388``) in its order, for the flags the port has (``--sp`` among
-    the unported ones)."""
+    1385-1388``) in its order, for the flags the port has; those that need
+    the model (``--remat``'s and ``--tp``'s family) follow in ``main``."""
     named = {f.split("=")[0] for f in unknown}
     given = {"--lut": args.lut, "--gates": bool(args.gates),
              "--certify": args.certify > 0,
@@ -782,17 +833,21 @@ def _refuse_in_train(args, unknown: list, robust_train: bool) -> None:
              "--attack_lr": args.attack_lr > 0, "--bf16": args.bf16,
              "--native_data": args.native_data,
              "--fold_bn": args.fold_bn, "--fuse_quant": args.fuse_quant,
-             "--sp": "--sp" in named}
+             "--sp": args.sp or "--sp" in named}
     for flag, on in given.items():
         if on:
             raise ValueError(_TRAIN_REFUSALS[flag])
-    if robust_train:
-        if args.label_smooth > 0:
-            raise ValueError(_ROBUST_LABEL_SMOOTH)
-        if args.grad_accum > 1:
-            raise ValueError(_ROBUST_GRAD_ACCUM)
+    if args.label_smooth > 0 and (args.tp or robust_train):
+        raise ValueError(_ROBUST_LABEL_SMOOTH)
+    if robust_train and args.grad_accum > 1:
+        raise ValueError(_ROBUST_GRAD_ACCUM)
+    if args.tp:
         if args.amp:
-            raise ValueError(_ROBUST_AMP)
+            raise ValueError(_TP_AMP)
+        if robust_train:
+            raise ValueError(_TP_ROBUST)
+    if robust_train and args.amp:
+        raise ValueError(_ROBUST_AMP)
 
 
 def load_checkpoint(model: torch.nn.Module, path: str,
@@ -1096,16 +1151,13 @@ def _val_loader(cfg, shards_dir: str | None, image_size: int):
     on the device with the ImageNet statistics, at every size, as in the
     JAX package), else the ImageFolder ``<data_dir>/val`` through the
     model's eval transform, or decoded by the native loader under
-    ``--native_data``.  Each of several ranks reads its slice, at its
-    local batch, padded to the same number of batches as every other
-    rank's."""
-    if cfg.eval_batch_size % cfg.world:
-        raise ValueError(f"eval batch {cfg.eval_batch_size} not divisible "
-                         f"by {cfg.world} processes")
-    bs = cfg.eval_batch_size // cfg.world
+    ``--native_data``.  Each data index reads its slice (the ranks of one
+    model group the same rows), at its local batch, padded to the same
+    number of batches as every other's."""
+    bs = _per_shard(cfg.eval_batch_size, cfg, "eval")
     if shards_dir:
-        return shard_loader(shards_dir, bs, rank=cfg.rank,
-                            world=cfg.world), (IMAGENET_MEAN, IMAGENET_STD)
+        return shard_loader(shards_dir, bs, rank=cfg.shard,
+                            world=cfg.shards), (IMAGENET_MEAN, IMAGENET_STD)
     root = os.path.join(cfg.data_dir, "val")
     if cfg.native_data:
         if image_size != 224:
@@ -1113,8 +1165,18 @@ def _val_loader(cfg, shards_dir: str | None, image_size: int):
         ds = NativeImageFolder(root)
     else:
         ds = ImageFolder(root, _pick_transforms(image_size)[0])
-    return DataLoader(ds, bs, num_workers=cfg.num_workers, rank=cfg.rank,
-                      world=cfg.world), None
+    return DataLoader(ds, bs, num_workers=cfg.num_workers, rank=cfg.shard,
+                      world=cfg.shards), None
+
+
+def _per_shard(batch: int, cfg, what: str) -> int:
+    """A data index's share of a global batch: the JAX CLI's message over
+    the processes when every rank is a data index, ``local_batch_size``'s
+    over the data axis otherwise."""
+    if cfg.shards == cfg.world and batch % cfg.world:
+        raise ValueError(f"{what} batch {batch} not divisible by "
+                         f"{cfg.world} processes")
+    return local_batch_size(batch, cfg.mesh)
 
 
 def _score(cfg, apply, loader, normalize, device, logger, epoch: int = 0,
@@ -1122,13 +1184,13 @@ def _score(cfg, apply, loader, normalize, device, logger, epoch: int = 0,
     """One eval pass (last batch padded and masked): ``(top1, top5,
     loss)``, and the robust extras as a fourth item when ``step``
     (``make_eval_step``'s keywords) asks for them; over every rank."""
-    bs = cfg.eval_batch_size // cfg.world
+    bs = cfg.eval_batch_size // cfg.shards
     feed = device_prefetch(pad_batches(iter(loader), bs), device)
     try:
         return evaluate(make_eval_step(apply, normalize, **step), feed,
                         logger=logger, epoch=epoch,
                         log_interval=cfg.log_interval, verbose=verbose,
-                        totals=totals)
+                        totals=totals, group=cfg.mesh.data_group)
     finally:
         feed.close()
 
@@ -1190,16 +1252,17 @@ def _train_loader(cfg, image_size: int, tbs: int):
     larger than the model input) and the flip alone from same-size ones
     (the 32x32 models' shards); or ``<data_dir>/train`` through the
     model's PIL train transform, drawn from a ``random.Random`` of the
-    seed (and of the rank, with several).  Each rank reads its slice, cut
-    to the fewest full batches of any rank."""
-    rank, world = cfg.rank, cfg.world
+    seed (and of the data index, with several).  Each data index reads its
+    slice (the ranks of one model group the same rows), cut to the fewest
+    full batches of any."""
+    rank, world = cfg.shard, cfg.shards
     if cfg.shards_dir:
         loader = shard_loader(cfg.shards_dir, tbs, drop_last=True,
                               shuffle=True, seed=cfg.seed, rank=rank,
                               world=world)
         shard_hw = loader.dataset.meta["shape"][0]
         full = shard_hw > image_size
-        if full and rank == 0:
+        if full and cfg.rank == 0:
             print(f"on-device augmentation: RandomResizedCrop({shard_hw}"
                   f"->{image_size}) + flip + ColorJitter")
         return loader, dict(normalize=(IMAGENET_MEAN, IMAGENET_STD),
@@ -1222,17 +1285,15 @@ def _step_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
 
 def _train(cfg, md, model, device):
     """``--mode train`` (``scale_imagenet_tpu/main.py:1178-1551``; with
-    several ranks its data-parallel step).  Returns a summary: the steps,
-    the logged train metrics, each epoch's validation and the checkpoint
-    dir."""
-    rank, world = cfg.rank, cfg.world
+    several ranks its data-parallel step, and under ``--tp`` its
+    tensor-parallel one).  Returns a summary: the steps, the logged train
+    metrics, each epoch's validation and the checkpoint dir."""
+    rank, world, mesh = cfg.rank, cfg.world, cfg.mesh
+    shard, shards = cfg.shard, cfg.shards
     coord = rank == 0
     if cfg.remat:
         model.cfg = dataclasses.replace(model.cfg, remat=True)
-    if cfg.train_batch_size % world:
-        raise ValueError(f"train batch {cfg.train_batch_size} not "
-                         f"divisible by {world} processes")
-    local_tbs = cfg.train_batch_size // world
+    local_tbs = _per_shard(cfg.train_batch_size, cfg, "train")
     # one card a process: a rank's batch is its one shard's
     if local_tbs % cfg.grad_accum:
         raise ValueError(f"--grad_accum {cfg.grad_accum}: per-shard batch "
@@ -1274,6 +1335,13 @@ def _train(cfg, md, model, device):
         except (FileNotFoundError, KeyError) as e:
             print("checkpoint has no optimizer state "
                   f"({type(e).__name__}: {e}); starting optimizer fresh")
+    metadata = {"model_name": md.name,
+                "config": dataclasses.asdict(model.cfg)}
+    if cfg.tp:
+        # channel-group tensor parallelism: each rank keeps its slice of
+        # the weights, momentum and EMA (``shard_train_state_tp``)
+        model, opt_state = shard_train_state(model, ts.opt_state, mesh)
+        ts = TrainState(model, opt_state, ts.step)
     robust = cfg.stability_eps > 0 or cfg.abstract_eps > 0 \
         or cfg.bias_decay > 0
     if robust:
@@ -1289,12 +1357,15 @@ def _train(cfg, md, model, device):
             abstract_coeff=cfg.abstract_coeff if cfg.abstract_eps > 0
             else 0.0,
             bias_coeff=cfg.bias_decay, bias_thresh=cfg.bias_thresh,
-            **train_kwargs)
+            group=mesh.data_group, **train_kwargs)
     else:
+        # under --tp the same step over the rank's slice (the TP step of
+        # ``scale_imagenet_tpu/parallel/tp.py:257-379``): its forward sums
+        # the classifier over the model group
         train_step = make_train_step(model, opt, amp=cfg.amp,
                                      accum=cfg.grad_accum,
                                      label_smooth=cfg.label_smooth,
-                                     **train_kwargs)
+                                     group=mesh.data_group, **train_kwargs)
     # logs and checkpoints are the coordinator's
     # (``scale_imagenet_tpu/main.py:1410-1415,1545-1555``)
     logger = MetricsLogger(_run_dir(cfg, "logs")) if coord else None
@@ -1313,13 +1384,22 @@ def _train(cfg, md, model, device):
     # it runs across resumed runs
     ckpt = CheckpointManager(ckpt_dir, best_root=os.path.dirname(
         ckpt_dir)) if coord else None
+
+    def payload():
+        """The whole train state: under --tp gathered from the model
+        group's slices, a collective every rank joins
+        (``scale_imagenet_tpu/main.py:1470-1486``)."""
+        return gather_train_payload(ts, mesh) if cfg.tp \
+            else train_payload(ts)
+
     conv_apply = _family(model.cfg).conv
+    # the TP forward is the local model's own (its classifier sums over the
+    # model group)
+    forward = model if cfg.tp else functools.partial(conv_apply, model)
     # a step's key: the coin flips of a stochastic forward, and the robust
-    # step's sign pattern; each rank its own
-    noise_root = rank_key(NoiseKey(cfg.seed), rank, world) \
+    # step's sign pattern; each data index its own
+    noise_root = rank_key(NoiseKey(cfg.seed), shard, shards) \
         if md.stochastic or robust else None
-    metadata = {"model_name": md.name,
-                "config": dataclasses.asdict(model.cfg)}
     generator = torch.Generator(device)
     summary = {"start_step": ts.step, "train": [], "val": [],
                "ckpt_dir": ckpt_dir}
@@ -1330,7 +1410,7 @@ def _train(cfg, md, model, device):
             try:
                 for i, (images, labels) in enumerate(feed):
                     generator.manual_seed(_step_seed(cfg.seed, ts.step,
-                                                     rank, world))
+                                                     shard, shards))
                     # the step's coin flips, keyed by the step: a resumed
                     # run draws what an uninterrupted one would
                     noise = None if noise_root is None else \
@@ -1364,8 +1444,7 @@ def _train(cfg, md, model, device):
             if validate is not None:
                 row = {"epoch": epoch, "step": ts.step}
                 top1, top5, vloss = validate(_keyed(
-                    lambda x, **k: conv_apply(model, x, **k),
-                    md.stochastic, cfg.seed, rank, world), epoch)
+                    forward, md.stochastic, cfg.seed, shard, shards), epoch)
                 if coord:
                     print(f"epoch {epoch} val: top1 {top1:.3f}% "
                           f"top5 {top5:.3f}% loss {vloss:.4f}")
@@ -1377,31 +1456,53 @@ def _train(cfg, md, model, device):
                     e1, e5, eloss = validate(_keyed(
                         lambda x, **k: torch.func.functional_call(
                             model, ema, (x,), k), md.stochastic, cfg.seed,
-                        rank, world), epoch)
+                        shard, shards), epoch)
                     if coord:
                         print(f"epoch {epoch} val[ema]: top1 {e1:.3f}% "
                               f"top5 {e5:.3f}% loss {eloss:.4f}")
                         logger.add_scalar("Accuracy/val_ema", e1, epoch)
                     row["ema_top1"] = metric = e1   # the deployable weights
                 summary["val"].append(row)
+            if ckpt is not None or cfg.tp:
+                state = payload()
             if ckpt is not None:
-                ckpt.save(ts.step, train_payload(ts), metric=metric,
-                          metadata=metadata)
+                ckpt.save(ts.step, state, metric=metric, metadata=metadata)
         # no rank returns before the coordinator's last checkpoint is
         # written
         barrier()
     except (KeyboardInterrupt, Exception):
         # a snapshot of the full train state, so the run resumes from the
-        # crash point
+        # crash point; under --tp over several ranks the gather is a
+        # collective that a crashed peer would deadlock
         if ckpt is not None:
-            ckpt.save(ts.step, train_payload(ts),
-                      metadata={**metadata, "crash": True})
+            if cfg.tp and mesh["model"] > 1:
+                print(_TP_CRASH)
+            else:
+                ckpt.save(ts.step, payload(),
+                          metadata={**metadata, "crash": True})
         raise
     finally:
         if logger is not None:
             logger.close()
     summary["step"] = ts.step
     return summary
+
+
+def _tp_forward(cfg, model):
+    """``--tp`` eval's forward (``scale_imagenet_tpu/main.py:1099-1125``):
+    the rank's channel slice of ``model`` (``parallel/tp.py``), as conv or,
+    under ``--lut``, over its slice of the whole tables (compiled or
+    loaded whole on every rank, the archive written by rank 0 alone)."""
+    mesh = cfg.mesh
+    if cfg.lut and not isinstance(model.cfg, TTnetImageNetConfig):
+        raise ValueError(_TP_LUT_FAMILY.format(type(model.cfg).__name__))
+    local_config(model.cfg, mesh["model"])
+    local = shard_model(model, mesh["model"], mesh.model_index,
+                        mesh.model_group)
+    if not cfg.lut:
+        return local
+    luts = shard_luts(load_or_compile_luts(model, cfg.lut_path), local)
+    return functools.partial(tp_lut_apply, luts, local)
 
 
 def main(argv=None, *, serve_ready=None, serve_stop=None):
@@ -1427,18 +1528,22 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     cfg.rank, cfg.world, device = initialize(
         cfg.coordinator_address, cfg.num_processes, cfg.process_id,
         resolve_device(cfg.device))
+    # the mesh over the ranks, the model axis innermost; a rank reads the
+    # rows of its data index
     if cfg.mode in ("eval", "train"):
-        mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, cfg.world)
+        cfg.mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, cfg.world,
+                             cfg.rank)
         if cfg.rank == 0:
             # ``scale_imagenet_tpu/main.py:948-951``
-            print(f"mesh: {mesh} over {cfg.world} devices"
+            print(f"mesh: {cfg.mesh} over {cfg.world} devices"
                   + (f" / {cfg.world} processes ({backend()})"
                      if cfg.world > 1 else ""))
         if cfg.mode == "eval":
-            local_batch_size(cfg.eval_batch_size, mesh)
+            local_batch_size(cfg.eval_batch_size, cfg.mesh)
     elif cfg.mode == "serve":
         # one process, one card
         make_mesh(cfg.mesh_data, cfg.mesh_model, 1)
+    cfg.shard, cfg.shards = cfg.mesh.data_index, cfg.mesh["data"]
     md = get_model(cfg.model, **{
         "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
         **parse_model_args(cfg.model_arg)})
@@ -1446,6 +1551,13 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     if cfg.mode == "train":
         if cfg.remat and not isinstance(md.config, TTnetImageNetConfig):
             raise ValueError(_REMAT_FAMILY.format(type(md.config).__name__))
+        if cfg.tp:
+            if cfg.remat:
+                raise ValueError(_TP_REMAT)
+            if not isinstance(md.config, TTnetImageNetConfig):
+                raise ValueError(_TP_TRAIN_FAMILY.format(
+                    type(md.config).__name__))
+            local_config(md.config, cfg.mesh["model"])
         return _train(cfg, md, model, device)
     if cfg.ckpt:
         load_checkpoint(model, cfg.ckpt, md.name)
@@ -1460,6 +1572,8 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     name = apply_serving_transforms(cfg, model, md.name)
     family = _family(model.cfg)
     conv_apply, lut_apply = family.conv, family.lut
+    if cfg.tp:
+        return _eval(cfg, _tp_forward(cfg, model), device, md, model)
     if cfg.gates:
         apply, on_device = _as_gate_model(model, cfg.gates)
         name += "+gates"
@@ -1479,7 +1593,7 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
             # the eval step keys batch i with NoiseKey(seed).child(i) (each
             # rank from its own root)
             return _eval(cfg, forward, device, md, model, rank_key(
-                NoiseKey(cfg.seed), cfg.rank, cfg.world)
+                NoiseKey(cfg.seed), cfg.shard, cfg.shards)
                 if md.stochastic else None)
         apply = _keyed(forward, md.stochastic, cfg.seed)
     size = md.config.image_size

@@ -1,43 +1,103 @@
-"""The data-parallel mesh over ranks (counterpart of
+"""The mesh over ranks (counterpart of
 ``scale_imagenet_tpu/parallel/mesh.py``).
 
 The port runs one process per card, so its mesh is over ranks, not over a
-process's devices: ``--mesh_data -1`` means every rank, and a data axis
-larger than the world raises the JAX package's ``make_mesh`` message.  A
-data axis smaller than the world (the JAX package's submesh of the first
-N devices) has no meaning when each process owns one card, and is
-refused.  ``--mesh_model`` > 1 (channel-group tensor parallelism, spatial
-partitioning) comes with later slices.
+process's devices.  ``make_mesh(data, model, world, rank)`` lays the ranks
+out as JAX lays its devices out, ``devices[:data*model].reshape(data,
+model)`` with the model axis innermost: rank ``r`` sits at data index ``r
+// model`` and model index ``r % model``.  ``--mesh_data -1`` means ``world
+// model``; a mesh larger than the world, or a world that the model axis
+does not divide, raises the JAX package's messages.  A mesh smaller than
+the world (the JAX package's submesh of the first N devices) has no
+meaning when each process owns one card, and is refused.
+
+The ``Mesh`` is the dict of the axis sizes (JAX's ``mesh.shape``) and
+carries the rank's coordinates and its two process groups: ``data_group``
+(the ranks that share its model index: gradients, BN statistics and
+metrics reduce over it) and ``model_group`` (the ranks that share its data
+index: the tensor-parallel classifier's sum).  Without a process group
+both are None (nothing to reduce); with one, an axis over the whole world
+is the default group (None) and any other axis a group of its own, of
+one rank or more.
 """
 
 from __future__ import annotations
 
-MESH_MODEL = ("not ported yet: --mesh_model {model} (channel-group tensor "
-              "parallelism and spatial partitioning come with later "
-              "slices; see ROADMAP.md)")
+import torch.distributed as dist
+
 SUBMESH = ("--mesh_data {data} < the {world} ranks: the JAX package would "
            "take a submesh of its first {data} devices, which has no "
            "meaning when each process owns one card (one process a card); "
            "drop --mesh_data or launch {data} ranks")
+SUBMESH_MODEL = ("mesh {data}x{model} < the {world} ranks: the JAX package "
+                 "would take a submesh of its first {used} devices, which "
+                 "has no meaning when each process owns one card (one "
+                 "process a card); drop --mesh_data or launch {used} ranks")
 
 
-def make_mesh(data: int = -1, model: int = 1, world: int = 1) -> dict:
-    """The mesh's axis sizes ``{"data": D, "model": 1}`` over ``world``
-    ranks, in the JAX package's order of checks
-    (``scale_imagenet_tpu/parallel/mesh.py:15-29``)."""
-    if model != 1:
-        raise ValueError(MESH_MODEL.format(model=model))
+class Mesh(dict):
+    """``{"data": D, "model": M}``, and this rank's place in it."""
+
+    def __init__(self, data: int, model: int, rank: int = 0):
+        super().__init__(data=data, model=model)
+        self.rank = rank
+        self.data_index, self.model_index = divmod(rank, model)
+        self.data_group = self.model_group = None
+
+    def data_ranks(self, model_index: int) -> list:
+        """The ranks of one model index (a data group)."""
+        return [d * self["model"] + model_index
+                for d in range(self["data"])]
+
+    def model_ranks(self, data_index: int) -> list:
+        """The ranks of one data index (a model group)."""
+        m = self["model"]
+        return list(range(data_index * m, (data_index + 1) * m))
+
+
+def make_mesh(data: int = -1, model: int = 1, world: int = 1,
+              rank: int = 0) -> Mesh:
+    """The mesh's axis sizes over ``world`` ranks, in the JAX package's
+    order of checks (``scale_imagenet_tpu/parallel/mesh.py:15-29``), with
+    this rank's coordinates and, where a process group of several ranks
+    exists, its process groups: every rank creates every group that is
+    not the whole world, in the same order (``new_group``'s rule), and
+    keeps its own; the groups take the default group's backend (gloo
+    where ranks share a card, NCCL where each has its own,
+    ``multihost.py``)."""
+    if model < 1:
+        raise ValueError(f"--mesh_model {model}: a count >= 1")
     if data == -1:
-        data = world
+        if world % model:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"model={model}")
+        data = world // model
     if data < 1:
         raise ValueError(f"--mesh_data {data}: -1 (every rank) or a count "
                          ">= 1")
     if data * model > world:
         raise ValueError(f"mesh {data}x{model} needs more than the {world} "
                          "available devices")
-    if data < world:
-        raise ValueError(SUBMESH.format(data=data, world=world))
-    return {"data": data, "model": model}
+    if data * model < world:
+        if model == 1:
+            raise ValueError(SUBMESH.format(data=data, world=world))
+        raise ValueError(SUBMESH_MODEL.format(data=data, model=model,
+                                              world=world,
+                                              used=data * model))
+    mesh = Mesh(data, model, rank)
+    if world == 1 or not dist.is_initialized():
+        return mesh
+    if model > 1:
+        for m in range(model):
+            group = dist.new_group(mesh.data_ranks(m))
+            if m == mesh.model_index:
+                mesh.data_group = group
+    if data > 1:
+        for d in range(data):
+            group = dist.new_group(mesh.model_ranks(d))
+            if d == mesh.data_index:
+                mesh.model_group = group
+    return mesh
 
 
 def local_batch_size(global_batch: int, mesh: dict) -> int:

@@ -17,17 +17,18 @@ _EXTRAS = ("cert", "adv")
 
 def evaluate(eval_step, loader, logger=None, epoch: int = 0,
              log_interval: int = 40, verbose: bool = True,
-             totals: dict | None = None):
+             totals: dict | None = None, group=None):
     """Run one evaluation epoch over ``loader`` (``(images, labels)``
     batches on the step's device); returns ``(top1, top5, loss)``, and the
     averages of the step's ``cert``/``adv`` extras (weighted by ``n``, as
     the other metrics) as a fourth item when it reports them.
 
     With several ranks, each scoring its slice, the sums are added over
-    the ranks at the end (``parallel/data_parallel.py::all_reduce_sums``):
-    the metrics returned are then those of the whole set (the running ones
-    printed and logged at a log point stay this rank's).  Every rank must
-    call it, in lockstep.  ``totals``: a dict that receives ``{"images":
+    the ranks of ``group`` at the end (a mesh's ``data_group``; None: every
+    rank; ``parallel/data_parallel.py::all_reduce_sums``): the metrics
+    returned are then those of the whole set (the running ones printed and
+    logged at a log point stay this rank's).  Every rank must call it, in
+    lockstep.  ``totals``: a dict that receives ``{"images":
     n}``, the images scored (over every rank).
 
     Per-batch metrics stay on the device until a log point or the end of
@@ -76,7 +77,8 @@ def evaluate(eval_step, loader, logger=None, epoch: int = 0,
                 logger.add_scalar("Accuracy/test", top1.avg, step)
     drain()
     meters = [losses, top1, top5, *extras.values()]
-    sums = all_reduce_sums([v for m in meters for v in (m.sum, m.count)])
+    sums = all_reduce_sums([v for m in meters for v in (m.sum, m.count)],
+                           group)
     for m, total, count in zip(meters, sums[::2], sums[1::2]):
         m.sum, m.count = total, int(count)
         m.avg = total / max(m.count, 1)

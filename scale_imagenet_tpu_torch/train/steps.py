@@ -44,10 +44,12 @@ Data parallelism (the JAX steps' ``shard_map`` branch, ``steps.py:308-345,
 437-470``): each rank runs the step on its slice of the batch, and
 ``parallel/data_parallel.py::all_reduce_mean_`` is called once after the
 gradient phase, all microbatches done, on the gradients, the new BN running
-statistics and the metrics: their means over the ranks, as JAX's
-``pmean``s; then each rank takes the same update.  Without a process group
-of several ranks it does nothing.  The
-tensor-parallel step comes with a later slice (``ROADMAP.md``).
+statistics and the metrics: their means over the ranks of ``group`` (the
+mesh's data axis), as JAX's ``pmean``s over ``data``; then each rank takes
+the same update.  Without a process group of several ranks it does
+nothing.  The tensor-parallel step is this step over a rank's channel
+slice of the model (``parallel/tp.py::TPTTnetImageNet``), whose classifier
+sums its partial products over the model axis.
 """
 
 from __future__ import annotations
@@ -233,7 +235,7 @@ def _bn_buffers(written: dict) -> list:
 
 def make_train_step(model: nn.Module, opt, amp: bool = False,
                     normalize=None, augment=False, accum: int = 1,
-                    label_smooth: float = 0.0):
+                    label_smooth: float = 0.0, group=None):
     """Returns ``train_step(ts, images, labels, generator=None, noise=None)
     -> (ts, metrics)``: one optimizer update of ``ts`` in place,
     ``ts.step`` + 1.  ``model`` is ``ts.model`` (a ``TTnetImageNet``'s
@@ -241,8 +243,8 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
     ``train/optim.py`` optimizer.  ``generator`` draws the augmentation on
     the images' device, ``noise`` (a ``NoiseKey``) keys the coin flips of a
     stochastic forward, which then needs it.  Metrics: ``loss``, ``top1``,
-    ``top5`` as device scalars, averaged over the ranks (module
-    docstring)."""
+    ``top5`` as device scalars, averaged over the ranks of ``group`` (a
+    mesh's ``data_group``; None: every rank; module docstring)."""
     prepare = make_input_pipeline(
         normalize, augment, image_size=model.cfg.image_size,
         dtype=torch.bfloat16 if amp else torch.float32)
@@ -292,7 +294,8 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
         if accum > 1:
             torch._foreach_mul_(list(grads.values()), 1.0 / accum)
             sums = tuple(s * (1.0 / accum) for s in sums)
-        all_reduce_mean_([*grads.values(), *_bn_buffers(written), *sums])
+        all_reduce_mean_([*grads.values(), *_bn_buffers(written), *sums],
+                         group)
         opt.update(params, grads, ts.opt_state, ts.step)
         ts.step += 1
         return ts, dict(zip(("loss", "top1", "top5"), sums))
@@ -305,7 +308,7 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
                            input_bounds=None, abstract_eps: float = 0.0,
                            abstract_coeff: float = 0.0,
                            bias_coeff: float = 0.0,
-                           bias_thresh: float = 0.0):
+                           bias_thresh: float = 0.0, group=None):
     """The training step with the reference's robustness losses, which
     compose (``steps.py:336-475``):
 
@@ -387,7 +390,7 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
         metrics = {"loss": loss.detach(), "top1": top1, "top5": top5,
                    "stability_loss": sloss.detach()}
         all_reduce_mean_([*grads.values(), *_bn_buffers(stats),
-                          *metrics.values()])
+                          *metrics.values()], group)
         opt.update(params, grads, ts.opt_state, ts.step)
         ts.step += 1
         return ts, metrics

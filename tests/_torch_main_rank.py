@@ -4,8 +4,10 @@
     python tests/_torch_main_rank.py JOBS
 
 ``JOBS`` (JSON) lists this rank's ``main`` runs, done in order in this
-one process: each ``{"argv": [...], "env": {...}, "save_model": F}``
-(``env`` and ``save_model`` optional).  A job's ``env`` is set
+one process: each ``{"argv": [...], "env": {...}, "save_model": F,
+"resume_under": D}`` (all but ``argv`` optional; ``resume_under`` adds
+``--ckpt`` of the ``last`` checkpoint of the one run under ``D``, which an
+earlier job wrote).  A job's ``env`` is set
 for it alone (torchrun's variables), and each job joins its own process
 group, left again before the next.  Each job's output follows a line
 ``JOB i``; its result is printed as JSON on a line ``RESULT ...``, and
@@ -40,8 +42,15 @@ def main(jobs: str) -> None:
         print(f"JOB {i}", flush=True)
         env = job.get("env", {})
         os.environ.update(env)
+        argv = job["argv"]
+        if job.get("resume_under"):
+            root = job["resume_under"]
+            runs = [d for d in os.listdir(root)
+                    if d not in ("best", "best.json")]
+            assert len(runs) == 1, runs
+            argv = argv + ["--ckpt", os.path.join(root, runs[0], "last")]
         try:
-            out = cli.main(job["argv"])
+            out = cli.main(argv)
         finally:
             for k in env:
                 del os.environ[k]

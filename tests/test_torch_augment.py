@@ -32,6 +32,11 @@ from scale_imagenet_tpu_torch.data import transforms as tf
 from scale_imagenet_tpu_torch.train import augment as aug
 from scale_imagenet_tpu_torch.train import make_input_pipeline
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 NORM = (tuple(IMAGENET_MEAN.tolist()), tuple(IMAGENET_STD.tolist()))
 
 

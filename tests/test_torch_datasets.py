@@ -23,6 +23,11 @@ from scale_imagenet_tpu_torch.data import CIFAR10, MNIST, \
     grayscale_transform, make_dataset_loader, tiny_imagenet, \
     tiny_train_transform, to_tensor_transform
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 
 def _cifar(root, n=6):
     base = root / "cifar-10-batches-py"

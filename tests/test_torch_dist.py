@@ -106,9 +106,14 @@ def test_submesh_and_model_axis_are_refused():
     with pytest.raises(ValueError) as err:
         make_mesh(1, 1, 2)
     assert str(err.value) == SUBMESH.format(data=1, world=2)
-    with pytest.raises(ValueError, match="not ported yet: --mesh_model 2 .*"
-                                         "ROADMAP.md"):
-        make_mesh(-1, 2, 2)
+    # a model axis is a mesh now (``tests/test_torch_tp.py``); one that
+    # the world does not fill is a submesh, one it cannot hold JAX's error
+    assert make_mesh(-1, 2, 2) == {"data": 1, "model": 2}
+    with pytest.raises(ValueError, match="submesh of its first 2 devices"):
+        make_mesh(1, 2, 4)
+    with pytest.raises(ValueError, match="3 devices not divisible by "
+                                         "model=2"):
+        make_mesh(-1, 2, 3)
     with pytest.raises(ValueError, match="-1 .every rank. or a count"):
         make_mesh(0, 1, 2)
 

@@ -19,8 +19,10 @@ run of the same flags.
 * The refusals, in-process: the JAX CLI's texts (its serve, export and
   ``--gates`` refusals of ``--num_processes``, its mesh and 0-step
   messages) and the port's own rules (``--platform``/``--cpu_devices``,
-  one-process modes, a rendezvous flag without a world); ``--tp``,
-  ``--sp`` and ``--mesh_model > 1`` still name ``ROADMAP.md``.
+  one-process modes, a rendezvous flag without a world); ``--sp`` still
+  names ``ROADMAP.md``, and ``--mesh_model``/``--tp`` (their runs are
+  ``tests/test_torch_tp_cli.py``'s) refuse a world they cannot split and
+  ``--gates``.
 """
 
 import io
@@ -282,9 +284,10 @@ def test_mesh_and_zero_step_messages_match_jax(data, tmp_path, argv):
     (["--mode", "serve", "--mesh_data", "2"],
      "mesh 2x1 needs more than the 1 available devices"),
     (["--mode", "eval", "--shards_dir", "d", "--mesh_model", "2"],
-     "not ported yet: --mesh_model 2 .*ROADMAP.md"),
-    (["--mode", "eval", "--shards_dir", "d", "--tp"],
-     "not ported yet: --tp .*ROADMAP.md"),
+     "1 devices not divisible by model=2"),
+    (["--mode", "eval", "--shards_dir", "d", "--tp", "--gates", "dnf"],
+     "--gates is the HOST circuit runtime; mesh-sharded compiled serving "
+     "is --tp --lut"),
     (["--mode", "eval", "--shards_dir", "d", "--sp"],
      "not ported yet: --sp .*ROADMAP.md")],
     ids=["platform", "cpu_devices", "compile", "export_mesh",

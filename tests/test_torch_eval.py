@@ -38,6 +38,11 @@ from scale_imagenet_tpu_torch.runtime.evaluate import evaluate
 from scale_imagenet_tpu_torch.train import MetricsLogger, accuracy_topk, \
     cross_entropy, make_eval_step, make_input_pipeline, masked_metric_sums
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 SMALL = ["--model", "ttnet_imagenet_xsmall", "--nfilter", "4", "--tfilter",
          "4", "--layers", "0"]
 
@@ -257,11 +262,12 @@ def test_main_eval_image_folder_and_write_shards(tmp_path):
     (["--amp"], "bf16 mixed-precision TRAINING"),
     (["--remat"], "recompute"),
     (["--bias_decay", "1e-3"], "robust TRAINING"),
-    (["--tp"], "ROADMAP.md"),
+    # --tp and the model axis are ported (tests/test_torch_tp*.py);
+    # --sp still names the roadmap, and one process holds no model axis
+    (["--tp", "--sp"], "ROADMAP.md"),
     (["--lut_path", "x.npz"], "add --lut"),
-    # --native_data is ported (tests/test_torch_native_data.py); the
-    # model axis still names the roadmap
-    (["--mesh_model", "2"], "ROADMAP.md"),
+    (["--mesh_model", "2", "--shards_dir", "d"],
+     "1 devices not divisible by model=2"),
     ([], "--shards_dir or --data_dir"),
     (["--write_shards", "d"], "--write_shards decodes --data_dir")])
 def test_eval_refuses_flags_it_does_not_carry(argv, match):

@@ -39,6 +39,11 @@ from scale_imagenet_tpu_torch.models import get_model, list_models, \
     multihead
 from scale_imagenet_tpu_torch.ops.poly import polynome_act
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 ALEX = "TT_FHE_XSMALL_vAlexnet"
 FHE = ["TT_FHE_SMALL", "TT_FHE_XSMALL", "TT_FHE_ref",
        "TT_FHE_SMALL_polyhead", "TT_FHE_SMALL_bireal"]

@@ -32,6 +32,11 @@ from scale_imagenet_tpu_torch.data import ArrayDataset, write_shards
 from scale_imagenet_tpu_torch.kernels import fused_block as FB
 from scale_imagenet_tpu_torch.models import get_model
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 ALEX = "TT_FHE_XSMALL_vAlexnet"
 
 

@@ -31,6 +31,11 @@ from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, stem, \
     ttnet_imagenet_apply
 from scale_imagenet_tpu_torch.ops.gelu import fast_erf, fast_gelu
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 
 def _block(kw, seed=0, dtype=np.float32):
     """One JAX init feeding a JAX block and the port's ``BlockTT``, with

@@ -25,6 +25,11 @@ import torch
 from scale_imagenet_tpu_torch.kernels import fused_block as FB
 from scale_imagenet_tpu_torch.ops.gelu import fast_gelu
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 # (G, ci, m, co, E): a flagship head 3 and a v2 head 3, E cut to thousands
 SHAPES = {"flagship": (4, 16, 128, 16, 4000), "v2": (2, 32, 256, 32, 3000)}
 FLIP_SHARE = 1e-4        # chip_smoke.py::fused_case, tests/test_torch_cuda

@@ -29,6 +29,11 @@ from scale_imagenet_tpu_torch.compile.lut_eval import compile_block_tt_lut, \
 from scale_imagenet_tpu_torch.kernels import gate_cubes as GC
 from scale_imagenet_tpu_torch.native import ttlogic
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 # (config, input NHWC shape): k = 1 grouped, k = 2 depthwise with pad 1,
 # k = 2 strided over groups of 2 channels, k = 1 with n = 8
 BLOCKS = [

@@ -42,6 +42,11 @@ from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
     ttnet_imagenet_apply
 from scale_imagenet_tpu_torch.train import make_input_pipeline
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 KW = dict(nfilter=4, tfilter=4, layers=0)
 SMALL = ["--model", "ttnet_imagenet_xsmall", "--nfilter", "4", "--tfilter",
          "4", "--layers", "0"]

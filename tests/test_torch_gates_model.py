@@ -29,6 +29,11 @@ from scale_imagenet_tpu_torch.compile.lut_eval import compile_ttnet_lut, \
     lut_multihead_apply
 from scale_imagenet_tpu_torch.models.ttnet_imagenet import _nchw, stem
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 KW = dict(nfilter=4, tfilter=4, layers=0)
 
 

@@ -29,6 +29,11 @@ from scale_imagenet_tpu_torch.models.block_tt import BlockTTConfig
 from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
     ttnet_imagenet_apply
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 TABLE_CFGS = [
     dict(in_planes=1, out_planes=8, k=4, padding=2, stride=2,
          groupsici=1),                                  # n=16, k=4 head

@@ -18,6 +18,11 @@ from scale_imagenet_tpu.pallas.lut_gather import lut_gather_nhwc, \
     pack_bit_table as jpack_bits, pack_float_table as jpack_float
 from scale_imagenet_tpu_torch.kernels import lut_gather as K
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 CASES = [(4, 1, 3), (9, 4, 1), (16, 2, 16)]
 
 

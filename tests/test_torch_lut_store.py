@@ -19,6 +19,11 @@ from scale_imagenet_tpu_torch.compile.lut_store import LUT_FORMAT_VERSION, \
     _table, load_luts, model_digest, params_digest, save_luts
 from scale_imagenet_tpu_torch.convert import jax_trees
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 NAME, KW = "ttnet_imagenet_xsmall", dict(nfilter=4, tfilter=4, layers=0)
 
 

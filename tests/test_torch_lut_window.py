@@ -23,6 +23,11 @@ from scale_imagenet_tpu.models.block_tt import BlockTTConfig as JBlockCfg
 from scale_imagenet_tpu_torch.compile import lut_eval
 from scale_imagenet_tpu_torch.kernels import lut_gather as K
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 # (Block_TT config, heads sharing the index): the flagship's depthwise 4x4
 # heads 1+2, its k=1 grouped head (n = 16), xsmall's k=2 p=1 heads 1+2,
 # small_g8's k=1 head (n = 8), and a float (ReLU) fuse head; t = 2 keeps

@@ -27,6 +27,11 @@ from scale_imagenet_tpu_torch.models import get_model, list_models
 from scale_imagenet_tpu_torch.models.ttnet_imagenet import stem, \
     ttnet_imagenet_apply
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 TOL = dict(rtol=1e-9, atol=1e-9)
 
 

@@ -36,6 +36,11 @@ from scale_imagenet_tpu_torch.models.block_tt import BlockTT, \
 from scale_imagenet_tpu_torch.ops import NoiseKey, binarize01_act, \
     bireal_act, dead_zone_noise, heaviside01_noisy
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 SMALL = "TT_FHE_small"
 W = dict(nfilter=2, tfilter=2)
 

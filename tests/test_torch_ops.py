@@ -32,6 +32,11 @@ from scale_imagenet_tpu_torch.models.classifier import ClassifierScale, \
 from scale_imagenet_tpu_torch.ops import Binarize01Act, binarize01_act, \
     gelu, heaviside01, polynome_act
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 TOL = dict(rtol=1e-9, atol=1e-9)
 
 

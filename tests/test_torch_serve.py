@@ -21,6 +21,11 @@ from scale_imagenet_tpu_torch.data import imagenet_eval_transform
 from scale_imagenet_tpu_torch.device import resolve_device
 from scale_imagenet_tpu_torch.models import get_model
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 SMALL = ["--model", "ttnet_imagenet_xsmall", "--nfilter", "4", "--tfilter",
          "4", "--layers", "0"]
 
@@ -121,9 +126,13 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    # --native_data is ported (tests/test_torch_native_data.py)
-    (["--mode", "eval", "--mesh_model", "2"], "ROADMAP.md"),
-    (["--mode", "export", "--tp"], "ROADMAP.md"),
+    # --native_data, --mesh_model and --tp are ported
+    # (tests/test_torch_native_data.py, tests/test_torch_tp*.py): --sp
+    # still names the roadmap beside a model axis, and export refuses --tp
+    # with the JAX CLI's text
+    (["--mode", "eval", "--mesh_model", "2", "--sp"], "ROADMAP.md"),
+    (["--mode", "export", "--tp"],
+     "UNMODIFIED weights in the reference layout; --tp does not apply"),
     # ported: serving refuses certified eval with the JAX CLI's text
     (["--mode", "serve", "--certify", "0.1"],
      "single-host inference serving; --certify does not apply"),

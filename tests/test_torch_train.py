@@ -463,7 +463,8 @@ def test_main_train_from_image_folder_and_train_shards(tmp_path,
     (["--attack", "fgsm"], "adversarial EVAL"),
     (["--stability_eps", "0.1", "--amp"],
      "--amp is not supported with robust"),
-    (["--tp"], "ROADMAP.md"),
+    # --tp is ported (tests/test_torch_tp*.py), in f32 only, as in JAX
+    (["--tp", "--amp"], "channel-sharded amp is not implemented"),
     (["--grad_accum", "3"], "must be divisible by grad_accum"),
     (["--ema", "1.5"], "decay must be in"),
     ([], "0 train steps per epoch")])

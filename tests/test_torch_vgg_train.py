@@ -31,6 +31,11 @@ from scale_imagenet_tpu_torch.models import get_model
 from scale_imagenet_tpu_torch.train import TrainState, make_optimizer, \
     make_train_step
 
+from _torch_port import few_threads  # noqa: F401
+
+# torch at two threads a worker (``_torch_port.few_threads``)
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 NAME = "ttnet_imagenet_vgg_stem"
 OPT = dict(lr=0.1, milestones=(1,), steps_per_epoch=1)
 
