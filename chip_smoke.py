@@ -21,8 +21,9 @@ registry's families at their widths (TT_general, the CIFAR zoo with
 ``tt_certif``, the DoReFa ResNets: eval, serve, train), and the robust
 models certified, attacked and trained with the robustness losses; the
 flagship's eval and training data-parallel over two rank processes on the
-one card (``--num_processes 2``, gloo) and tensor-parallel over them
-(``--mesh_model 2 --tp``), and its ImageFolder eval through
+one card (``--num_processes 2``, gloo), tensor-parallel over them
+(``--mesh_model 2 --tp``) and with the image height split over them
+(``--mesh_model 2 --sp``, attacked too), and its ImageFolder eval through
 the native decoder (``--native_data``) where libjpeg and Pillow exist.
 It holds every
 CUDA kernel against its plain PyTorch version.  Phases, each printing
@@ -293,7 +294,30 @@ one line of its numbers:
            TP f32 step against the one-process plain step from the same
            weights and batch: the bounds of 19 (a), and 21 (c)'s update
            norm and BN statistics;
-23. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
+23. sp (its jobs on 21's launch of the ranks): the two ranks on the one
+           card over gloo, ``--mesh_data 1 --mesh_model 2 --sp``: each holds
+           half of the rows of every image at every layer
+           (``parallel/sp.py``), the halos exchanged by ``all_reduce``:
+           (a) ``main --mode eval`` over the 5,000 shard images, the switch
+           off, then on: each rank scores every image, top-1/5 within 0.1
+           points and the loss within 1e-3 relative of the one-process
+           conv run with the same switch, img/s, idle share, peak memory
+           and launches a rank (0 off; 6 fused a batch on); (b) one ``--sp``
+           forward of the first B images with the switch on: its 6 fused
+           launches a rank, each held against its plain version
+           (``fused_case`` on the rank's rows, the ranks taking turns on
+           the card), the two ranks' logits equal, their argmax agreeing
+           with the one-process forward's on >= 99 %, the largest logit
+           difference and the share of Heaviside outputs (stem, heads 1,
+           2 and 4) that differ from the one-process forward's rows;
+           (c) ``main --mode eval --sp --attack fgsm --attack_eps 2/255``
+           over those 256 self-labelled images (the switch on): adversarial
+           <= clean top-1, and the share of the images whose FGSM
+           prediction through the sharded forward equals the one-process
+           attack's; (d) the utilities: ``utils.profile_trace`` writes a
+           trace of one ``--sp`` forward and ``utils.StepTimer`` times it,
+           its region closed by a host read of the logits;
+24. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
            imports (checked first), 512 seeded JPEGs of mixed sizes,
            ``main --mode eval --data_dir`` with and without
            ``--native_data``: equal metrics (identical pixels), both eval
@@ -1313,7 +1337,9 @@ class StepTimer:
     """Wraps a train step: keeps every step's loss (a device scalar, read
     after the run), and times steps 2..``steps`` from a synchronised start
     to a synchronised end, with the card's kernels profiled over the same
-    window (device idle share)."""
+    window (device idle share).  The port's ``utils.StepTimer`` (JAX's
+    plain timer, phase 23 (d)) has no profiler window, so the train
+    phases keep this one."""
 
     def __init__(self, steps: int):
         self.steps, self.calls, self.losses = steps, 0, []
@@ -3512,9 +3538,10 @@ def rank_eval(argv: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(cli, "evaluate", timed), \
             mock.patch.object(cli, "make_eval_step", counting):
-        top1, top5, loss = cli.main(argv)
+        top1, top5, loss, *extras = cli.main(argv)
     torch.cuda.synchronize()
     return {"top1": top1, "top5": top5, "loss": loss,
+            **(extras[0] if extras else {}),
             "rank_images": int(torch.stack(scored).sum()),
             "images": stats["images"], "eval_s": stats["wall_s"],
             "first_batch_images": stats["first_images"],
@@ -3641,6 +3668,9 @@ def dist_worker(args) -> int:
         elif job["kind"] == "tp_step":
             res = rank_tp_step(job["seed"], job["batch"], rank, world,
                                Path(job["work"]))
+        elif job["kind"] == "sp_forward":
+            res = rank_sp_forward(Path(job["eval_dir"]), Path(job["work"]),
+                                  job["batch"], job["seed"], rank, world)
         else:
             res = rank_dp_step(job["seed"], job["batch"], rank, world,
                                Path(job["work"]))
@@ -4221,6 +4251,272 @@ def check_tp(tp: dict, evals: dict, args) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# ----------------------------------------------------------------- sp
+
+# the flagship as two ranks on the one card, over gloo: one data index, the
+# image height split over a model axis of two
+SP_MESH = ["--mesh_data", "1", "--mesh_model", str(DIST_WORLD), "--sp"]
+SP_ATTACK_IMAGES = 256             # (c): one batch of self-labelled images
+SP_ATTACK_EPS = 2 / 255
+SP_ARGMAX_AGREEMENT = 0.99         # (b): as fused vs unfused (PERF.md §2)
+
+
+def _sp_prepared(eval_dir: Path, B: int, shard):
+    """The rank's rows of the first B eval images, normalized on the card,
+    and their (self-) labels."""
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD, \
+        shard_loader
+    from scale_imagenet_tpu_torch.parallel import local_rows
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
+
+    images, labels = next(iter(shard_loader(str(eval_dir / "shards"), B)))
+    x = torch.as_tensor(images).cuda()
+    if shard is not None:
+        x = local_rows(x, shard)
+    return (make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))(x),
+            torch.as_tensor(labels).long().cuda())
+
+
+def _fgsm_predictions(apply, model, x, labels) -> torch.Tensor:
+    """The argmax of ``apply`` on FGSM images at ``SP_ATTACK_EPS`` (pixel
+    units, through the ImageNet normalization), as ``--attack fgsm``
+    computes them, the fused switch on."""
+    from scale_imagenet_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from scale_imagenet_tpu_torch.robust.attack import fgsm_attack, frozen
+    from scale_imagenet_tpu_torch.train.steps import _on, _pixel_ball
+
+    eps, lo, hi = _on(_pixel_ball(SP_ATTACK_EPS, (IMAGENET_MEAN,
+                                                  IMAGENET_STD)), x.device)
+    with frozen(model), fused_blocks(True):
+        adv = fgsm_attack(apply, x, labels, eps, lo, hi)
+        return apply(adv).argmax(1)
+
+
+def rank_sp_forward(eval_dir: Path, work: Path, B: int, seed: int,
+                    rank: int, world: int) -> dict:
+    """(b)-(d) in each rank: one ``--sp`` forward of the first B eval
+    images with the fused switch on, every fused launch in it captured and
+    held against its plain version (the ranks taking turns on the card),
+    its logits and Heaviside outputs written under ``work``; the FGSM
+    predictions through the sharded forward; a ``utils.profile_trace`` of
+    one forward, timed by ``utils.StepTimer``.  The launches are counted
+    from 0 over the forward."""
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.parallel import barrier, sp
+    from scale_imagenet_tpu_torch.parallel.mesh import make_mesh
+    from scale_imagenet_tpu_torch.utils import StepTimer as PlainTimer, \
+        profile_trace
+
+    model = flagship(seed)
+    model.load_state_dict(torch.load(eval_dir / "weights.pth"))
+    shard = sp.row_shard(make_mesh(1, world, world, rank))
+    apply = sp.sp_forward(model, shard)
+    x, labels = _sp_prepared(eval_dir, B, shard)
+    fused, bits = [], []
+    real = sp.block_tt
+
+    def rec(block, h, *a, **k):
+        if block.cfg.k in (1, (1, 1)):
+            fused.append((block, h))
+        return real(block, h, *a, **k)
+
+    reset_kernel_launches()
+    with mock.patch.object(sp, "block_tt", rec), fused_blocks(True), \
+            heaviside_outputs(bits):
+        logits = apply(x)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    np.save(work / f"sp_logits_rank{rank}.npy", logits.cpu().numpy())
+    np.savez(work / f"sp_bits_rank{rank}.npz",
+             *[np.packbits(b.cpu().numpy().reshape(-1)) for b in bits])
+    rows = []
+    for r in range(world):
+        if r == rank:
+            rows = [fused_case(block, h, FB) for block, h in fused]
+        barrier()
+    preds = _fgsm_predictions(apply, model, x, labels)
+    np.save(work / f"sp_fgsm_rank{rank}.npy", preds.cpu().numpy())
+    # (d) the utilities on one forward
+    timer, trace = PlainTimer(), work / f"trace_rank{rank}"
+    with fused_blocks(True), profile_trace(str(trace)):
+        timer.start()
+        timer.stop(apply(x))
+    traces = sorted(trace.glob("*.pt.trace.json"))
+    return {"launches": launches, "rows": rows, "heavisides": len(bits),
+            "logits": list(logits.shape),
+            "finite": bool(torch.isfinite(logits).all()),
+            "traced_forward_ms": timer.mean * 1e3,
+            "trace_files": len(traces),
+            "trace_bytes": sum(f.stat().st_size for f in traces)}
+
+
+def sp_phase(args) -> dict:
+    """23's jobs (run by ``launch_phases``): the flagship at full width as
+    two ranks on the one card over gloo, ``--mesh_data 1 --mesh_model 2
+    --sp``: (a) ``main --mode eval`` over the eval phase's 5,000 shard
+    images, the switch off, then on; (b)-(d) ``rank_sp_forward``; (c)
+    ``main --mode eval --attack fgsm`` over the first 256 of them, written
+    here as shards of their own.  The checks are ``check_sp``'s."""
+    from scale_imagenet_tpu_torch.data import ArrayDataset, shard_loader, \
+        write_shards
+
+    B = args.batch
+    work = Path("build") / "chip_smoke_sp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    eval_dir = Path("build") / "chip_smoke_eval"
+    images, labels = next(iter(shard_loader(str(eval_dir / "shards"),
+                                            SP_ATTACK_IMAGES)))
+    write_shards(ArrayDataset(np.asarray(images), np.asarray(labels)),
+                 str(work / "attack_shards"))
+    common = ["--eval_batch_size", str(B), "--seed", str(args.seed),
+              "--ckpt", str(eval_dir / "weights.pth"), "--root_dir",
+              str(work / "logs"), *SP_MESH]
+    evals = ["--mode", "eval", "--shards_dir", str(eval_dir / "shards"),
+             *common]
+    jobs = [{"kind": "eval", "name": "conv", "argv": evals},
+            {"kind": "eval", "name": "conv_fused", "fused": True,
+             "argv": evals},
+            {"kind": "sp_forward", "name": "forward", "batch": B,
+             "seed": args.seed, "eval_dir": str(eval_dir),
+             "work": str(work)},
+            {"kind": "eval", "name": "attack", "fused": True, "argv": [
+                "--mode", "eval", "--shards_dir", str(work / "attack_shards"),
+                "--attack", "fgsm", "--attack_eps", str(SP_ATTACK_EPS),
+                *common]}]
+    return {"jobs": jobs, "work": work}
+
+
+def check_sp(sp: dict, evals: dict, args) -> dict:
+    """The checks and lines of phase 23 (``sp_phase``); returns each
+    kernel's launches by rank and run, and the captured launches' rows."""
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply
+    from scale_imagenet_tpu_torch.parallel import row_bounds
+
+    B, work, res = args.batch, sp["work"], sp["results"]
+    eval_dir = Path("build") / "chip_smoke_eval"
+    launches = {}
+    batches = -(-EVAL_IMAGES // B)
+    # (a) conv eval with the height split, the switch off and on
+    for name, fused_n in (("conv", 0), ("conv_fused", 6 * batches)):
+        one = evals[name]
+        r0, r1 = res[name]
+        emit("sp_eval", run=name, mesh="1x2", batch=B,
+             rank_images=[r0["rank_images"], r1["rank_images"]],
+             images=r0["images"],
+             img_s=EVAL_IMAGES / max(r0["eval_s"], r1["eval_s"]),
+             img_s_after_first_batch=(
+                 EVAL_IMAGES - r0["first_batch_images"]) / max(
+                     r0["after_first_s"], r1["after_first_s"]),
+             top1=r0["top1"], top5=r0["top5"], loss=r0["loss"],
+             one_process={k: one[k] for k in ("top1", "top5", "loss",
+                                             "img_s")},
+             rank_idle_share=[r0["device_idle_share"],
+                              r1["device_idle_share"]],
+             rank_max_memory_allocated_gb=[r0["max_memory_allocated_gb"],
+                                           r1["max_memory_allocated_gb"]],
+             rank_launches=[r0["launches"], r1["launches"]],
+             run_s=[r0["run_s"], r1["run_s"]])
+        check(r0["images"] == r1["images"] == EVAL_IMAGES
+              and r0["rank_images"] == r1["rank_images"] == EVAL_IMAGES,
+              f"sp {name} eval scored {r0['images']}, {r1['images']} "
+              f"(rank counts {r0['rank_images']}, {r1['rank_images']}), "
+              f"expected {EVAL_IMAGES}")
+        check(all(r0[k] == r1[k] for k in ("top1", "top5", "loss")),
+              f"sp {name} eval: the ranks' metrics differ")
+        _within(r0, one, f"sp {name} eval vs one process")
+        for r, rr in enumerate((r0, r1)):
+            got = rr["launches"]
+            check(got["fused_pointwise_block"] == fused_n
+                  and not got["lut_window_bits"] and not got["gate_cubes"],
+                  f"sp {name} eval rank {r} launched {got}, expected "
+                  f"{fused_n} fused")
+            for kname, n in got.items():
+                launches.setdefault(kname, {})[f"eval_sp_{name}_rank{r}"] = n
+    # (b) one forward: its launches against their plain versions, its
+    # logits and Heaviside outputs against the one-process forward's
+    model = flagship(args.seed)
+    model.load_state_dict(torch.load(eval_dir / "weights.pth"))
+    x, labels = _sp_prepared(eval_dir, B, None)
+    bits = []
+    with fused_blocks(True), heaviside_outputs(bits):
+        want = ttnet_imagenet_apply(model, x)
+    rows, flips, outputs = [], 0, 0
+    logits = [torch.from_numpy(np.load(work / f"sp_logits_rank{r}.npy"))
+              for r in range(DIST_WORLD)]
+    for r, rr in enumerate(res["forward"]):
+        got = rr["launches"]
+        check(got["fused_pointwise_block"] == 6 and rr["finite"]
+              and rr["logits"] == [B, 1000],
+              f"sp forward rank {r}: launches {got}, logits {rr['logits']}")
+        check(rr["heavisides"] == len(bits),
+              f"sp rank {r} ran {rr['heavisides']} Heaviside sites, the "
+              f"one-process forward {len(bits)}")
+        with np.load(work / f"sp_bits_rank{r}.npz") as mine:
+            for i, full in enumerate(bits):
+                lo, hi = row_bounds(full.shape[2], DIST_WORLD, r)
+                part = np.packbits(full[:, :, lo:hi].cpu().numpy()
+                                   .reshape(-1))
+                check(mine[f"arr_{i}"].shape == part.shape,
+                      f"sp rank {r} Heaviside site {i} has another shape")
+                flips += int(np.unpackbits(mine[f"arr_{i}"] ^ part).sum())
+                outputs += full[:, :, lo:hi].numel()
+        for row in rr["rows"]:
+            row["rank"] = r
+            rows.append(row)
+            emit("sp_kernels", kernel="fused_pointwise_block", **row)
+        for kname, n in got.items():
+            launches.setdefault(kname, {})[f"sp_forward_rank{r}"] = n
+    want = want.cpu()
+    agree = float((logits[0].argmax(1) == want.argmax(1)).float().mean())
+    emit("sp_forward", mesh="1x2", batch=B,
+         rank_launches=[rr["launches"] for rr in res["forward"]],
+         ranks_logits_equal=bool(torch.equal(logits[0], logits[1])),
+         logit_max_abs_diff=float((logits[0] - want).abs().max()),
+         argmax_agreement=agree, heaviside_outputs=outputs,
+         heaviside_flipped=flips, flip_share=flips / outputs)
+    check(torch.equal(logits[0], logits[1]),
+          "sp forward: the two ranks' logits differ")
+    check(agree >= SP_ARGMAX_AGREEMENT,
+          f"sp forward argmax agreement with one process {agree} < "
+          f"{SP_ARGMAX_AGREEMENT}")
+    # (c) FGSM through the CLI, and its predictions against one process
+    c0, c1 = res["attack"]
+    one = _fgsm_predictions(lambda t: ttnet_imagenet_apply(model, t), model,
+                            x, labels).cpu().numpy()
+    same = [float((np.load(work / f"sp_fgsm_rank{r}.npy") == one).mean())
+            for r in range(DIST_WORLD)]
+    emit("sp_attack", mesh="1x2", images=SP_ATTACK_IMAGES,
+         eps=SP_ATTACK_EPS, top1=c0["top1"], adv=c0["adv"],
+         img_s=SP_ATTACK_IMAGES / max(c0["eval_s"], c1["eval_s"]),
+         rank_max_memory_allocated_gb=[c0["max_memory_allocated_gb"],
+                                       c1["max_memory_allocated_gb"]],
+         rank_launches=[c0["launches"], c1["launches"]],
+         adv_prediction_agreement_with_one_process=same)
+    check(c0["images"] == SP_ATTACK_IMAGES and all(
+        c0[k] == c1[k] for k in ("top1", "adv")),
+        f"sp attack scored {c0['images']}, ranks {c0['adv']}, {c1['adv']}")
+    check(c0["adv"] <= c0["top1"],
+          f"sp attack: adversarial top-1 {c0['adv']} > clean {c0['top1']}")
+    for r, rr in enumerate((c0, c1)):
+        check(rr["launches"]["fused_pointwise_block"] == 12,
+              f"sp attack rank {r} launched {rr['launches']}, expected 12 "
+              "fused (the clean and adversarial forwards)")
+        for kname, n in rr["launches"].items():
+            launches.setdefault(kname, {})[f"eval_sp_attack_rank{r}"] = n
+    # (d) the utilities
+    emit("sp_utils", traced_forward_ms=[rr["traced_forward_ms"]
+                                        for rr in res["forward"]],
+         trace_files=[rr["trace_files"] for rr in res["forward"]],
+         trace_bytes=[rr["trace_bytes"] for rr in res["forward"]])
+    check(all(rr["trace_files"] == 1 and rr["trace_bytes"] > 0
+              for rr in res["forward"]),
+          "utils.profile_trace wrote no trace of the sp forward")
+    shutil.rmtree(work)
+    return {"launches": launches, "rows": rows}
+
+
 def native_data_missing() -> str | None:
     """What the native decode phase lacks on this machine, or None: g++
     with ``jpeglib.h`` and libjpeg (one tiny program compiled and linked),
@@ -4608,26 +4904,35 @@ def run(args) -> int:
         train_phase(args, model, out_dir)
     lap("train")
 
-    # ------------------------------------ distributed and tensor parallel
-    # one launch of the rank processes runs both phases' jobs; the tp lap
-    # takes its own jobs' seconds, the launch's set-up stays with 21
+    # ------------------------- distributed, tensor and spatial parallel
+    # one launch of the rank processes runs the three phases' jobs; the tp
+    # and sp laps take their own jobs' seconds, the launch's set-up stays
+    # with 21
     t0 = time.perf_counter()
-    dist, tp = distributed_phase(args), tp_phase(args)
-    launch_s = launch_phases((dist, tp), out_dir)
+    dist, tp, sp = distributed_phase(args), tp_phase(args), sp_phase(args)
+    launch_s = launch_phases((dist, tp, sp), out_dir)
     dist_launches = check_distributed(dist, evals, args)
     emit("distributed_phase", seconds=time.perf_counter() - t0
-         - tp["ranks_s"], ranks_s=dist["ranks_s"], launch_s=launch_s)
+         - tp["ranks_s"] - sp["ranks_s"], ranks_s=dist["ranks_s"],
+         launch_s=launch_s)
     lap("distributed")
-    laps["distributed"] -= tp["ranks_s"]
+    laps["distributed"] -= tp["ranks_s"] + sp["ranks_s"]
 
     t0 = time.perf_counter()
     tp_checked = check_tp(tp, evals, args)
-    shutil.rmtree(Path("build") / "chip_smoke_train")
-    shutil.rmtree(Path("build") / "chip_smoke_eval")
     emit("tp_phase", seconds=time.perf_counter() - t0 + tp["ranks_s"],
          ranks_s=tp["ranks_s"])
     lap("tp")
     laps["tp"] += tp["ranks_s"]
+
+    t0 = time.perf_counter()
+    sp_checked = check_sp(sp, evals, args)
+    shutil.rmtree(Path("build") / "chip_smoke_train")
+    shutil.rmtree(Path("build") / "chip_smoke_eval")
+    emit("sp_phase", seconds=time.perf_counter() - t0 + sp["ranks_s"],
+         ranks_s=sp["ranks_s"])
+    lap("sp")
+    laps["sp"] += sp["ranks_s"]
 
     # ------------------------------------------------------- native data
     t0 = time.perf_counter()
@@ -4773,20 +5078,24 @@ def run(args) -> int:
         for phase, res in zoo.items():
             line["launches_by_path"][phase] = res["launches"][line["name"]]
             line["launches"] += res["launches"][line["name"]]
-        # the distributed and tensor-parallel phases' ranks, each run
-        # counted from 0 in its rank's process
-        for runs in (dist_launches, tp_checked["launches"]):
+        # the distributed, tensor- and spatial-parallel phases' ranks, each
+        # run counted from 0 in its rank's process
+        for runs in (dist_launches, tp_checked["launches"],
+                     sp_checked["launches"]):
             for path, n in runs.get(line["name"], {}).items():
                 line["launches_by_path"][path] = n
                 line["launches"] += n
     # the launches of one TP --lut forward, each rank's at its local width,
-    # against their plain versions: times summed over rank 0's forward
-    for line, kind, err in ((kernels[0], "bits", "max_abs_err"),
-                            (kernels[2], "fused", "max_abs_err_float32")):
-        tp_rows = tp_checked["rows"][kind]
-        line.update(sums([r for r in tp_rows if r["rank"] == 0], "tp_"))
+    # and of one --sp forward, each rank's on its rows, against their plain
+    # versions: times summed over rank 0's forward
+    for line, prefix, got, err in (
+            (kernels[0], "tp_", tp_checked["rows"]["bits"], "max_abs_err"),
+            (kernels[2], "tp_", tp_checked["rows"]["fused"],
+             "max_abs_err_float32"),
+            (kernels[2], "sp_", sp_checked["rows"], "max_abs_err_float32")):
+        line.update(sums([r for r in got if r["rank"] == 0], prefix))
         line["max_abs_err"] = max(line["max_abs_err"],
-                                  *(r[err] for r in tp_rows))
+                                  *(r[err] for r in got))
     # the cases under the serving transforms: bf16 x, folded biases
     fused_line = kernels[2]
     fused_line["max_abs_err"] = max(

@@ -34,10 +34,21 @@ def fold_avgpool_into_stem_weight(w7: torch.Tensor) -> torch.Tensor:
 def space_to_depth_stem(x: torch.Tensor, w7: torch.Tensor) -> torch.Tensor:
     """avgpool2 + conv7s2p3 as one s2d conv; ``x`` is NCHW with H, W
     divisible by 8 (224 in every reference config)."""
-    b, c, h, w = x.shape
-    hp, wp = h + 12, w + 12
-    hp4, wp4 = -(-hp // 4) * 4, -(-wp // 4) * 4
-    xp = F.pad(x, (6, 6 + wp4 - wp, 6, 6 + hp4 - hp))
+    h, w = x.shape[2:]
+    return s2d_conv(F.pad(x, (*stem_pad(w), *stem_pad(h))), w7)
+
+
+def stem_pad(size: int) -> tuple:
+    """The zeros before and after a side of ``size`` pixels: 6 (the
+    folded conv's padding) and up to the next multiple of 4."""
+    return 6, 6 + -(-(size + 12) // 4) * 4 - (size + 12)
+
+
+def s2d_conv(xp: torch.Tensor, w7: torch.Tensor) -> torch.Tensor:
+    """The folded conv on NCHW ``xp`` already padded on both sides (H and
+    W multiples of 4): output row ``o`` reads padded rows ``[4o, 4o +
+    16)``."""
+    b, c, hp4, wp4 = xp.shape
     xb = xp.reshape(b, c, hp4 // 4, 4, wp4 // 4, 4)
     xb = xb.permute(0, 3, 5, 1, 2, 4).reshape(b, 16 * c, hp4 // 4, wp4 // 4)
     return F.conv2d(xb, fold_avgpool_into_stem_weight(w7))

@@ -133,9 +133,17 @@ rank its slice of the tables), and training with ``--grad_accum`` and
 one-process run writes; it refuses ``--amp``, ``--remat``, robust
 training, ``--label_smooth``, ``--gates``, ``--certify``, ``--attack``,
 serve, compile and export as the JAX CLI does, and the other families
-with a ``ValueError`` naming JAX's crash.  ``--sp`` comes with the next
-slice and raises here naming ``ROADMAP.md``; the flags that the JAX CLI
-refuses in a mode raise with its messages.
+with a ``ValueError`` naming JAX's crash.  ``--sp`` (the ttnet_imagenet
+family) splits the image height over the model axis instead
+(``parallel/sp.py``): each model rank of a data index scores the same
+images on its rows, with ``--attack`` too, and every rank computes the
+whole logits; it refuses ``--tp``, ``--lut``, ``--gates``, a model axis
+of 1 and a height that the axis does not divide with the JAX CLI's
+texts, the other families with ``SP_FAMILY``, and training and compile
+as the JAX CLI does.  The server is one process on one card, so ``--mode
+serve --sp`` meets JAX's checks on a one-device mesh: ``make_mesh``'s
+refusal of ``--mesh_model`` > 1, else the model axis of 1.  The flags
+that the JAX CLI refuses in a mode raise with its messages.
 """
 
 from __future__ import annotations
@@ -180,6 +188,7 @@ from .native.ttdata import NativeImageFolder
 from .parallel import backend, barrier, broadcast_module_, initialize, \
     is_coordinator, local_batch_size, make_mesh, rank_key, rank_seed, \
     requested_world
+from .parallel.sp import SP_HEIGHT, row_shard, sp_family, sp_forward
 from .parallel.tp import gather_train_payload, local_config, shard_luts, \
     shard_model, shard_train_state, tp_lut_apply
 from .models import get_model, list_models
@@ -198,6 +207,7 @@ from .models.ttnet_imagenet import TTnetImageNetConfig, \
     TTnetVGGStemConfig, ttnet_imagenet_apply, ttnet_vgg_stem_apply
 from .models.ttnet_imagenet_v1 import TTnetV1Config, ttnet_v1_apply
 from .ops.binarize import NoiseKey
+from .utils import cast_floating
 from .runtime.checkpoint import MODEL_FILE, CheckpointManager, \
     load_train_state, train_payload
 from .runtime.evaluate import evaluate
@@ -322,10 +332,13 @@ _TP_TRAIN_FAMILY = "--tp training supports the ttnet_imagenet family, not {}"
 _TP_LUT_FAMILY = ("--tp --lut (mesh-sharded compiled serving) supports the "
                   "ttnet_imagenet family; serve {} with --lut alone")
 _TP_CRASH = "crash snapshot skipped: TP state is sharded across processes"
-# the port's own: --sp is the one JAX CLI flag still to port
-_SP = ("not ported yet: --sp (spatial partitioning of the image height over "
-       "the model axis, with a halo exchange for each height-mixing op of "
-       "each family, comes with the next slice; see ROADMAP.md)")
+# ``scale_imagenet_tpu/main.py:913-929,1030-1045``: the --sp refusals
+_SP_WITH_TP = ("--sp and --tp both shard over the 'model' mesh axis — pick "
+               "one")
+_SP_COMPILED = ("--sp spatially shards conv math; the compiled serving modes "
+                "(--lut/--gates) walk tables per window — drop one")
+_SP_MODEL_AXIS = ("--sp shards image height over the 'model' axis; run with "
+                  "--mesh_model>1")
 
 # ``scale_imagenet_tpu/main.py:887,986``
 _GATES_WITH_LUT = ("--gates and --lut are two serving modes for the same "
@@ -637,8 +650,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "axis (ttnet_imagenet family): eval (conv, --lut) "
                         "and training, each rank holding its channel slice")
     p.add_argument("--sp", action="store_true",
-                   help="the JAX CLI's spatial partitioning: refused here "
-                        "(see ROADMAP.md)")
+                   help="spatial partitioning over the model axis "
+                        "(ttnet_imagenet family, eval): each model rank "
+                        "holds rows of every image")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of rank 0's rendezvous (tcp://)")
     p.add_argument("--num_processes", type=int, default=None,
@@ -746,8 +760,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                 raise ValueError(f"--mode export writes the UNMODIFIED "
                                  f"weights in the reference layout; {flag} "
                                  "does not apply")
-    if args.sp:
-        raise ValueError(_SP)
     if unknown:
         raise ValueError(f"not ported yet: {' '.join(unknown)} (the port "
                          "has the --mode eval/serve/train/compile/export "
@@ -759,6 +771,12 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise ValueError(_GATES_WITH_BF16)
         if args.fold_bn:
             raise ValueError(_GATES_WITH_FOLD)
+    if args.mode == "serve" and args.sp:
+        # one process on one card: ``scale_imagenet_tpu/main.py:909-929``
+        # on a one-device mesh
+        make_mesh(args.mesh_data, args.mesh_model, 1)
+        raise ValueError(_SP_COMPILED if args.lut or args.gates
+                         else _SP_MODEL_AXIS)
     if args.fuse_quant:
         if args.fold_bn:
             raise ValueError(_FUSE_WITH_FOLD)
@@ -786,7 +804,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def _refuse_in_eval(args, training_flags: dict, robust_train: bool,
                     world: int) -> None:
-    """The JAX CLI's eval refusals (``scale_imagenet_tpu/main.py:959-1029``)
+    """The JAX CLI's eval refusals (``scale_imagenet_tpu/main.py:959-1045``)
     in its order, for the flags the port has."""
     ordered = {"--amp": training_flags["--amp"],
                "--stability_eps": robust_train,
@@ -820,6 +838,13 @@ def _refuse_in_eval(args, training_flags: dict, robust_train: bool,
                 raise ValueError(_ATTACK_WITH.format(flag))
     elif args.attack_eps > 0 or args.attack_lr > 0:
         raise ValueError(_ATTACK_FLAG)
+    if args.sp:
+        if args.tp:
+            raise ValueError(_SP_WITH_TP)
+        if args.lut or args.gates:
+            raise ValueError(_SP_COMPILED)
+        if args.mesh_model == 1:
+            raise ValueError(_SP_MODEL_AXIS)
 
 
 def _refuse_in_train(args, unknown: list, robust_train: bool) -> None:
@@ -1135,7 +1160,7 @@ def apply_serving_transforms(cfg, model, name: str = "") -> str:
     if cfg.bf16:
         # the floating parameters and buffers; ``_nchw`` casts the images
         # to the stem's dtype, and TF32 stays off for every f32 op
-        model.to(torch.bfloat16)
+        cast_floating(model)
     return name
 
 
@@ -1225,7 +1250,8 @@ def _eval(cfg, apply, device, md, model, noise=None):
         res = _score(cfg, apply, loader, normalize, device, logger,
                      verbose=coord, totals=totals, noise=noise, md=md,
                      model=model, certify_eps=cfg.certify,
-                     certify_stats=certify_stats, attack=attack)
+                     certify_stats=certify_stats, attack=attack,
+                     mesh=cfg.mesh, spatial=cfg.sp)
         top1, top5, loss = res[:3]
         extras = res[3] if len(res) > 3 else {}
         tags = {"cert": f"certified@eps={cfg.certify:g}",
@@ -1528,6 +1554,16 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     cfg.rank, cfg.world, device = initialize(
         cfg.coordinator_address, cfg.num_processes, cfg.process_id,
         resolve_device(cfg.device))
+    md = get_model(cfg.model, **{
+        "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
+        **parse_model_args(cfg.model_arg)})
+    if cfg.sp and cfg.mode == "eval":
+        # ``scale_imagenet_tpu/main.py:1042-1045``, then the port's rule,
+        # before a mesh that one process cannot hold
+        size = getattr(md.config, "image_size", 224)
+        if size % cfg.mesh_model:
+            raise ValueError(SP_HEIGHT.format(size, cfg.mesh_model))
+        sp_family(md.config)
     # the mesh over the ranks, the model axis innermost; a rank reads the
     # rows of its data index
     if cfg.mode in ("eval", "train"):
@@ -1544,9 +1580,6 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         # one process, one card
         make_mesh(cfg.mesh_data, cfg.mesh_model, 1)
     cfg.shard, cfg.shards = cfg.mesh.data_index, cfg.mesh["data"]
-    md = get_model(cfg.model, **{
-        "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
-        **parse_model_args(cfg.model_arg)})
     model = md.init(seed=cfg.seed, device=device)
     if cfg.mode == "train":
         if cfg.remat and not isinstance(md.config, TTnetImageNetConfig):
@@ -1574,6 +1607,9 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     conv_apply, lut_apply = family.conv, family.lut
     if cfg.tp:
         return _eval(cfg, _tp_forward(cfg, model), device, md, model)
+    if cfg.sp:
+        return _eval(cfg, sp_forward(model, row_shard(cfg.mesh)), device,
+                     md, model)
     if cfg.gates:
         apply, on_device = _as_gate_model(model, cfg.gates)
         name += "+gates"

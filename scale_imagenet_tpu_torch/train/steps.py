@@ -55,6 +55,7 @@ sums its partial products over the model axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 
 import numpy as np
@@ -62,6 +63,7 @@ import torch
 from torch import nn
 
 from ..parallel.data_parallel import all_reduce_mean_
+from ..parallel.sp import SP_MESH, local_rows, row_shard
 from ..robust.attack import fgsm_attack, frozen, pgd_attack
 from ..robust.collect import multi_sample_forward
 from ..robust.interval import certified_mask
@@ -137,7 +139,7 @@ def _on(ball: tuple, device) -> tuple:
 
 def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
                    certify_eps: float = 0.0, certify_stats=None,
-                   attack=None):
+                   attack=None, mesh=None, spatial: bool = False):
     """``apply(x, **kw)``: NHWC float images -> logits (the conv, LUT or
     gate forward).  Returns ``eval_step(images, labels) -> {"loss",
     "top1", "top5", "n"}``, device scalars; labels < 0 mark pad rows, which
@@ -155,8 +157,19 @@ def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
     of ``apply`` on the attacked images, each attack step keyed as
     ``pgd_attack`` says and ``model``'s parameters frozen meanwhile.
     ``certify_stats``: the ``(mean, std)`` the inputs were normalized with
-    (both balls); ``None`` means raw [0, 1] inputs."""
+    (both balls); ``None`` means raw [0, 1] inputs.
+
+    ``spatial``: the image height is sharded over ``mesh``'s model axis
+    (``--sp``): each batch comes whole to every rank of a model group,
+    which keeps its own rows on the device (``parallel/sp.py``), and
+    ``apply`` is the row-sharded forward (``sp_forward``), the same logits
+    on every rank.  An attacked image stays row-sharded: the sign step and
+    the projection are row-local."""
+    if spatial and mesh is None:
+        raise ValueError(SP_MESH)
     prepare = make_input_pipeline(normalize)
+    rows = functools.partial(local_rows, shard=row_shard(mesh)) if spatial \
+        else (lambda images: images)
     if certify_eps > 0:
         if md is None or md.interval_logits is None:
             name = "the model" if md is None else md.name
@@ -177,7 +190,7 @@ def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
         # the attack differentiates tensors made here: no inference mode
         with torch.no_grad() if attack is not None \
                 else torch.inference_mode():
-            x = prepare(images)
+            x = prepare(rows(images))
             logits = apply(x, **kw)
             nll_sum, (c1, c5), n = masked_metric_sums(logits, labels)
             denom = n.clamp(min=1.0)

@@ -19,9 +19,10 @@ run of the same flags.
 * The refusals, in-process: the JAX CLI's texts (its serve, export and
   ``--gates`` refusals of ``--num_processes``, its mesh and 0-step
   messages) and the port's own rules (``--platform``/``--cpu_devices``,
-  one-process modes, a rendezvous flag without a world); ``--sp`` still
-  names ``ROADMAP.md``, and ``--mesh_model``/``--tp`` (their runs are
-  ``tests/test_torch_tp_cli.py``'s) refuse a world they cannot split and
+  one-process modes, a rendezvous flag without a world); ``--sp`` refuses
+  a model axis of 1 with the JAX CLI's text, and ``--mesh_model``/``--tp``
+  (their runs, and ``--sp``'s, are ``tests/test_torch_tp_cli.py``'s and
+  ``tests/test_torch_sp_cli.py``'s) refuse a world they cannot split and
   ``--gates``.
 """
 
@@ -289,7 +290,8 @@ def test_mesh_and_zero_step_messages_match_jax(data, tmp_path, argv):
      "--gates is the HOST circuit runtime; mesh-sharded compiled serving "
      "is --tp --lut"),
     (["--mode", "eval", "--shards_dir", "d", "--sp"],
-     "not ported yet: --sp .*ROADMAP.md")],
+     "--sp shards image height over the 'model' axis; run with "
+     "--mesh_model>1")],
     ids=["platform", "cpu_devices", "compile", "export_mesh",
          "write_shards", "join_alone", "serve_mesh", "mesh_model", "tp",
          "sp"])

@@ -262,9 +262,10 @@ def test_main_eval_image_folder_and_write_shards(tmp_path):
     (["--amp"], "bf16 mixed-precision TRAINING"),
     (["--remat"], "recompute"),
     (["--bias_decay", "1e-3"], "robust TRAINING"),
-    # --tp and the model axis are ported (tests/test_torch_tp*.py);
-    # --sp still names the roadmap, and one process holds no model axis
-    (["--tp", "--sp"], "ROADMAP.md"),
+    # --tp, --sp and the model axis are ported (tests/test_torch_tp*.py,
+    # tests/test_torch_sp*.py): the two refuse each other with the JAX
+    # CLI's text, and one process holds no model axis
+    (["--tp", "--sp"], "both shard over the 'model' mesh axis — pick one"),
     (["--lut_path", "x.npz"], "add --lut"),
     (["--mesh_model", "2", "--shards_dir", "d"],
      "1 devices not divisible by model=2"),

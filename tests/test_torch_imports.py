@@ -83,6 +83,11 @@ def test_every_module_imports_without_jax():
             "scale_imagenet_tpu_torch.parallel.mesh",
             "scale_imagenet_tpu_torch.parallel.multihost",
             "scale_imagenet_tpu_torch.parallel.data_parallel"} <= set(mods)
+    # and spatial partitioning's and the utilities'
+    assert {"scale_imagenet_tpu_torch.parallel.sp",
+            "scale_imagenet_tpu_torch.utils",
+            "scale_imagenet_tpu_torch.utils.misc",
+            "scale_imagenet_tpu_torch.utils.tracing"} <= set(mods)
 
 
 def test_port_builds_and_loads_its_own_native_engine():

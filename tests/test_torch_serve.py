@@ -126,17 +126,21 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    # --native_data, --mesh_model and --tp are ported
-    # (tests/test_torch_native_data.py, tests/test_torch_tp*.py): --sp
-    # still names the roadmap beside a model axis, and export refuses --tp
-    # with the JAX CLI's text
-    (["--mode", "eval", "--mesh_model", "2", "--sp"], "ROADMAP.md"),
+    # --native_data, --mesh_model, --tp and --sp are ported
+    # (tests/test_torch_native_data.py, tests/test_torch_tp*.py,
+    # tests/test_torch_sp*.py): --sp refuses the compiled serving modes
+    # beside a model axis, and export refuses --tp, with the JAX CLI's
+    # texts
+    (["--mode", "eval", "--mesh_model", "2", "--sp", "--lut"],
+     "the compiled serving modes .--lut/--gates. walk tables per window"),
     (["--mode", "export", "--tp"],
      "UNMODIFIED weights in the reference layout; --tp does not apply"),
     # ported: serving refuses certified eval with the JAX CLI's text
     (["--mode", "serve", "--certify", "0.1"],
      "single-host inference serving; --certify does not apply"),
-    (["--mode", "serve", "--sp"], "ROADMAP.md")])
+    # the server is one process on one card: --sp meets the JAX CLI's
+    # checks on a one-device mesh
+    (["--mode", "serve", "--sp"], "run with --mesh_model>1")])
 def test_unported_modes_and_flags_name_the_roadmap(argv, match):
     with pytest.raises(ValueError, match=match):
         cli.main(argv)

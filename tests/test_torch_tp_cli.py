@@ -21,7 +21,8 @@ jobs in turn, as ``tests/test_torch_dist_cli.py`` runs its three), at
 * the refusals, in-process: the JAX CLI's texts for ``--tp`` in serve,
   compile and export, with ``--amp``/``--remat``/robust training/
   ``--label_smooth``/``--gates``/``--certify``, on the VGG stem and
-  TT_FHE; ``--sp`` names ``ROADMAP.md``.
+  TT_FHE; ``--sp`` on a family outside the port's row-sharded forward
+  names ``ROADMAP.md``.
 """
 
 import io
@@ -289,7 +290,9 @@ def test_tp_refusals_are_the_jax_messages(shards224, tmp_path, mode, model,
 
 
 def test_sp_names_the_roadmap():
-    with pytest.raises(ValueError, match="not ported yet: --sp .*next slice"
-                                         ".*ROADMAP.md"):
-        cli.main(["--mode", "eval", "--shards_dir", "d", "--sp", *XS,
+    with pytest.raises(ValueError, match="covers the ttnet_imagenet family "
+                                         "so far, not TTnetVGGStemConfig.*"
+                                         "ROADMAP.md"):
+        cli.main(["--mode", "eval", "--shards_dir", "d", "--sp",
+                  "--mesh_model", "2", "--model", "ttnet_imagenet_vgg_stem",
                   "--device", "cpu"])
