@@ -23,11 +23,11 @@ models certified, attacked and trained with the robustness losses; the
 flagship's eval and training data-parallel over two rank processes on the
 one card (``--num_processes 2``, gloo), tensor-parallel over them
 (``--mesh_model 2 --tp``) and with the image height split over them
-(``--mesh_model 2 --sp``, attacked too), and its ImageFolder eval through
-the native decoder (``--native_data``) where libjpeg and Pillow exist.
-It holds every
-CUDA kernel against its plain PyTorch version.  Phases, each printing
-one line of its numbers:
+(``--mesh_model 2 --sp``, attacked too, beside a model of every other
+family, ``--certify`` and keyed coin flips), and its ImageFolder eval
+through the native decoder (``--native_data``) where libjpeg and Pillow
+exist.  It holds every CUDA kernel against its plain PyTorch version.
+Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together);
            ptxas's registers, spills and shared memory for every
@@ -316,7 +316,30 @@ one line of its numbers:
            prediction through the sharded forward equals the one-process
            attack's; (d) the utilities: ``utils.profile_trace`` writes a
            trace of one ``--sp`` forward and ``utils.StepTimer`` times it,
-           its region closed by a host read of the logits;
+           its region closed by a host read of the logits; (e) one 1x2
+           ``--sp`` forward (``parallel/sp_models.py``) of a model of each
+           other config type at its registry width (``SP_FAMILIES``: the
+           VGG stem, TT_FHE_SMALL, its vAlexnet, v1, TT_general,
+           correctBN, the CIFAR zoo, ``tt_certif`` keyed by one
+           ``NoiseKey``, ``resnet50``), B = 32, BN statistics perturbed
+           (the three with fused heads) or set to the batch's (the
+           others), the switch on: the ranks' logits equal, their argmax
+           agreeing with the one-process forward's on >= 99 %, the largest
+           logit gap, and each fused launch on a rank's rows (the VGG
+           stem's head 3, TT_FHE_SMALL's head 3 and fuse head, vAlexnet's
+           head 3) held against its plain version; ``resnet50`` held in
+           f64, its f32 agreement recorded; the three interval families'
+           ``--certify`` bounds at 2/255 against the one-process ones:
+           the ranks' equal, the certified masks agreeing on >= 99 %, the
+           largest gap recorded; (f) ``main --mode eval
+           --sp`` of v1 over 512 images labelled by its forward at B =
+           64: top-1/5 within 0.1 points and the loss within 1e-3
+           relative of the one-process run; again at B = 256, recorded
+           (``SP_V1_BATCH``); (g) ``--certify 2/255 --sp`` of
+           ``cifar10lownoise`` over 256 self-labelled 32² images: cert and
+           top-1 equal to the one-process run's or within one image (the
+           line says which); (h) ``TT_FHE_small --sp`` twice from one
+           ``--seed`` over those images: equal metrics;
 24. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
            imports (checked first), 512 seeded JPEGs of mixed sizes,
            ``main --mode eval --data_dir`` with and without
@@ -3671,6 +3694,9 @@ def dist_worker(args) -> int:
         elif job["kind"] == "sp_forward":
             res = rank_sp_forward(Path(job["eval_dir"]), Path(job["work"]),
                                   job["batch"], job["seed"], rank, world)
+        elif job["kind"] == "sp_families":
+            res = rank_sp_families(Path(job["work"]), job["seed"], rank,
+                                   world)
         else:
             res = rank_dp_step(job["seed"], job["batch"], rank, world,
                                Path(job["work"]))
@@ -4258,7 +4284,29 @@ def check_tp(tp: dict, evals: dict, args) -> dict:
 SP_MESH = ["--mesh_data", "1", "--mesh_model", str(DIST_WORLD), "--sp"]
 SP_ATTACK_IMAGES = 256             # (c): one batch of self-labelled images
 SP_ATTACK_EPS = 2 / 255
-SP_ARGMAX_AGREEMENT = 0.99         # (b): as fused vs unfused (PERF.md §2)
+SP_ARGMAX_AGREEMENT = 0.99         # (b), (e): as fused vs unfused (PERF.md §2)
+# (e): one sharded forward of a model of every other config type, at its
+# registry width, B = 32; the fused launches each expects (its k = 1
+# stride-1 heads, the switch on)
+SP_FAMILY_BATCH = 32
+SP_FAMILIES = {"TT_vf_19lv3_imgnet_xsmall_VGG": 1, "TT_FHE_SMALL": 2,
+               "TT_FHE_XSMALL_vAlexnet": 1, "TT_vf_19lv2_imgnet": 0,
+               "TT_general": 0, "TT_general_correctBN": 0,
+               "mobilenet_v2_tt": 0, "mobilenet_v1_tt": 0,
+               "model_general": 0, "cifar10lownoise": 0, "tt_certif": 0,
+               "resnet50": 0}
+# held in f64, their f32 agreement recorded (phase 17's rule for the
+# DoReFa ResNets: cuDNN rounds a dense 3x3 conv of a slab otherwise than
+# the whole tensor's, and the 4-bit activation steps turn an ulp into a
+# step)
+SP_FAMILY_F64 = ("resnet50",)
+SP_V1_IMAGES = 512                 # (f): v1's --sp eval
+# (f)'s bound at B = 64, where cuDNN takes the same kernels for a rank's
+# slabs as for the whole tensors (exact logits on the card); at B = 128
+# and 256 it takes others for some of v1's grouped convs, whose f32
+# rounding moves a 2-bit step: the B = 256 run is recorded beside it
+SP_V1_BATCH = 64
+SP_CIFAR_IMAGES = 256              # (g) --certify, (h) TT_FHE_small
 
 
 def _sp_prepared(eval_dir: Path, B: int, shard):
@@ -4302,7 +4350,7 @@ def rank_sp_forward(eval_dir: Path, work: Path, B: int, seed: int,
     one forward, timed by ``utils.StepTimer``.  The launches are counted
     from 0 over the forward."""
     from scale_imagenet_tpu_torch.kernels import fused_block as FB
-    from scale_imagenet_tpu_torch.parallel import barrier, sp
+    from scale_imagenet_tpu_torch.parallel import barrier, sp, sp_forward
     from scale_imagenet_tpu_torch.parallel.mesh import make_mesh
     from scale_imagenet_tpu_torch.utils import StepTimer as PlainTimer, \
         profile_trace
@@ -4310,7 +4358,7 @@ def rank_sp_forward(eval_dir: Path, work: Path, B: int, seed: int,
     model = flagship(seed)
     model.load_state_dict(torch.load(eval_dir / "weights.pth"))
     shard = sp.row_shard(make_mesh(1, world, world, rank))
-    apply = sp.sp_forward(model, shard)
+    apply = sp_forward(model, shard)
     x, labels = _sp_prepared(eval_dir, B, shard)
     fused, bits = [], []
     real = sp.block_tt
@@ -4350,15 +4398,111 @@ def rank_sp_forward(eval_dir: Path, work: Path, B: int, seed: int,
             "trace_bytes": sum(f.stat().st_size for f in traces)}
 
 
+def _sp_family_model(name: str, seed: int):
+    """(e)'s model of ``name`` at its registry width on the card from
+    ``seed``, and its batch: ``(md, model, x)``.  The families with fused
+    heads have their BN statistics perturbed, as in their own phases (9,
+    12), where the kernel's contract holds: with statistics set from the
+    batch, 3 % of one head's Heaviside outputs differed from the plain
+    version's on the card.  The others' BNs are set to the batch's
+    statistics (``zoo_model``), so that the argmax depends on the
+    image."""
+    from scale_imagenet_tpu_torch.models import get_model
+
+    md = get_model(name)
+    side = getattr(md.config, "image_size", 224)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((SP_FAMILY_BATCH, side, side, 3), generator=gen).cuda()
+    if SP_FAMILIES[name]:
+        model = md.init(seed=seed, device="cuda")
+        perturb_bn(model, seed)
+    else:
+        md, model, _ = zoo_model(name, seed, x)
+    return md, model, x
+
+
+def _family_noise(md, seed: int) -> dict:
+    """The keyword of a stochastic forward: one key, the same on every
+    rank and in the one-process forward."""
+    from scale_imagenet_tpu_torch.ops import NoiseKey
+
+    return {"noise": NoiseKey(seed)} if md.stochastic else {}
+
+
+def rank_sp_families(work: Path, seed: int, rank: int, world: int) -> dict:
+    """(e) in each rank: for each model of ``SP_FAMILIES`` (weights and
+    batch written by ``sp_phase``), one ``--sp`` forward with the fused
+    switch on, its launches counted from 0 over it, its logits written
+    under ``work``, and each fused launch on the rank's rows captured and
+    held against its plain version (the ranks taking turns on the
+    card)."""
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.models import get_model
+    from scale_imagenet_tpu_torch.models.block_tt import takes_fused_kernel
+    from scale_imagenet_tpu_torch.parallel import barrier, local_rows, sp, \
+        sp_forward, sp_interval_logits
+    from scale_imagenet_tpu_torch.parallel.mesh import make_mesh
+
+    shard = sp.row_shard(make_mesh(1, world, world, rank))
+    real = sp.block_tt
+    out = {}
+    for i, name in enumerate(SP_FAMILIES):
+        md = get_model(name)
+        model = md.init(seed=seed + i, device="cuda")
+        model.load_state_dict(torch.load(work / f"{name}.pth"))
+        x = local_rows(torch.load(work / f"{name}_x.pt").cuda(), shard)
+        fused = []
+
+        def rec(block, h, *a, **k):
+            if takes_fused_kernel(block.cfg, False):
+                fused.append((block, h))
+            return real(block, h, *a, **k)
+
+        reset_kernel_launches()
+        with mock.patch.object(sp, "block_tt", rec), fused_blocks(True):
+            logits = sp_forward(model, shard)(x, **_family_noise(
+                md, seed + i))
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        np.save(work / f"{name}_logits_rank{rank}.npy", logits.cpu().numpy())
+        if md.interval_logits is not None:
+            iv = sp_interval_logits(model, shard)(x, ROBUST_EPS)
+            np.save(work / f"{name}_bounds_rank{rank}.npy", torch.stack(
+                [iv.vmin, iv.vmax]).cpu().numpy())
+        if name in SP_FAMILY_F64:
+            model.double()
+            np.save(work / f"{name}_f64_logits_rank{rank}.npy",
+                    sp_forward(model, shard)(x.double()).cpu().numpy())
+        rows = []
+        for r in range(world):
+            if r == rank:
+                rows = [{"model": name, **fused_case(block, h, FB)}
+                        for block, h in fused]
+            barrier()
+        out[name] = {"launches": launches, "captured": len(fused),
+                     "rows": rows, "logits": list(logits.shape),
+                     "finite": bool(torch.isfinite(logits).all())}
+        del model, fused
+    return out
+
+
 def sp_phase(args) -> dict:
     """23's jobs (run by ``launch_phases``): the flagship at full width as
     two ranks on the one card over gloo, ``--mesh_data 1 --mesh_model 2
     --sp``: (a) ``main --mode eval`` over the eval phase's 5,000 shard
     images, the switch off, then on; (b)-(d) ``rank_sp_forward``; (c)
     ``main --mode eval --attack fgsm`` over the first 256 of them, written
-    here as shards of their own.  The checks are ``check_sp``'s."""
-    from scale_imagenet_tpu_torch.data import ArrayDataset, shard_loader, \
-        write_shards
+    here as shards of their own; (e) ``rank_sp_families``, whose weights
+    and batches, and the one-process forwards they are held against, are
+    made here; (f) ``main --mode eval`` of v1 over 512 images labelled by
+    its forward; (g) ``--certify`` of ``cifar10lownoise`` over 256
+    self-labelled 32² images; (h) ``TT_FHE_small`` over the same images
+    twice from one ``--seed``.  The checks are ``check_sp``'s."""
+    from scale_imagenet_tpu_torch.data import ArrayDataset, IMAGENET_MEAN, \
+        IMAGENET_STD, shard_loader, write_shards
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet_v1 import \
+        ttnet_v1_apply
+    from scale_imagenet_tpu_torch.train import make_input_pipeline
 
     B = args.batch
     work = Path("build") / "chip_smoke_sp"
@@ -4384,7 +4528,65 @@ def sp_phase(args) -> dict:
                 "--mode", "eval", "--shards_dir", str(work / "attack_shards"),
                 "--attack", "fgsm", "--attack_eps", str(SP_ATTACK_EPS),
                 *common]}]
-    return {"jobs": jobs, "work": work}
+
+    # (e) every other config type: its weights, batch and one-process
+    # forward (the switch on, as the ranks run it)
+    fam = work / "families"
+    fam.mkdir()
+    want = {}
+    for i, name in enumerate(SP_FAMILIES):
+        md, model, x = _sp_family_model(name, args.seed + 100 + i)
+        torch.save(model.state_dict(), fam / f"{name}.pth")
+        torch.save(x.cpu(), fam / f"{name}_x.pt")
+        with fused_blocks(True):
+            want[name] = model(x, **_family_noise(md, args.seed + 100 + i))
+        want[name] = want[name].cpu()
+        if md.interval_logits is not None:
+            iv = md.interval_logits(model, x, ROBUST_EPS)
+            want[f"{name}_bounds"] = torch.stack([iv.vmin, iv.vmax]).cpu()
+        if name in SP_FAMILY_F64:
+            want[f"{name}_f64"] = model.double()(x.double()).cpu()
+        del model, x
+    jobs.append({"kind": "sp_families", "name": "families",
+                 "seed": args.seed + 100, "work": str(fam)})
+
+    # (f)-(h): weights and self-labelled shards, the runs' flags
+    # (their BNs set to the statistics of the first batch as the shard
+    # eval normalizes it)
+    runs = {}
+    prepare = make_input_pipeline((IMAGENET_MEAN, IMAGENET_STD))
+    imgs = np.random.default_rng(args.seed + 131).integers(
+        0, 256, (SP_V1_IMAGES, 224, 224, 3), dtype=np.uint8)
+    _, model, _ = zoo_model(V1_NAME, args.seed + 130,
+                            prepare(torch.from_numpy(imgs[:B]).cuda()))
+    self_labelled_shards(lambda xb: ttnet_v1_apply(model, xb), imgs,
+                         SP_V1_BATCH, work / "v1_shards")
+    torch.save(model.state_dict(), work / "v1.pth")
+    runs["v1"] = ["--model", V1_NAME, "--shards_dir",
+                  str(work / "v1_shards"), "--ckpt", str(work / "v1.pth"),
+                  "--eval_batch_size", str(SP_V1_BATCH)]
+    runs["v1_b256"] = runs["v1"][:-2]
+    imgs = np.random.default_rng(args.seed + 133).integers(
+        0, 256, (SP_CIFAR_IMAGES, 32, 32, 3), dtype=np.uint8)
+    _, model, apply = zoo_model("cifar10lownoise", args.seed + 132,
+                                prepare(torch.from_numpy(imgs).cuda()))
+    self_labelled_shards(apply, imgs, B, work / "cifar_shards")
+    torch.save(model.state_dict(), work / "cifar10lownoise.pth")
+    runs["certify"] = ["--model", "cifar10lownoise", "--certify",
+                       str(ROBUST_EPS), "--shards_dir",
+                       str(work / "cifar_shards"), "--ckpt",
+                       str(work / "cifar10lownoise.pth")]
+    runs["fhe_small"] = ["--model", "TT_FHE_small", "--shards_dir",
+                         str(work / "cifar_shards")]
+    del model, imgs
+    for name, argv in runs.items():
+        runs[name] = ["--mode", "eval", "--eval_batch_size", str(B), *argv,
+                      "--seed", str(args.seed), "--root_dir",
+                      str(work / "logs")]
+        for again in ("", "_again") if name == "fhe_small" else ("",):
+            jobs.append({"kind": "eval", "name": name + again,
+                         "argv": runs[name] + SP_MESH})
+    return {"jobs": jobs, "work": work, "family_want": want, "runs": runs}
 
 
 def check_sp(sp: dict, evals: dict, args) -> dict:
@@ -4513,8 +4715,133 @@ def check_sp(sp: dict, evals: dict, args) -> dict:
     check(all(rr["trace_files"] == 1 and rr["trace_bytes"] > 0
               for rr in res["forward"]),
           "utils.profile_trace wrote no trace of the sp forward")
+
+    # (e) every other config type: the sharded forward against the
+    # one-process one, each fused launch against its plain version
+    family_rows = []
+    for name, fused_n in SP_FAMILIES.items():
+        got = [rr[name] for rr in res["families"]]
+        logits = [np.load(work / "families" / f"{name}_logits_rank{r}.npy")
+                  for r in range(DIST_WORLD)]
+        want = sp["family_want"][name].numpy()
+        agree = float((logits[0].argmax(1) == want.argmax(1)).mean())
+        line = {"ranks_logits_equal": bool(np.array_equal(*logits)),
+                "logit_max_abs_diff": float(np.abs(logits[0] - want).max()),
+                "argmax_agreement": agree}
+        if name in SP_FAMILY_F64:
+            l64 = [np.load(work / "families"
+                           / f"{name}_f64_logits_rank{r}.npy")
+                   for r in range(DIST_WORLD)]
+            w64 = sp["family_want"][f"{name}_f64"].numpy()
+            line = {"f32": line, "f64": {
+                "ranks_logits_equal": bool(np.array_equal(*l64)),
+                "logit_max_abs_diff": float(np.abs(l64[0] - w64).max()),
+                "argmax_agreement": float(
+                    (l64[0].argmax(1) == w64.argmax(1)).mean())}}
+        if f"{name}_bounds" in sp["family_want"]:
+            # --certify's bounds over the eps-ball (raw [0, 1] pixels),
+            # the certified masks at the one-process argmax
+            b = [np.load(work / "families" / f"{name}_bounds_rank{r}.npy")
+                 for r in range(DIST_WORLD)]
+            wb = sp["family_want"][f"{name}_bounds"].numpy()
+            pred = want.argmax(1)
+
+            def certified(bounds):
+                lo, hi = bounds
+                mine = lo[np.arange(len(pred)), pred]
+                hi = hi.copy()
+                hi[np.arange(len(pred)), pred] = -np.inf
+                return mine > hi.max(1)
+
+            line["bounds"] = {
+                "ranks_equal": bool(np.array_equal(*b)),
+                "max_abs_diff": float(np.abs(b[0] - wb).max()),
+                "certified": int(certified(wb).sum()),
+                "mask_agreement": float((certified(b[0])
+                                         == certified(wb)).mean())}
+            check(line["bounds"]["ranks_equal"]
+                  and line["bounds"]["mask_agreement"]
+                  >= SP_ARGMAX_AGREEMENT,
+                  f"sp {name} interval bounds: {line['bounds']}")
+        emit("sp_family", model=name, mesh="1x2", batch=SP_FAMILY_BATCH,
+             logits=got[0]["logits"], **line,
+             rank_launches=[g["launches"] for g in got])
+        held = line.get("f64", line)
+        check(all(g["finite"] for g in got) and np.array_equal(*logits)
+              and held["ranks_logits_equal"],
+              f"sp {name}: non-finite logits, or the ranks' differ")
+        check(held["argmax_agreement"] >= SP_ARGMAX_AGREEMENT,
+              f"sp {name} argmax agreement with one process {line} < "
+              f"{SP_ARGMAX_AGREEMENT}")
+        for r, g in enumerate(got):
+            n = g["launches"]
+            check(g["captured"] == fused_n
+                  and n["fused_pointwise_block"] == fused_n
+                  and not n["lut_window_bits"] and not n["gate_cubes"],
+                  f"sp {name} rank {r}: {g['captured']} fused heads, "
+                  f"launches {n}, expected {fused_n} fused")
+            for kname, k in n.items():
+                launches.setdefault(kname, {})[
+                    f"sp_family_{name}_rank{r}"] = k
+            for row in g["rows"]:
+                row["rank"] = r
+                family_rows.append(row)
+                emit("sp_kernels", kernel="fused_pointwise_block", **row)
+
+    # (f)-(h) main --mode eval --sp of the other families against one
+    # process
+    for name, argv in sp["runs"].items():
+        n = SP_V1_IMAGES if name.startswith("v1") else SP_CIFAR_IMAGES
+        one = main_eval(argv, False, images=n)
+        r0, r1 = res[name]
+        keys = ("top1", "top5", "loss", *(("cert",) if name == "certify"
+                                          else ()))
+        line = {"run": name, "mesh": "1x2", "images": r0["images"],
+                **{k: r0[k] for k in keys},
+                "one_process": {k: one[k] for k in (*keys, "img_s")},
+                "img_s": r0["images"] / max(r0["eval_s"], r1["eval_s"]),
+                "rank_max_memory_allocated_gb": [
+                    r0["max_memory_allocated_gb"],
+                    r1["max_memory_allocated_gb"]],
+                "rank_launches": [r0["launches"], r1["launches"]]}
+        if name == "fhe_small":
+            again = res["fhe_small_again"][0]
+            line["again"] = {k: again[k] for k in keys}
+        if name == "certify":
+            # (g): cert and top-1 equal to one process's, or within one
+            # image of them (the line says which)
+            line["equal"] = all(r0[k] == one[k] for k in ("cert", "top1"))
+            line["within_one_image"] = all(
+                abs(r0[k] - one[k]) <= 100.0 / n for k in ("cert", "top1"))
+        emit("sp_eval", **line)
+        check(r0["images"] == r1["images"] == r0["rank_images"]
+              == r1["rank_images"] == n,
+              f"sp {name} scored {r0['images']}, {r1['images']} (rank "
+              f"counts {r0['rank_images']}, {r1['rank_images']}), expected "
+              f"{n}")
+        check(all(r0[k] == r1[k] for k in keys),
+              f"sp {name}: the ranks' metrics differ")
+        # v1_b256 is recorded (``SP_V1_BATCH``)
+        if name == "v1":
+            _within(r0, one, "sp v1 eval vs one process")
+        elif name == "certify":
+            check(line["within_one_image"],
+                  f"sp --certify vs one process: {line}")
+        elif name == "fhe_small":
+            check(line["again"] == {k: r0[k] for k in keys},
+                  f"sp TT_FHE_small: two runs from one --seed differ: "
+                  f"{line}")
+        for r, rr in enumerate((r0, r1)):
+            for kname, k in rr["launches"].items():
+                launches.setdefault(kname, {})[
+                    f"eval_sp_{name}_rank{r}"] = k
+        if name == "fhe_small":
+            for r, rr in enumerate(res["fhe_small_again"]):
+                for kname, k in rr["launches"].items():
+                    launches.setdefault(kname, {})[
+                        f"eval_sp_{name}_again_rank{r}"] = k
     shutil.rmtree(work)
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": rows, "family_rows": family_rows}
 
 
 def native_data_missing() -> str | None:
@@ -5092,7 +5419,9 @@ def run(args) -> int:
             (kernels[0], "tp_", tp_checked["rows"]["bits"], "max_abs_err"),
             (kernels[2], "tp_", tp_checked["rows"]["fused"],
              "max_abs_err_float32"),
-            (kernels[2], "sp_", sp_checked["rows"], "max_abs_err_float32")):
+            (kernels[2], "sp_", sp_checked["rows"], "max_abs_err_float32"),
+            (kernels[2], "sp_families_", sp_checked["family_rows"],
+             "max_abs_err_float32")):
         line.update(sums([r for r in got if r["rank"] == 0], prefix))
         line["max_abs_err"] = max(line["max_abs_err"],
                                   *(r[err] for r in got))

@@ -133,17 +133,19 @@ rank its slice of the tables), and training with ``--grad_accum`` and
 one-process run writes; it refuses ``--amp``, ``--remat``, robust
 training, ``--label_smooth``, ``--gates``, ``--certify``, ``--attack``,
 serve, compile and export as the JAX CLI does, and the other families
-with a ``ValueError`` naming JAX's crash.  ``--sp`` (the ttnet_imagenet
-family) splits the image height over the model axis instead
-(``parallel/sp.py``): each model rank of a data index scores the same
-images on its rows, with ``--attack`` too, and every rank computes the
-whole logits; it refuses ``--tp``, ``--lut``, ``--gates``, a model axis
-of 1 and a height that the axis does not divide with the JAX CLI's
-texts, the other families with ``SP_FAMILY``, and training and compile
-as the JAX CLI does.  The server is one process on one card, so ``--mode
-serve --sp`` meets JAX's checks on a one-device mesh: ``make_mesh``'s
-refusal of ``--mesh_model`` > 1, else the model axis of 1.  The flags
-that the JAX CLI refuses in a mode raise with its messages.
+with a ``ValueError`` naming JAX's crash.  ``--sp`` (every family)
+splits the image height over the model axis instead (``parallel/sp.py``,
+``parallel/sp_models.py``): each model rank of a data index scores the
+same images on its rows, with ``--attack`` and (the three interval
+families) ``--certify`` too, a stochastic model flipping the bits the
+unsharded run flips from the same ``--seed``, and every rank computes
+the whole logits; it refuses ``--tp``, ``--lut``, ``--gates``, a model
+axis of 1 and a height that the axis does not divide with the JAX CLI's
+texts, and training and compile as the JAX CLI does.  The server is one
+process on one card, so ``--mode serve --sp`` meets JAX's checks on a
+one-device mesh: ``make_mesh``'s refusal of ``--mesh_model`` > 1, else
+the model axis of 1.  The flags that the JAX CLI refuses in a mode
+raise with its messages.
 """
 
 from __future__ import annotations
@@ -188,7 +190,8 @@ from .native.ttdata import NativeImageFolder
 from .parallel import backend, barrier, broadcast_module_, initialize, \
     is_coordinator, local_batch_size, make_mesh, rank_key, rank_seed, \
     requested_world
-from .parallel.sp import SP_HEIGHT, row_shard, sp_family, sp_forward
+from .parallel.sp import SP_HEIGHT, row_shard
+from .parallel.sp_models import sp_forward
 from .parallel.tp import gather_train_payload, local_config, shard_luts, \
     shard_model, shard_train_state, tp_lut_apply
 from .models import get_model, list_models
@@ -651,8 +654,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "and training, each rank holding its channel slice")
     p.add_argument("--sp", action="store_true",
                    help="spatial partitioning over the model axis "
-                        "(ttnet_imagenet family, eval): each model rank "
-                        "holds rows of every image")
+                        "(eval, every family; --attack, --certify): each "
+                        "model rank holds rows of every image")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of rank 0's rendezvous (tcp://)")
     p.add_argument("--num_processes", type=int, default=None,
@@ -1558,12 +1561,11 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
         **parse_model_args(cfg.model_arg)})
     if cfg.sp and cfg.mode == "eval":
-        # ``scale_imagenet_tpu/main.py:1042-1045``, then the port's rule,
-        # before a mesh that one process cannot hold
+        # ``scale_imagenet_tpu/main.py:1042-1045``, before a mesh that one
+        # process cannot hold
         size = getattr(md.config, "image_size", 224)
         if size % cfg.mesh_model:
             raise ValueError(SP_HEIGHT.format(size, cfg.mesh_model))
-        sp_family(md.config)
     # the mesh over the ranks, the model axis innermost; a rank reads the
     # rows of its data index
     if cfg.mode in ("eval", "train"):
@@ -1607,9 +1609,14 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     conv_apply, lut_apply = family.conv, family.lut
     if cfg.tp:
         return _eval(cfg, _tp_forward(cfg, model), device, md, model)
+    # fresh coin flips a batch for a stochastic model, from --seed: the eval
+    # step keys batch i with NoiseKey(seed).child(i), each data index from
+    # its own root (every model rank of one data index the same)
+    noise = rank_key(NoiseKey(cfg.seed), cfg.shard, cfg.shards) \
+        if md.stochastic else None
     if cfg.sp:
         return _eval(cfg, sp_forward(model, row_shard(cfg.mesh)), device,
-                     md, model)
+                     md, model, noise)
     if cfg.gates:
         apply, on_device = _as_gate_model(model, cfg.gates)
         name += "+gates"
@@ -1625,12 +1632,7 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         def forward(x, **k):
             return conv_apply(model, x, **k)
         if cfg.mode == "eval":
-            # fresh coin flips a batch for a stochastic model, from --seed:
-            # the eval step keys batch i with NoiseKey(seed).child(i) (each
-            # rank from its own root)
-            return _eval(cfg, forward, device, md, model, rank_key(
-                NoiseKey(cfg.seed), cfg.shard, cfg.shards)
-                if md.stochastic else None)
+            return _eval(cfg, forward, device, md, model, noise)
         apply = _keyed(forward, md.stochastic, cfg.seed)
     size = md.config.image_size
     if cfg.mode == "eval":

@@ -105,17 +105,24 @@ class ResBlock(nn.Module):
             self.down_conv = None
 
 
+def res_plan(block: ResBlock) -> list:
+    """The main path's ``(conv, bn, stride, padding)``: the stride on the
+    3x3 conv."""
+    s = block.stride
+    if block.kind == "basic":
+        return [(block.conv1, block.bn1, s, 1),
+                (block.conv2, block.bn2, 1, 1)]
+    return [(block.conv1, block.bn1, 1, 0), (block.conv2, block.bn2, s, 1),
+            (block.conv3, block.bn3, 1, 0)]
+
+
 def res_block(block: ResBlock, x: torch.Tensor, wbit: int, abit: int,
               stats: dict | None = None) -> torch.Tensor:
     """The basic (``resnet.py:143``) or bottleneck (``resnet.py:160``)
     block: the stride on the 3x3 conv, ReLU between, the residual added
     before the last ReLU."""
     s = block.stride
-    if block.kind == "basic":
-        plan = [(block.conv1, block.bn1, s, 1), (block.conv2, block.bn2, 1, 1)]
-    else:
-        plan = [(block.conv1, block.bn1, 1, 0), (block.conv2, block.bn2, s, 1),
-                (block.conv3, block.bn3, 1, 0)]
+    plan = res_plan(block)
     out = x
     for i, (conv, bn, stride, pad) in enumerate(plan):
         out = batch_norm(bn, quan_conv(out, conv, wbit, abit, stride, pad),

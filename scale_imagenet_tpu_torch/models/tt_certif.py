@@ -214,7 +214,11 @@ def tt_certif_apply(model: TTCertif, x: torch.Tensor,
                        None if noise is None else noise.child(1))
     for i, block in enumerate(blocks_of(model)):
         h = block(h, stats, None if root is None else root.child(i))
-    h = flatten(h)
+    return tt_certif_head(model, flatten(h))
+
+
+def tt_certif_head(model: TTCertif, h: torch.Tensor) -> torch.Tensor:
+    """The flattened features -> logits."""
     if model.cfg.head == "binpos_v2":
         return bin_linear(h, model.fc, abs_weight=True)
     return linear(h, model.fc.weight, model.fc.bias)
@@ -263,7 +267,11 @@ def tt_certif_interval(model: TTCertif, x: torch.Tensor, eps,
     iv = interval_heaviside_noisy(iv, model.cfg.T)
     for block in blocks_of(model):
         iv = _interval_certif_block(block, iv)
-    iv = interval_flatten(iv)
+    return tt_certif_interval_head(model, interval_flatten(iv))
+
+
+def tt_certif_interval_head(model: TTCertif, iv: Interval) -> Interval:
+    """The flattened feature bounds -> the logits'."""
     fc = model.fc
     if model.cfg.head == "binpos_v2":
         w = binarize_weights("ternary_mask", fc.weight, fc.weight_mask).abs()

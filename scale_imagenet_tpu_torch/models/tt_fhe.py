@@ -226,6 +226,13 @@ def tt_fhe_stem(model: TTFHE, x: torch.Tensor, stats: dict | None = None,
     conv = model.stem_conv
     h = conv2d(x, conv.weight, conv.bias, stride=2,
                padding=model.cfg.spec["pad"])
+    return tt_fhe_stem_act(model, h, stats, noise)
+
+
+def tt_fhe_stem_act(model: TTFHE, h: torch.Tensor,
+                    stats: dict | None = None,
+                    noise: NoiseKey | None = None) -> torch.Tensor:
+    """The stem conv's BN and activation (row-local)."""
     h = batch_norm(model.stem_bn, h, stats)
     act = model.stem_act
     if isinstance(act, BinaryActivation):
@@ -239,7 +246,12 @@ def tt_fhe_head(model: TTFHE, h: torch.Tensor,
     LUT and gate forwards; ``h`` is NCHW in the model's dtype."""
     h = max_pool(h, 2) if model.cfg.spec["pool"] == "max" \
         else avg_pool(h, 2)
-    h = flatten(h)
+    return tt_fhe_classifier(model, flatten(h), stats)
+
+
+def tt_fhe_classifier(model: TTFHE, h: torch.Tensor,
+                      stats: dict | None = None) -> torch.Tensor:
+    """The flattened features -> logits."""
     head = model.classifier
     if isinstance(head[0], ClassifierScaleNew):
         return classifier_scale_new(head[0], h, stats)

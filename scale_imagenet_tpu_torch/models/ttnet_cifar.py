@@ -84,20 +84,25 @@ class BlockResnet(nn.Module):
 
 
 def first_half(block: BlockResnet, x: torch.Tensor,
-               stats: dict | None = None) -> torch.Tensor:
-    """conv1 -> BN -> GELU -> conv2, shared by both cell orders."""
+               stats: dict | None = None,
+               pre_padded: bool = False) -> torch.Tensor:
+    """conv1 -> BN -> GELU -> conv2, shared by both cell orders;
+    ``pre_padded`` skips conv1's pad for callers that already padded
+    (``parallel/sp.py``)."""
     cfg = block.cfg
     out = conv2d(x, block.conv1.weight, block.conv1.bias, stride=cfg.stride,
-                 padding=cfg.padding, groups=cfg.groupsici)
+                 padding=0 if pre_padded else cfg.padding,
+                 groups=cfg.groupsici)
     out = gelu(batch_norm(block.bn1, out, stats))
     return conv2d(out, block.conv2.weight, block.conv2.bias,
                   groups=cfg.groupsici)
 
 
 def block_resnet(block: BlockResnet, x: torch.Tensor,
-                 stats: dict | None = None) -> torch.Tensor:
+                 stats: dict | None = None,
+                 pre_padded: bool = False) -> torch.Tensor:
     """``ttnet_cifar.py:68``: the quantizer before bn2, a GELU after."""
-    out = first_half(block, x, stats)
+    out = first_half(block, x, stats, pre_padded)
     if not block.cfg.last:
         out = activation_quantize(out, block.cfg.a_bit)
     return gelu(batch_norm(block.bn2, out, stats))
@@ -472,12 +477,18 @@ def model_general_apply(model: ModelGeneral, x: torch.Tensor,
         h = torch.relu(batch_norm(getattr(model, f"bn{i}a"), h, stats))
         h = conv2d(h, cb.weight, cb.bias, groups=g)
         h = binarize01_act(batch_norm(getattr(model, f"bn{i}b"), h, stats))
-    h = flatten(h)
-    if cfg.type_weights_final == "float":
+    return model_general_head(model, flatten(h), stats)
+
+
+def model_general_head(model: ModelGeneral, h: torch.Tensor,
+                       stats: dict | None = None) -> torch.Tensor:
+    """The flattened features -> logits: the positive-bias binarized
+    Linear (or a float one), the stats BN unless ``remove_last_bn``."""
+    if model.cfg.type_weights_final == "float":
         logits = linear(h, model.fc.weight, model.fc.bias)
     else:
         logits = bin_linear(h, model.fc, positive=True)
-    if cfg.remove_last_bn:
+    if model.cfg.remove_last_bn:
         return logits
     return stats_bn(model.head_bn, logits, stats)
 
@@ -587,8 +598,15 @@ def cifar10lownoise_apply(model: Cifar10LowNoise, x: torch.Tensor,
     h = torch.relu(batch_norm(model.bn2, h, stats))
     h = conv2d(h, model.conv3.weight, model.conv3.bias, groups=48)
     h = binarize01_act(batch_norm(model.bn3, h, stats))
-    logits = bin_linear(flatten(h), model.fc, positive=True)
-    return stats_bn(model.head_bn, logits, stats)
+    return cifar10lownoise_head(model, flatten(h), stats)
+
+
+def cifar10lownoise_head(model: Cifar10LowNoise, h: torch.Tensor,
+                         stats: dict | None = None) -> torch.Tensor:
+    """The flattened features -> logits: the positive-bias binarized
+    Linear and the stats BN."""
+    return stats_bn(model.head_bn, bin_linear(h, model.fc, positive=True),
+                    stats)
 
 
 
@@ -646,8 +664,14 @@ def cifar10lownoise_interval_logits(model: Cifar10LowNoise, x: torch.Tensor,
                                     inputs_max=1.0) -> Interval:
     """Sound logit bounds under the clipped eps-ball: the interval features
     through the BinLinearPos head, its rounding and the stats BN."""
-    iv = interval_flatten(cifar10lownoise_interval(model, x, eps, inputs_min,
-                                                   inputs_max))
+    return cifar10lownoise_interval_head(model, interval_flatten(
+        cifar10lownoise_interval(model, x, eps, inputs_min, inputs_max)))
+
+
+def cifar10lownoise_interval_head(model: Cifar10LowNoise,
+                                  iv: Interval) -> Interval:
+    """The flattened feature bounds through the BinLinearPos head, its
+    rounding and the stats BN."""
     iv = interval_mono(interval_bin_linear_pos(iv, _bin_weight(model.fc)),
                        ste_round)
     return interval_batch_norm(iv, *bn_scale_bias(model.head_bn))
@@ -719,8 +743,14 @@ def model_general_interval_logits(model: ModelGeneral, x: torch.Tensor, eps,
     """Sound logit bounds under the clipped eps-ball: the interval features
     through the classifier (a float Linear, or BinLinearPos with its
     rounding) and the stats BN unless ``remove_last_bn``."""
-    iv = interval_flatten(model_general_interval(model, x, eps, inputs_min,
-                                                 inputs_max))
+    return model_general_interval_head(model, interval_flatten(
+        model_general_interval(model, x, eps, inputs_min, inputs_max)))
+
+
+def model_general_interval_head(model: ModelGeneral,
+                                iv: Interval) -> Interval:
+    """The flattened feature bounds through the classifier and the stats
+    BN unless ``remove_last_bn``."""
     if model.cfg.type_weights_final == "float":
         iv = interval_linear(iv, model.fc.weight, linear, bias=model.fc.bias)
     else:

@@ -60,13 +60,15 @@ def _act(x: torch.Tensor, a_bit: int) -> torch.Tensor:
 
 
 def block_resnet_float(block: BlockResnet, x: torch.Tensor,
-                       stats: dict | None = None) -> torch.Tensor:
+                       stats: dict | None = None,
+                       pre_padded: bool = False) -> torch.Tensor:
     """``ttnet_general_float.py:47``: conv1 -> bn1 -> GELU [-> conv1b ->
     bn1b -> GELU] -> conv2 -> act -> bn2, or GELU(bn2(conv2)) when
-    ``last``."""
+    ``last``; ``pre_padded`` as in ``first_half``."""
     cfg = block.cfg
     out = conv2d(x, block.conv1.weight, block.conv1.bias, stride=cfg.stride,
-                 padding=cfg.padding, groups=cfg.groupsici)
+                 padding=0 if pre_padded else cfg.padding,
+                 groups=cfg.groupsici)
     out = gelu(batch_norm(block.bn1, out, stats))
     if isinstance(block, BlockResnetBig):
         out = conv2d(out, block.conv1b.weight, block.conv1b.bias,

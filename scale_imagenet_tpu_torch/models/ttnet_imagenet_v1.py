@@ -47,11 +47,13 @@ from .ttnet_imagenet import _nchw, init_ttnet_imagenet
 
 
 def block_resnet_bn(block: BlockResnet, x: torch.Tensor,
-                    stats: dict | None = None) -> torch.Tensor:
+                    stats: dict | None = None,
+                    pre_padded: bool = False) -> torch.Tensor:
     """``Block_resnet_BN`` (``ttnet_imagenet_v1.py:53``): the activation
     after bn2, a GELU in the last cell."""
     cfg = block.cfg
-    out = batch_norm(block.bn2, first_half(block, x, stats), stats)
+    out = batch_norm(block.bn2, first_half(block, x, stats, pre_padded),
+                     stats)
     if cfg.last:
         return gelu(out)
     if cfg.a_bit > 1:

@@ -173,12 +173,14 @@ def interval_heaviside_noisy(iv: Interval, T: float) -> Interval:
                     loss)
 
 
-def interval_block_tt(block, iv: Interval) -> Interval:
+def interval_block_tt(block, iv: Interval,
+                      pre_padded: bool = False) -> Interval:
     """A ``BlockTT`` (``models/block_tt.py``) on an interval, eval
     semantics: pad -> grouped conv -> BN -> GELU -> 1x1 grouped conv -> BN
-    -> the dead-zone Heaviside (ReLU when ``last``)."""
+    -> the dead-zone Heaviside (ReLU when ``last``).  ``pre_padded`` skips
+    the pad for callers that already padded (``parallel/sp.py``)."""
     cfg = block.cfg
-    if cfg.padding != 0:
+    if cfg.padding != 0 and not pre_padded:
         iv = interval_struct(iv, lambda v: constant_pad2d(v, cfg.padding))
     iv = interval_conv2d(iv, block.conv1.weight, stride=cfg.stride,
                          groups=cfg.groupsici, bias=block.conv1.bias)

@@ -64,6 +64,7 @@ from torch import nn
 
 from ..parallel.data_parallel import all_reduce_mean_
 from ..parallel.sp import SP_MESH, local_rows, row_shard
+from ..parallel.sp_models import sp_interval_logits
 from ..robust.attack import fgsm_attack, frozen, pgd_attack
 from ..robust.collect import multi_sample_forward
 from ..robust.interval import certified_mask
@@ -163,12 +164,14 @@ def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
     (``--sp``): each batch comes whole to every rank of a model group,
     which keeps its own rows on the device (``parallel/sp.py``), and
     ``apply`` is the row-sharded forward (``sp_forward``), the same logits
-    on every rank.  An attacked image stays row-sharded: the sign step and
-    the projection are row-local."""
+    on every rank; ``cert`` bounds the logits through the family's
+    row-sharded interval twin (``sp_interval_logits``).  An attacked image
+    stays row-sharded: the sign step and the projection are row-local."""
     if spatial and mesh is None:
         raise ValueError(SP_MESH)
     prepare = make_input_pipeline(normalize)
-    rows = functools.partial(local_rows, shard=row_shard(mesh)) if spatial \
+    shard = row_shard(mesh) if spatial else None
+    rows = functools.partial(local_rows, shard=shard) if spatial \
         else (lambda images: images)
     if certify_eps > 0:
         if md is None or md.interval_logits is None:
@@ -178,6 +181,8 @@ def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
                 "supports the AbstractTensor families (tt_certif, "
                 "cifar10lownoise, model_general)")
         cball = _pixel_ball(certify_eps, certify_stats)
+        interval_logits = functools.partial(md.interval_logits, model) \
+            if shard is None else sp_interval_logits(model, shard)
     if attack is not None:
         aball = _pixel_ball(attack["eps"], certify_stats)
         astep = None
@@ -197,7 +202,7 @@ def make_eval_step(apply, normalize=None, noise=None, md=None, model=None,
             out = {"loss": nll_sum / denom, "top1": 100.0 * c1 / denom,
                    "top5": 100.0 * c5 / denom, "n": n}
             if certify_eps > 0:
-                iv = md.interval_logits(model, x, *_on(cball, x.device))
+                iv = interval_logits(x, *_on(cball, x.device))
                 preds = logits.argmax(-1)
                 ok = (labels >= 0) & certified_mask(iv, preds) \
                     & (preds == labels)

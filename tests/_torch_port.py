@@ -10,6 +10,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 from pathlib import Path
 from unittest import mock
 
@@ -332,3 +333,50 @@ def launch_ranks(argv_for, world: int = 2, env_for=None,
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out}"
     return outs
+
+
+class Loopback:
+    """``n`` ranks' stand-in for a process group: ``member(i).all_reduce(t)``
+    waits for every rank's ``t`` and gives each the sum in rank order.  A
+    rank that calls it out of turn meets a broken barrier, not a hang."""
+
+    def __init__(self, n: int):
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=60)
+
+    def member(self, i: int):
+        loop = self
+
+        class Member:
+            @staticmethod
+            def all_reduce(t):
+                loop.slots[i] = t.clone()
+                loop.barrier.wait()
+                total = loop.slots[0].clone()
+                for other in loop.slots[1:]:
+                    total += other
+                loop.barrier.wait()
+                t.copy_(total)
+        return Member()
+
+
+def run_ranks(n: int, fn) -> list:
+    """``fn(rank, group)`` in ``n`` threads, one a model rank joined by a
+    ``Loopback``: each rank's result."""
+    loop, out, errors = Loopback(n), [None] * n, []
+
+    def go(i):
+        try:
+            out[i] = fn(i, loop.member(i))
+        except BaseException as e:          # noqa: BLE001
+            errors.append(e)
+            loop.barrier.abort()
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out

@@ -6,10 +6,12 @@ ranks' tensors in rank order (``Loopback``), all in f64:
 * the partition: GSPMD's ceiling split covers every height once, uneven
   and with empty slices where the height is short;
 * each row-sharded op (the s2d and reference stems, a padded strided
-  head, the stride-2 pool, the fix-up pads and the crop, the gather) and
-  its input gradient against the unsharded op, at heights {56, 29, 15,
-  8, 7} and the short 5 and 3 (a rank owning fewer rows than a halo, and
-  an empty one), M in {2, 4};
+  head, the stride-2 pool, the fix-up pads and the crop, the gather, and
+  the generic convs, pools (the padded max pool's -inf pad), pads, crops
+  and crop to the smallest of the other families) and its input
+  gradient against the unsharded op, at heights {56, 29, 15, 8, 7} and
+  the short 5 and 3 (a rank owning fewer rows than a halo, and an empty
+  one), M in {2, 4};
 * the sharded forward of ``ttnet_imagenet_xsmall`` (nfilter = tfilter =
   4, layers 0, 224², the size of JAX's ``test_sp_eval_step_exact``) and
   of the small variant at layers 1 and its narrowest width (p = 1):
@@ -23,7 +25,6 @@ ranks' tensors in rank order (``Loopback``), all in f64:
 * ``make_eval_step(spatial=True)`` without a mesh raises JAX's text.
 """
 
-import threading
 from unittest import mock
 
 import jax
@@ -33,7 +34,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_port import few_threads, images, port_and_trees  # noqa: F401
+from _torch_port import few_threads, images, port_and_trees, \
+    run_ranks  # noqa: F401
 
 from scale_imagenet_tpu.train.steps import make_eval_step as jmake_eval_step
 from scale_imagenet_tpu_torch import config
@@ -43,7 +45,7 @@ from scale_imagenet_tpu_torch.models.block_tt import BlockTT, \
     BlockTTConfig, block_tt
 from scale_imagenet_tpu_torch.models.ttnet_imagenet import TTnetImageNet, \
     TTnetImageNetConfig, init_ttnet_imagenet, stem
-from scale_imagenet_tpu_torch.parallel import sp
+from scale_imagenet_tpu_torch.parallel import sp, sp_models
 from scale_imagenet_tpu_torch.parallel.mesh import Mesh
 from scale_imagenet_tpu_torch.robust.attack import _loss_grad
 from scale_imagenet_tpu_torch.train import make_eval_step
@@ -63,53 +65,6 @@ def x64_module():
         yield
     finally:
         jax.config.update("jax_enable_x64", False)
-
-
-class Loopback:
-    """``n`` ranks' stand-in for a process group: ``member(i).all_reduce(t)``
-    waits for every rank's ``t`` and gives each the sum in rank order.  A
-    rank that calls it out of turn meets a broken barrier, not a hang."""
-
-    def __init__(self, n: int):
-        self.slots = [None] * n
-        self.barrier = threading.Barrier(n, timeout=60)
-
-    def member(self, i: int):
-        loop = self
-
-        class Member:
-            @staticmethod
-            def all_reduce(t):
-                loop.slots[i] = t.clone()
-                loop.barrier.wait()
-                total = loop.slots[0].clone()
-                for other in loop.slots[1:]:
-                    total += other
-                loop.barrier.wait()
-                t.copy_(total)
-        return Member()
-
-
-def run_ranks(n: int, fn) -> list:
-    """``fn(rank, group)`` in ``n`` threads, one a model rank: each
-    rank's result."""
-    loop, out, errors = Loopback(n), [None] * n, []
-
-    def go(i):
-        try:
-            out[i] = fn(i, loop.member(i))
-        except BaseException as e:          # noqa: BLE001
-            errors.append(e)
-            loop.barrier.abort()
-
-    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return out
 
 
 def held(x: torch.Tensor, h: int, n: int, m: int) -> torch.Tensor:
@@ -158,6 +113,11 @@ def _ops():
     head = _block(4, 2, 2, 0)
     head_xs = _block(2, 1, 2, 1)
     stems = {impl: _stem_model(impl) for impl in ("s2d", "reference")}
+    gen = torch.Generator().manual_seed(4)
+    w7, b7 = (torch.randn((3, 4, 7, 7), generator=gen, dtype=torch.float64),
+              torch.randn(3, generator=gen, dtype=torch.float64))
+    w3 = torch.randn((4, 2, 3, 3), generator=gen, dtype=torch.float64)
+    w1 = torch.randn((3, 4, 1, 1), generator=gen, dtype=torch.float64)
     return {
         "head_k4_s2_p2": (lambda x: block_tt(head, x),
                           lambda x, h, s: sp.sp_block_tt(head, x, h, s), 4),
@@ -176,8 +136,41 @@ def _ops():
                                   h - 1), 4),
         **{f"stem_{impl}": (
             lambda x, m=m: stem(m, x),
-            lambda x, h, s, m=m: sp.sp_stem(m, x, h, s), 3)
+            lambda x, h, s, m=m: sp_models.sp_stem(m, x, h, s), 3)
            for impl, m in stems.items()},
+        # the other families' row-mixing ops (``sp.py``'s generic ones)
+        "conv_k7_s2_p3": (lambda x: F.conv2d(x, w7, b7, 2, 3),
+                          lambda x, h, s: sp.sp_conv2d(x, h, s, w7, b7, 2,
+                                                       3), 4),
+        "conv_k3_p1_grouped": (
+            lambda x: F.conv2d(x, w3, None, 1, 1, groups=2),
+            lambda x, h, s: sp.sp_conv2d(x, h, s, w3, None, 1, 1, 2), 4),
+        "conv_k1_s2": (lambda x: F.conv2d(x, w1, None, 2),
+                       lambda x, h, s: sp.sp_conv2d(x, h, s, w1, None, 2),
+                       4),
+        # the padded max pool pads with -inf: a zero pad would win where a
+        # window's rows are all negative
+        "max_pool_k3_s2_p1": (lambda x: F.max_pool2d(x, 3, 2, 1),
+                              lambda x, h, s: sp.sp_max_pool(x, h, s, 3, 2,
+                                                             1), 4),
+        "max_pool_k3": (lambda x: F.max_pool2d(x, 3),
+                        lambda x, h, s: sp.sp_max_pool(x, h, s, 3), 4),
+        "avg_pool_k3_s2_p1": (lambda x: F.avg_pool2d(x, 3, 2, 1),
+                              lambda x, h, s: sp.sp_avg_pool(x, h, s, 3, 2,
+                                                             1), 4),
+        "crop_last": (lambda x: x[:, :, :-1, :-1],
+                      lambda x, h, s: sp.sp_zero_pad2d(x, h, s,
+                                                       (0, -1, 0, -1)), 4),
+        "pad_top_left": (lambda x: F.pad(x, (1, 0, 1, 0)),
+                         lambda x, h, s: sp.sp_zero_pad2d(x, h, s,
+                                                          (1, 0, 1, 0)), 4),
+        # the crop of two outputs to the smaller
+        "crop_cat": (lambda x: torch.cat([x[:, :2, :-1, :-1],
+                                          x[:, 2:, :-1, :-1]], 1),
+                     lambda x, h, s: sp.sp_crop_cat(
+                         [x[:, :2], sp.sp_zero_pad2d(x[:, 2:], h, s,
+                                                     (0, -1, 0, -1))[0]],
+                         [h, h - 1], s), 4),
     }
 
 
@@ -241,6 +234,27 @@ def test_gather_rows_and_its_backward(h, n):
     assert torch.equal(torch.cat([g for _, g in outs], dim=2), cot)
 
 
+@pytest.mark.parametrize("channels_last", (True, False))
+def test_slabs_keep_the_memory_format(channels_last):
+    """A rank's rows are stored as a whole batch is, and a slab keeps the
+    NCHW tensor's memory format (``channels_last`` for the images' NHWC
+    view and what the ops make from it), so that an op on it takes the
+    algorithm, and the rounding, it takes on the whole tensor."""
+    images = torch.zeros((2, 8, 5, 3))
+    rows = sp.local_rows(images, sp.RowShard(2, 1))
+    assert rows.is_contiguous()
+    x = rows.permute(0, 3, 1, 2)
+    if not channels_last:
+        x = x.contiguous()
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+
+    def rank(m, group):
+        slab, _ = sp.sp_window(x, 8, sp.RowShard(2, m, group), 3, 1, 1)
+        return slab.is_contiguous(memory_format=fmt)
+
+    assert all(run_ranks(2, rank))
+
+
 def test_sharded_heads_meet_fewer_rows_than_a_halo_and_an_empty_rank():
     """Height 7 over four ranks owns 2, 2, 2, 1 rows, and rank 1's output
     of the k = 4 head reads two rows of rank 0 and rank 3's two of rank
@@ -282,7 +296,7 @@ def _sharded_logits(model, x, n):
     def rank(m, group):
         shard = sp.RowShard(n, m, group)
         with torch.no_grad():
-            return sp.sp_ttnet_imagenet_apply(
+            return sp_models.sp_ttnet_imagenet_apply(
                 model, sp.local_rows(x, shard), shard)
     return run_ranks(n, rank)
 
@@ -320,7 +334,7 @@ def test_sharded_eval_step_metrics_equal_jax(which, xsmall, small):
 
     def rank(m, group):
         mesh = _mesh(4, m, group)
-        step = make_eval_step(sp.sp_forward(model, sp.row_shard(mesh)),
+        step = make_eval_step(sp_models.sp_forward(model, sp.row_shard(mesh)),
                               model=model, attack=attack, mesh=mesh,
                               spatial=True)
         return {k: float(v) for k, v in step(x, labels).items()}
@@ -343,7 +357,7 @@ def test_sharded_input_gradient_equals_unsharded(n, xsmall):
 
     def rank(m, group):
         shard = sp.RowShard(n, m, group)
-        return _loss_grad(sp.sp_forward(model, shard),
+        return _loss_grad(sp_models.sp_forward(model, shard),
                           sp.local_rows(x, shard), labels)
 
     got = torch.cat(run_ranks(n, rank), dim=1)
@@ -392,13 +406,3 @@ def test_sp_requires_mesh(xsmall):
         jmake_eval_step(xsmall[0], None, spatial=True)
     assert str(got.value) == str(want.value)
 
-
-def test_sp_forward_refuses_other_families():
-    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
-        TTnetVGGStem, TTnetVGGStemConfig
-
-    with torch.device("meta"):
-        model = TTnetVGGStem(TTnetVGGStemConfig())
-    with pytest.raises(ValueError, match="covers the ttnet_imagenet family "
-                                         "so far, not TTnetVGGStemConfig"):
-        sp.sp_forward(model, sp.RowShard(2, 0))

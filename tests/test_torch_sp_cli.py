@@ -10,10 +10,17 @@ ImageFolder and flags (``ttnet_imagenet_small`` at nfilter = tfilter = 4,
   (data 2 x model 4) from the same weights;
 * ``--sp --attack fgsm`` on the 2x2 mesh equals the unsharded run's
   adversarial top-1;
+* the other families, in the same launch: on the 2x2 mesh v1
+  (``TT_vf_19lv2_imgnet`` at p = 4, 224²) and ``cifar10lownoise --certify``
+  (32², the CIFAR transform of the same JPEGs) equal the port's unsharded
+  run and the JAX CLI's ``--sp`` run on its 8 CPU devices from the same
+  weights; ``TT_FHE_small`` on the 1x4 mesh (random weights and coin
+  flips from one ``--seed``) equals the port's unsharded run (its flips
+  are torch's, not JAX's);
 * the refusals, in-process: each of the JAX CLI's ``--sp`` texts word for
   word (a model axis of 1, ``--tp``, ``--lut`` and ``--gates``, a height
   the model axis does not divide, train, compile, and serve, which the
-  port meets on a one-device mesh), and ``SP_FAMILY`` on another family.
+  port meets on a one-device mesh).
 """
 
 import io
@@ -42,23 +49,45 @@ RUNNER = "tests/_torch_main_rank.py"
 WORLD = 4
 WIDTH = ["--nfilter", "4", "--tfilter", "4", "--layers", "0"]
 ATTACK = ["--attack", "fgsm", "--attack_eps", "0.01"]
+# the other families' jobs: name -> (model flags, weights from this seed
+# or None (``--seed`` alone), the 32x32 images, the model axis).
+# ``TT_FHE_small`` runs on 1x4: one data index keys its flips as one
+# process does (each data index of a 2x2 mesh keys its own, as under DP)
+FAMILIES = {
+    "v1": (["--model", "TT_vf_19lv2_imgnet", "--nfilter", "1", "--tfilter",
+            "4"], 4, False, 2),
+    "certify": (["--model", "cifar10lownoise", "--certify", "0.01"], 5,
+                True, 2),
+    "fhe": (["--model", "TT_FHE_small", "--nfilter", "1", "--tfilter", "8",
+             "--seed", "6"], None, True, 4),
+}
+
+
+def _image_folder(root, side: tuple):
+    """Two classes of four seeded JPEGs of ``side`` (height, width)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for c in range(2):
+        d = root / "val" / f"n{c:08d}"
+        d.mkdir(parents=True)
+        for i in range(4):
+            arr = rng.integers(0, 255, (*side, 3), dtype=np.uint8)
+            Image.fromarray(arr).save(d / f"img_{i}.jpg")
+    return root
 
 
 @pytest.fixture(scope="module")
 def fake_val_dir(tmp_path_factory):
     """``tests/test_sp.py``'s ImageFolder: two classes of four 260x250
     JPEGs."""
-    from PIL import Image
+    return _image_folder(tmp_path_factory.mktemp("sp_imagenet"), (260, 250))
 
-    root = tmp_path_factory.mktemp("sp_imagenet")
-    rng = np.random.default_rng(0)
-    for c in range(2):
-        d = root / "val" / f"n{c:08d}"
-        d.mkdir(parents=True)
-        for i in range(4):
-            arr = rng.integers(0, 255, (260, 250, 3), dtype=np.uint8)
-            Image.fromarray(arr).save(d / f"img_{i}.jpg")
-    return root
+
+@pytest.fixture(scope="module")
+def cifar_val_dir(tmp_path_factory):
+    """The same at 32x32, which the CIFAR eval transform takes as it is."""
+    return _image_folder(tmp_path_factory.mktemp("sp_cifar"), (32, 32))
 
 
 def _base(data, root) -> list:
@@ -82,42 +111,59 @@ def _one_process(argv):
 
 
 @pytest.fixture(scope="module")
-def runs(fake_val_dir, tmp_path_factory):
+def runs(fake_val_dir, cifar_val_dir, tmp_path_factory):
     """The four ranks (started first: their jobs are ``--sp`` eval at 2x2
     and 1x4 and ``--sp --attack fgsm`` at 2x2, from one weights file),
     and meanwhile the port's unsharded runs and the JAX CLI's ``--sp`` run
     on the same weights."""
     work = tmp_path_factory.mktemp("sp_cli")
-    model = cli.get_model("ttnet_imagenet_small", nfilter=4, tfilter=4,
-                          layers=0).init(seed=3, device="cpu")
-    weights = str(work / "w.pth")
-    torch.save(model.state_dict(), weights)
-    base = _base(fake_val_dir, work) + ["--ckpt", weights]
-    jobs = {"sp2x2": ["--mesh_model", "2", "--sp"],
-            "sp1x4": ["--mesh_model", "4", "--sp"],
-            "attack2x2": ["--mesh_model", "2", "--sp", *ATTACK]}
+    models, flags = {}, {}
+    for name, (extra, seed, cifar, _) in {"flagship": (
+            ["--model", "ttnet_imagenet_small"], 3, False, 2),
+            **FAMILIES}.items():
+        flags[name] = _base(cifar_val_dir if cifar else fake_val_dir,
+                            work) + extra
+        if seed is not None:
+            args = cli.parse_args(flags[name])
+            models[name] = cli.get_model(args.model, nfilter=args.nfilter,
+                                         tfilter=args.tfilter,
+                                         layers=args.layers).init(
+                seed=seed, device="cpu")
+            weights = str(work / f"{name}.pth")
+            torch.save(models[name].state_dict(), weights)
+            flags[name] += ["--ckpt", weights]
+    base = flags["flagship"]
+    jobs = {"sp2x2": base + ["--mesh_model", "2", "--sp"],
+            "sp1x4": base + ["--mesh_model", "4", "--sp"],
+            "attack2x2": base + ["--mesh_model", "2", "--sp", *ATTACK],
+            **{name: flags[name] + ["--mesh_model", str(spec[3]), "--sp"]
+               for name, spec in FAMILIES.items()}}
     ports = [free_port() for _ in jobs]
     files = []
     for r in range(WORLD):
         files.append(work / f"jobs{r}.json")
         files[r].write_text(json.dumps([
-            {"argv": base + extra + [
+            {"argv": argv + [
                 "--device", "cpu", "--num_processes", str(WORLD),
                 "--process_id", str(r), "--coordinator_address",
                 f"localhost:{port}"]}
-            for extra, port in zip(jobs.values(), ports)]))
+            for argv, port in zip(jobs.values(), ports)]))
     outs = {}
     ranks = threading.Thread(target=lambda: outs.setdefault(
         "logs", launch_ranks(lambda r: [RUNNER, str(files[r])],
                              world=WORLD)))
     ranks.start()
-    params, state = jax.tree.map(np.array, jax_trees(model))
-    with mock.patch.object(jmain, "load_params",
-                           lambda cfg, m: (params, state)), \
-            redirect_stdout(io.StringIO()):
-        jax_sp = jmain.main(_base(fake_val_dir, work) + [
-            "--mesh_data", "2", "--mesh_model", "4", "--sp"])
-    plain = _one_process(base)
+    jax_sp = {}
+    for name, model in models.items():
+        params, state = jax.tree.map(np.array, jax_trees(model))
+        with mock.patch.object(jmain, "load_params",
+                               lambda cfg, m: (params, state)), \
+                redirect_stdout(io.StringIO()):
+            argv = [a for a in flags[name] if not a.endswith(".pth")
+                    and a != "--ckpt"]
+            jax_sp[name] = jmain.main(argv + [
+                "--mesh_data", "2", "--mesh_model", "4", "--sp"])
+    plain = {name: _one_process(flags[name]) for name in flags}
     attacked = _one_process(base + ATTACK)
     ranks.join()
     assert "logs" in outs, "the ranks did not finish"
@@ -138,9 +184,36 @@ def test_sp_eval_equals_unsharded_and_the_jax_cli(runs, job, mesh):
     assert "scored 8 images over 4 ranks" in outs[0]
     assert all("final:" not in o for o in outs[1:])
     top1, top5, loss = res[0]
-    assert (top1, top5) == plain[:2]
-    assert loss == pytest.approx(plain[2], rel=1e-5)
-    assert (top1, top5) == tuple(jax_sp)
+    assert (top1, top5) == plain["flagship"][:2]
+    assert loss == pytest.approx(plain["flagship"][2], rel=1e-5)
+    assert (top1, top5) == tuple(jax_sp["flagship"])
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_other_families_equal_unsharded_and_the_jax_cli(runs, name):
+    """``--mode eval --sp`` (2x2; ``TT_FHE_small`` 1x4): every rank's
+    metrics equal, and equal to the unsharded run's in the bounds above
+    (``cert`` too), and to the JAX CLI's ``--sp`` run where JAX draws no
+    coin flips."""
+    got, plain, _, jax_sp = runs
+    outs = got[name]
+    res = [_result(o) for o in outs]
+    assert all(r == res[0] for r in res)
+    m = FAMILIES[name][3]
+    assert f"mesh: {{'data': {4 // m}, 'model': {m}}} over 4 devices" \
+        in outs[0]
+    assert "scored 8 images over 4 ranks" in outs[0]
+    top1, top5, loss = res[0][:3]
+    want = plain[name]
+    assert (top1, top5) == want[:2]
+    assert loss == pytest.approx(want[2], rel=1e-5)
+    if name == "certify":
+        assert res[0][3] == want[3] and set(want[3]) == {"cert"}
+        assert "certified@eps=0.01" in outs[0]
+    if name in jax_sp:
+        assert (top1, top5) == tuple(jax_sp[name][:2])
+        if name == "certify":
+            assert res[0][3]["cert"] == jax_sp[name][2]["cert"]
 
 
 def test_sp_attack_equals_unsharded(runs):
@@ -229,10 +302,3 @@ def test_serve_meets_the_jax_checks_on_one_device(tmp_path, extra):
     assert str(got.value) == str(one_device.value)
     assert "needs more than the 1 available devices" in str(got.value)
 
-
-def test_other_families_raise_sp_family(fake_val_dir, tmp_path):
-    with pytest.raises(ValueError, match="covers the ttnet_imagenet family "
-                                         "so far, not TTFHEConfig") as got:
-        _one_process(_base(fake_val_dir, tmp_path) + [
-            "--model", "TT_FHE_SMALL", "--mesh_model", "2", "--sp"])
-    assert "GSPMD partitions any model" in str(got.value)

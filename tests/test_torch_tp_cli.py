@@ -21,8 +21,7 @@ jobs in turn, as ``tests/test_torch_dist_cli.py`` runs its three), at
 * the refusals, in-process: the JAX CLI's texts for ``--tp`` in serve,
   compile and export, with ``--amp``/``--remat``/robust training/
   ``--label_smooth``/``--gates``/``--certify``, on the VGG stem and
-  TT_FHE; ``--sp`` on a family outside the port's row-sharded forward
-  names ``ROADMAP.md``.
+  TT_FHE.
 """
 
 import io
@@ -288,11 +287,3 @@ def test_tp_refusals_are_the_jax_messages(shards224, tmp_path, mode, model,
     else:
         assert isinstance(want, ValueError) and str(got.value) == str(want)
 
-
-def test_sp_names_the_roadmap():
-    with pytest.raises(ValueError, match="covers the ttnet_imagenet family "
-                                         "so far, not TTnetVGGStemConfig.*"
-                                         "ROADMAP.md"):
-        cli.main(["--mode", "eval", "--shards_dir", "d", "--sp",
-                  "--mesh_model", "2", "--model", "ttnet_imagenet_vgg_stem",
-                  "--device", "cpu"])
