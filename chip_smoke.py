@@ -24,9 +24,11 @@ flagship's eval and training data-parallel over two rank processes on the
 one card (``--num_processes 2``, gloo), tensor-parallel over them
 (``--mesh_model 2 --tp``) and with the image height split over them
 (``--mesh_model 2 --sp``, attacked too, beside a model of every other
-family, ``--certify`` and keyed coin flips), and its ImageFolder eval
-through the native decoder (``--native_data``) where libjpeg and Pillow
-exist.  It holds every CUDA kernel against its plain PyTorch version.
+family, ``--certify`` and keyed coin flips), served over two replicas
+in one process (``--mesh_data 2``, ``--mesh_model 2 --sp``, ``--lut``,
+``--gates``), and its ImageFolder eval through the native decoder
+(``--native_data``) where libjpeg and Pillow exist.  It holds every CUDA
+kernel against its plain PyTorch version.
 Phases, each printing one line of its numbers:
 
 1. setup:  build every CUDA source (one nvcc each, all started together);
@@ -61,7 +63,7 @@ Phases, each printing one line of its numbers:
            plan; the bound of that body (bytes, CUDA-core ops and 3xTF32
            tensor-core flops, each term printed) and ``bound_fma_ms``,
            the bound with the products on the CUDA cores;
-6. eval:   5,000 seeded uint8 images labelled by the unfused conv
+6. eval:   4,000 seeded uint8 images labelled by the unfused conv
            forward's argmax (the classifier BN's statistics set from the
            first batch, so that the labels spread over many classes),
            written with ``write_shards`` under ``build/``, then
@@ -95,7 +97,7 @@ Phases, each printing one line of its numbers:
            the largest logit difference, the forward's device time by
            kernel; (d) the host evaluator
            (``gates_device_budget = 0``) on 8 images equals the device path;
-           (e) ``evaluate`` over the eval phase's 5,000 shard images through
+           (e) ``evaluate`` over the eval phase's 4,000 shard images through
            the function ``main --mode eval --gates`` uses, DNF and CNF: img/s,
            idle share, top-1 >= 99 %; (f) ``export_model_verilog`` of the
            same covers, its total equal to ``total_gates``; (g) ``main --mode
@@ -107,7 +109,7 @@ Phases, each printing one line of its numbers:
            in a subprocess, all passed.  Artifacts go under ``build/``;
 9. vgg_stem: ``TT_vf_19lv3_imgnet_xsmall_VGG`` at full width (p = 64,
            fcsize 36,864) from --seed with its BN statistics perturbed:
-           5,000 seeded images labelled by its conv forward; its 2
+           4,000 seeded images labelled by its conv forward; its 2
            ``lut_window_bits`` launches (heads 1+2 merged, head 3; n = 4),
            its 6 ``gate_cubes`` launches (DNF and CNF, n = 4) and its one
            fused launch (head 3, G = 16, ci = co = 4) against their plain
@@ -253,11 +255,11 @@ Phases, each printing one line of its numbers:
 21. distributed (after 19, before 20): two ranks of this script
            (``--dist_rank``) on the one card, joined over gloo (NCCL refuses
            two ranks on one card), the flagship at full width: (a) ``main
-           --mode eval --num_processes 2`` over the eval phase's 5,000
+           --mode eval --num_processes 2`` over the eval phase's 4,000
            shard images at the global B, as conv and ``--lut --lut_path``
            with that phase's archive (the fused switch on, as its
            one-process run): the images scored, summed over the ranks,
-           exactly 5,000; top-1/5 within 0.1 points and the loss within
+           exactly 4,000; top-1/5 within 0.1 points and the loss within
            1e-3 relative of the one-process runs; img/s, each rank's idle
            share and kernel launches; (b) ``main --mode train
            --num_processes 2``, one epoch of 10 steps from the train
@@ -275,7 +277,7 @@ Phases, each printing one line of its numbers:
            one card over gloo, ``--mesh_data 1 --mesh_model 2 --tp``:
            each holds half of the flagship's channels
            (``parallel/tp.py``): (a) ``main --mode eval`` over the
-           5,000 shard images, the switch off: each rank scores every
+           4,000 shard images, the switch off: each rank scores every
            image (one data index), top-1/5 within 0.1 points and the loss
            within 1e-3 relative of the one-process conv run, img/s, idle
            share and peak memory a rank, no launch; (b) ``--lut
@@ -298,7 +300,7 @@ Phases, each printing one line of its numbers:
            card over gloo, ``--mesh_data 1 --mesh_model 2 --sp``: each holds
            half of the rows of every image at every layer
            (``parallel/sp.py``), the halos exchanged by ``all_reduce``:
-           (a) ``main --mode eval`` over the 5,000 shard images, the switch
+           (a) ``main --mode eval`` over the 4,000 shard images, the switch
            off, then on: each rank scores every image, top-1/5 within 0.1
            points and the loss within 1e-3 relative of the one-process
            conv run with the same switch, img/s, idle share, peak memory
@@ -340,7 +342,28 @@ Phases, each printing one line of its numbers:
            top-1 equal to the one-process run's or within one image (the
            line says which); (h) ``TT_FHE_small --sp`` twice from one
            ``--seed`` over those images: equal metrics;
-24. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
+24. serve_mesh: ``main --mode serve`` over a mesh of two replicas in one
+           process, both on the one card (``main(..., devices=[cuda:0] *
+           2)``: each replica its own thread, CUDA stream and copy of the
+           model, tables or covers; a second card's own setup cannot show
+           on one card), the flagship at full width from the eval phase's
+           weights, 32 concurrent requests at ``--serve_batch 16``: (a)
+           ``--mesh_data 2`` with the fused switch on: top-5 equal to a
+           direct forward's, 6 fused launches a replica forward, every
+           launch of one served batch on each replica in the fused
+           contract (``fused_case``); the burst's img/s against (c)'s one
+           replica; (b) ``--lut --mesh_data 2 --lut_path`` with the eval
+           phase's archive: top-5 equal to the direct LUT forward's, 8
+           ``lut_window_bits`` a replica forward, every launch of one
+           served batch on each replica bit-equal to its plain version
+           (``window_case``); (c) ``--mesh_model 2 --sp`` as conv and with
+           the switch on against the one-device server (top-5 equal for
+           every request; the largest probability gap recorded); (d) the
+           VGG stem's ``--gates dnf --mesh_data 2`` from phase vgg_stem's
+           covers: top-5 equal to the direct LUT forward's, 3
+           ``gate_cubes`` a replica forward, each replica's gate bits of
+           one served batch equal to the tables';
+25. native_data: where g++ finds ``jpeglib.h`` and libjpeg and Pillow
            imports (checked first), 512 seeded JPEGs of mixed sizes,
            ``main --mode eval --data_dir`` with and without
            ``--native_data``: equal metrics (identical pixels), both eval
@@ -389,7 +412,7 @@ OPS_PER_S = 67e12
 # 0.5*v and the product.  |.| (an operand modifier) and copysign (an
 # integer op) take no f32 instruction and are not counted
 GELU_OPS = 41
-EVAL_IMAGES = 5000
+EVAL_IMAGES = 4000                 # 15.6 batches of B = 256: the last ragged
 V2_EVAL_IMAGES = 1280              # 5 batches of B = 256
 V2_TRAIN_STEPS = 3
 FHE_EVAL_IMAGES = 5000
@@ -1730,6 +1753,8 @@ def vgg_stem_phase(args, out_dir: Path) -> dict:
                                   imgs, B, work / "shards")
     weights = work / "weights.pth"
     torch.save(model.state_dict(), weights)
+    # the serve_mesh phase serves these weights as these covers
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     del imgs
     t = time.perf_counter()
     luts = compile_ttnet_lut(model)
@@ -1925,7 +1950,8 @@ def vgg_stem_phase(args, out_dir: Path) -> dict:
               f"VGG-stem serve {form} launched {counts}")
     shutil.rmtree(work)
     return {"windows": windows, "gates": gates, "fused": fused,
-            "evals": evals, "serve_launches": serve_launches}
+            "evals": evals, "serve_launches": serve_launches,
+            "gnets": gnets, "state": state}
 
 
 def ptxas_report(log: str, marker: str) -> list:
@@ -3793,7 +3819,7 @@ def distributed_phase(args) -> dict:
     """21's jobs (run by ``launch_phases``): two ranks on the one card
     over gloo, the flagship at full
     width: (a) ``main --mode eval --num_processes 2`` over the eval
-    phase's 5,000 shard images, conv and ``--lut --lut_path`` with that
+    phase's 4,000 shard images, conv and ``--lut --lut_path`` with that
     phase's archive (global B = --batch): every image scored once over
     the ranks, top-1/5 within 0.1 points and the loss within 1e-3
     relative of the one-process runs, img/s, each rank's idle share and
@@ -4059,7 +4085,7 @@ def tp_phase(args) -> dict:
     two ranks on the one card over
     gloo, ``--mesh_data 1 --mesh_model 2 --tp``, each rank holding half of
     every channel-indexed tensor: (a) ``main --mode eval`` over the eval
-    phase's 5,000 shard images, switch off; (b) ``--lut`` with that
+    phase's 4,000 shard images, switch off; (b) ``--lut`` with that
     phase's archive, switch on, and every launch of one TP forward held
     against its plain version in each rank; (c) ten ``main --mode train``
     steps from the pre-crop shards, then a one-process ``--mode eval
@@ -4489,7 +4515,7 @@ def rank_sp_families(work: Path, seed: int, rank: int, world: int) -> dict:
 def sp_phase(args) -> dict:
     """23's jobs (run by ``launch_phases``): the flagship at full width as
     two ranks on the one card over gloo, ``--mesh_data 1 --mesh_model 2
-    --sp``: (a) ``main --mode eval`` over the eval phase's 5,000 shard
+    --sp``: (a) ``main --mode eval`` over the eval phase's 4,000 shard
     images, the switch off, then on; (b)-(d) ``rank_sp_forward``; (c)
     ``main --mode eval --attack fgsm`` over the first 256 of them, written
     here as shards of their own; (e) ``rank_sp_families``, whose weights
@@ -4844,6 +4870,222 @@ def check_sp(sp: dict, evals: dict, args) -> dict:
     return {"launches": launches, "rows": rows, "family_rows": family_rows}
 
 
+SERVE_MESH_REQUESTS = 32            # one concurrent burst a server
+SERVE_MESH_BATCH = 16               # --serve_batch: 8 images a replica
+
+
+@contextlib.contextmanager
+def replica_calls(module, attr: str, per: int, keep=None):
+    """``module.attr`` patched to record, for each serving replica's
+    thread (``replica-d<d>-m<m>``), the ``per`` calls (those ``keep``
+    takes) of its second forward: the first is the server's warm-up batch
+    of zeros.  Yields ``{thread name: [(args, kwargs, result)]}``."""
+    real = getattr(module, attr)
+    seen, kept, lock = {}, {}, threading.Lock()
+
+    def rec(*a, **k):
+        out = real(*a, **k)
+        name = threading.current_thread().name
+        if name.startswith("replica-") and (keep is None or keep(*a, **k)):
+            with lock:
+                i = seen[name] = seen.get(name, -1) + 1
+                if per <= i < 2 * per:
+                    kept.setdefault(name, []).append((a, k, out))
+        return out
+
+    with mock.patch.object(module, attr, rec):
+        yield kept
+
+
+def serve_mesh_phase(args, vgg: dict) -> dict:
+    """Serving over several replicas in one process on the one card
+    (module docstring, phase 24): ``main(..., devices=[cuda:0] * 2)``."""
+    from scale_imagenet_tpu_torch import main as cli
+    from scale_imagenet_tpu_torch.compile import gate_device as GD
+    from scale_imagenet_tpu_torch.compile import lut_eval
+    from scale_imagenet_tpu_torch.compile.lut_eval import \
+        compile_ttnet_lut, lut_multihead_apply, lut_ttnet_apply, \
+        lut_ttnet_vgg_stem_apply
+    from scale_imagenet_tpu_torch.kernels import fused_block as FB
+    from scale_imagenet_tpu_torch.kernels import lut_gather as K
+    from scale_imagenet_tpu_torch.models import get_model, multihead
+    from scale_imagenet_tpu_torch.models.ttnet_imagenet import \
+        ttnet_imagenet_apply
+
+    t_phase = time.perf_counter()
+    start_phase_launches()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one, two = [dev], [dev, dev]
+    eval_dir = Path("build") / "chip_smoke_eval"
+    weights, lut_path = eval_dir / "weights.pth", eval_dir / "luts.npz"
+    n, B = SERVE_MESH_REQUESTS, SERVE_MESH_BATCH
+    reqs = torch.rand((n, 224, 224, 3),
+                      generator=torch.Generator().manual_seed(args.seed + 40))
+    base = ["--ckpt", str(weights), "--seed", str(args.seed)]
+    model = get_model("ttnet_imagenet_small", nfilter=8, tfilter=8,
+                      layers=1).init(seed=args.seed, device=dev)
+    cli.load_checkpoint(model, str(weights))
+
+    def direct(apply, chunk: int) -> list:
+        """Top-5 of ``apply`` over the requests, ``chunk`` at a time (a
+        replica's padded batch)."""
+        top = []
+        for i in range(0, n, chunk):
+            lg = apply(reqs[i:i + chunk].to(dev))
+            top += torch.topk(torch.softmax(lg.float(), -1), 5).indices \
+                .tolist()
+        return top
+
+    def served(what, argv, devices, want_top5=None, **want_launches):
+        """One server's burst: served, top-5 against ``want_top5``, and
+        ``want_launches`` a replica forward (the warm-up included)."""
+        answers, health, counts = serve_requests(argv, reqs, B, devices)
+        batches = health["batches"] + 1
+        replicas = health["mesh"]["data"] * (
+            health["mesh"]["model"] if health["spatial"] else 1)
+        run = {"mesh": health["mesh"], "spatial": health["spatial"],
+               "devices": health["devices"], "batches": health["batches"],
+               "burst_s": health["burst_s"],
+               "img_s": n / health["burst_s"],
+               # the batcher's forward of a padded batch: split, replicas,
+               # gather (the burst itself is paced by the HTTP front end)
+               "batch_ms_p50": health["batch_ms_p50"],
+               "batch_ms_p95": health["batch_ms_p95"],
+               "forward_img_s": B / health["batch_ms_p50"] * 1e3,
+               "launches": counts,
+               "top5": [a["top5"] for a in answers],
+               "probs": [a["probs"] for a in answers]}
+        if want_top5 is not None:
+            run["top5_equal"] = sum(a == w for a, w in
+                                    zip(run["top5"], want_top5))
+        emit("serve_mesh", run=what, **{k: v for k, v in run.items()
+                                        if k not in ("top5", "probs")})
+        check(health["served"] == n, f"serve_mesh {what}: served "
+                                     f"{health['served']} of {n}")
+        check(want_top5 is None or run["top5_equal"] == n,
+              f"serve_mesh {what}: top-5 of {n - run.get('top5_equal', 0)} "
+              "answers differ from the direct forward's")
+        for kernel, per in want_launches.items():
+            check(counts[kernel] == per * replicas * batches,
+                  f"serve_mesh {what}: {counts}, expected {per} "
+                  f"{kernel} a replica forward over {replicas} replicas "
+                  f"and {batches} batches")
+        return run
+
+    def k1(block, *a, **k):
+        return block.cfg.k in (1, (1, 1))
+
+    runs, fused_rows, window_rows = {}, [], []
+    # (a) two data replicas, the fused switch on; (c)'s one-device run is
+    # the burst's one-replica baseline
+    with fused_blocks(True):
+        want = direct(lambda x: ttnet_imagenet_apply(model, x), B // 2)
+        with replica_calls(multihead, "block_tt", 6, k1) as calls:
+            runs["dp_fused"] = served(
+                "dp_fused", ["--mesh_data", "2", *base], two, want,
+                fused_pointwise_block=6)
+    check(sorted(calls) == ["replica-d0-m0", "replica-d1-m0"]
+          and all(len(v) == 6 for v in calls.values()),
+          f"serve_mesh dp_fused: fused launches by replica "
+          f"{ {k: len(v) for k, v in calls.items()} }")
+    for name, rows in sorted(calls.items()):
+        for (block, h, *_), _, _ in rows:
+            row = fused_case(block, h, FB)
+            row["replica"] = name
+            fused_rows.append(row)
+            emit("serve_mesh_kernels", kernel="fused_pointwise_block", **row)
+    del calls
+
+    # (b) --lut over two data replicas, the eval phase's archive
+    luts = cli.load_or_compile_luts(model, str(lut_path))
+    want = direct(lambda x: lut_ttnet_apply(luts, model, x), B // 2)
+    with replica_calls(lut_eval, "lut_window_bits", 8) as calls:
+        runs["dp_lut"] = served(
+            "dp_lut", ["--lut", "--lut_path", str(lut_path), "--mesh_data",
+                       "2", *base], two, want, lut_window_bits=8)
+    check(sorted(calls) == ["replica-d0-m0", "replica-d1-m0"]
+          and all(len(v) == 8 for v in calls.values()),
+          "serve_mesh dp_lut: window launches by replica "
+          f"{ {k: len(v) for k, v in calls.items()} }")
+    for name, rows in sorted(calls.items()):
+        for a, k, _ in rows:
+            xb, words, kk, stride, padding, *rest = a
+            heads = rest[0] if rest else k.get("heads", 1)
+            row = window_case("bits", xb, words, kk, stride, padding, heads,
+                              K)
+            row["replica"] = name
+            window_rows.append(row)
+            emit("serve_mesh_kernels", kernel="lut_window_bits", **row)
+    del calls, luts
+
+    # (c) --mesh_model 2 --sp against one device, conv and fused
+    sp = ["--mesh_model", "2", "--sp", *base]
+    for fused in (False, True):
+        tag = "fused" if fused else "conv"
+        per = {"fused_pointwise_block": 6 if fused else 0}
+        with fused_blocks(fused):
+            runs[f"one_{tag}"] = served(f"one_{tag}", base, one, **per)
+            runs[f"sp_{tag}"] = served(f"sp_{tag}", sp, two, **per)
+        got, ref = runs[f"sp_{tag}"], runs[f"one_{tag}"]
+        agree = sum(a == b for a, b in zip(got["top5"], ref["top5"]))
+        gap = max(abs(p - q) for a, b in zip(got["probs"], ref["probs"])
+                  for p, q in zip(a, b))
+        got.update(top5_equal_one_device=agree, prob_max_abs_diff=gap)
+        emit("serve_mesh_sp", switch=tag, top5_equal_one_device=agree,
+             prob_max_abs_diff=gap)
+        check(agree == n, f"serve_mesh sp_{tag}: top-5 of {n - agree} "
+                          "answers differ from the one-device server's")
+
+    # (d) the VGG stem's DNF circuit over two data replicas, from phase
+    # vgg_stem's covers: each replica's gate bits equal to the tables'
+    vmd = get_model("ttnet_imagenet_vgg_stem")
+    vmodel = vmd.init(seed=args.seed, device=dev)
+    vmodel.load_state_dict(vgg["state"])
+    vweights = Path("build") / "chip_smoke_serve_mesh_vgg.pth"
+    torch.save(vgg["state"], vweights)
+    vluts = compile_ttnet_lut(vmodel)
+    want = direct(lambda x: lut_ttnet_vgg_stem_apply(vluts, vmodel, x),
+                  B // 2)
+    real_gates = cli._as_gate_model
+
+    def with_covers(m, form, gnets=None):
+        return real_gates(m, form, vgg["gnets"])
+
+    with mock.patch.object(cli, "_as_gate_model", with_covers), \
+            replica_calls(GD, "gate_multihead_apply_device", 1) as calls:
+        runs["dp_gates"] = served(
+            "dp_gates", ["--model", vmd.name, "--ckpt", str(vweights),
+                         "--gates", "dnf", "--mesh_data", "2"], two, want,
+            gate_cubes=3)
+    vweights.unlink()
+    mism = {}
+    for name, rows in sorted(calls.items()):
+        (_, h), _, out = rows[0]
+        mism[name] = int((out != lut_multihead_apply(vluts[0], h)).sum())
+    runs["dp_gates"]["gate_bit_mismatches_vs_lut"] = mism
+    emit("serve_mesh_gates", gate_bit_mismatches_vs_lut=mism)
+    check(sorted(mism) == ["replica-d0-m0", "replica-d1-m0"]
+          and not any(mism.values()),
+          f"serve_mesh dp_gates: gate bits differ from the LUT's: {mism}")
+    del calls, vluts, vmodel, model
+
+    launches = phase_launches()
+    phase_s = time.perf_counter() - t_phase
+    speedup = runs["dp_fused"]["img_s"] / runs["one_fused"]["img_s"]
+    emit("serve_mesh_phase", phase_s=phase_s, launches=launches,
+         burst_img_s_one_replica=runs["one_fused"]["img_s"],
+         burst_img_s_two_replicas=runs["dp_fused"]["img_s"],
+         two_over_one=speedup,
+         forward_img_s_one_replica=runs["one_fused"]["forward_img_s"],
+         forward_img_s_two_replicas=runs["dp_fused"]["forward_img_s"],
+         forward_two_over_one=runs["dp_fused"]["forward_img_s"]
+         / runs["one_fused"]["forward_img_s"])
+    for run in runs.values():
+        del run["top5"], run["probs"]
+    return {"runs": runs, "fused": fused_rows, "windows": window_rows,
+            "launches": launches, "phase_s": phase_s}
+
+
 def native_data_missing() -> str | None:
     """What the native decode phase lacks on this machine, or None: g++
     with ``jpeglib.h`` and libjpeg (one tiny program compiled and linked),
@@ -4930,11 +5172,14 @@ def native_data_phase(args, out_dir: Path) -> dict | None:
     return runs
 
 
-def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
-    """``main --mode serve --serve_batch batch`` (and ``argv``) in a
-    thread, one concurrent raw-f32 request an image of ``reqs``: the
-    answers, ``/healthz`` and the port's kernel launches of the run (the
-    counts set to 0 just before it)."""
+def serve_requests(argv: list, reqs: torch.Tensor, batch: int,
+                   devices=None):
+    """``main --mode serve --serve_batch batch`` (and ``argv``; over
+    ``devices`` where given, ``main``'s hook) in a thread, one concurrent
+    raw-f32 request an image of ``reqs``: the answers, ``/healthz`` with
+    the burst's seconds (``burst_s``: the first request sent to the last
+    answer) and the port's kernel launches of the run (the counts set to 0
+    just before it)."""
     from scale_imagenet_tpu_torch import main as cli
 
     ready, stop = threading.Event(), threading.Event()
@@ -4945,7 +5190,7 @@ def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
         try:
             cli.main(["--mode", "serve", "--serve_batch", str(batch),
                       "--port", "0", *argv],
-                     serve_ready=ready, serve_stop=stop)
+                     serve_ready=ready, serve_stop=stop, devices=devices)
         except BaseException as e:        # reported by the main thread
             errors.append(e)
             ready.set()
@@ -4963,9 +5208,12 @@ def serve_requests(argv: list, reqs: torch.Tensor, batch: int):
             return json.loads(r.read())
 
     with ThreadPoolExecutor(len(reqs)) as pool:
+        t = time.perf_counter()
         answers = list(pool.map(post, range(len(reqs))))
+        burst_s = time.perf_counter() - t
     with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
         health = json.loads(r.read())
+    health["burst_s"] = burst_s
     stop.set()
     th.join(60)
     check(not th.is_alive() and not errors, f"server stop: {errors}")
@@ -5255,11 +5503,16 @@ def run(args) -> int:
     t0 = time.perf_counter()
     sp_checked = check_sp(sp, evals, args)
     shutil.rmtree(Path("build") / "chip_smoke_train")
-    shutil.rmtree(Path("build") / "chip_smoke_eval")
     emit("sp_phase", seconds=time.perf_counter() - t0 + sp["ranks_s"],
          ranks_s=sp["ranks_s"])
     lap("sp")
     laps["sp"] += sp["ranks_s"]
+
+    # ---------------------------------------- serving over two replicas
+    serve_mesh = serve_mesh_phase(args, vgg)
+    shutil.rmtree(Path("build") / "chip_smoke_eval")
+    torch.cuda.synchronize()
+    lap("serve_mesh")
 
     # ------------------------------------------------------- native data
     t0 = time.perf_counter()
@@ -5405,6 +5658,13 @@ def run(args) -> int:
         for phase, res in zoo.items():
             line["launches_by_path"][phase] = res["launches"][line["name"]]
             line["launches"] += res["launches"][line["name"]]
+        # phase serve_mesh's servers, each counted from 0 over its run
+        # (every replica's batches, the warm-up's included)
+        for name, res in serve_mesh["runs"].items():
+            n = res["launches"][line["name"]]
+            if n:
+                line["launches_by_path"][f"serve_mesh_{name}"] = n
+                line["launches"] += n
         # the distributed, tensor- and spatial-parallel phases' ranks, each
         # run counted from 0 in its rank's process
         for runs in (dist_launches, tp_checked["launches"],
@@ -5423,6 +5683,15 @@ def run(args) -> int:
             (kernels[2], "sp_families_", sp_checked["family_rows"],
              "max_abs_err_float32")):
         line.update(sums([r for r in got if r["rank"] == 0], prefix))
+        line["max_abs_err"] = max(line["max_abs_err"],
+                                  *(r[err] for r in got))
+    # the launches of one served batch on each replica of phase serve_mesh
+    # against their plain versions: times summed over replica d0's batch
+    for line, got, err in ((kernels[0], serve_mesh["windows"], "max_abs_err"),
+                           (kernels[2], serve_mesh["fused"],
+                            "max_abs_err_float32")):
+        line.update(sums([r for r in got if r["replica"] == "replica-d0-m0"],
+                         "serve_mesh_"))
         line["max_abs_err"] = max(line["max_abs_err"],
                                   *(r[err] for r in got))
     # the cases under the serving transforms: bf16 x, folded biases

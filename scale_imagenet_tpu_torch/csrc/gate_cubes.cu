@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kWarps = 6;          // warps of a block, sharing one table
@@ -302,12 +304,12 @@ gate_cubes_kernel(const uint32_t* __restrict__ planes,
   combine(acc, out + static_cast<long long>(j) * W, W, w, invert);
 }
 
-// resident blocks of the card, set up once: the kernel's shared memory
-// (above 48 KB for n > 16) allowed and preferred over L1
+// resident blocks of card `dev`, the current one: the kernel's shared
+// memory (above 48 KB for n > 16) allowed and preferred over L1.  Function
+// attributes belong to the card's context, so each card is set up itself
 template <int MAXN>
-int resident_blocks() {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
+int resident_blocks(int dev) {
+  int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(gate_cubes_kernel<MAXN>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -323,9 +325,27 @@ int resident_blocks() {
 // S, the runs the flat cube array is cut into: at least kWaves waves of
 // resident blocks over the word tiles, raised until the last wave is at
 // least 90 % full (every block walks as many cubes as any other)
+constexpr int kMaxDevices = 64;
+
+// resident_blocks of the current card, set up once a card (0: not yet; two
+// threads that set one card up at once set the same attributes)
+template <int MAXN>
+int card_slots() {
+  static std::atomic<int> slots[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return resident_blocks<MAXN>(dev);
+  int n = slots[dev].load(std::memory_order_acquire);
+  if (n == 0) {
+    n = resident_blocks<MAXN>(dev);
+    slots[dev].store(n, std::memory_order_release);
+  }
+  return n;
+}
+
 template <int MAXN>
 long long runs_t(long long W) {
-  static const int slots = resident_blocks<MAXN>();
+  const int slots = card_slots<MAXN>();
   const long long tiles = (W + kTile - 1) / kTile;
   long long s = kWaves * static_cast<long long>(slots) / tiles;
   if (s < 1) s = 1;

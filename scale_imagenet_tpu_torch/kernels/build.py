@@ -80,17 +80,36 @@ def build_all() -> dict[str, Path]:
     return {n: library_path(n) for n in names}
 
 
+_checked: dict[int, tuple] = {}
+
+
+def check_device(device) -> None:
+    """Raise unless ``device`` (a card) is sm_90, the one architecture the
+    libraries hold code for; each card is asked once.  Every wrapper calls
+    it before it launches on a card, so a process that spans several cards
+    checks each before its first launch there."""
+    import torch
+
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    cap = _checked.get(index)
+    if cap is None:
+        cap = _checked[index] = tuple(torch.cuda.get_device_capability(index))
+    if cap != (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a (Hopper); "
+                           f"cuda:{index} is sm_{cap[0]}{cap[1]}")
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; needs an sm_90 card."""
+    """Build (if needed) and load ``csrc/<name>.cu``; needs an sm_90 card
+    (``check_device``)."""
     import torch
 
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        cap = torch.cuda.get_device_capability()
-        if cap != (9, 0):
-            raise RuntimeError(f"the kernels are built for sm_90a (Hopper); "
-                               f"this card is sm_{cap[0]}{cap[1]}")
+        check_device(torch.device("cuda"))
         job = _start_build(name)
         if job is not None:
             _finish_build(job)

@@ -50,6 +50,7 @@ import torch
 
 from ..ops.binarize import heaviside01
 from ..ops.gelu import fast_gelu
+from .build import check_device
 
 #: the (ci, co) pairs the kernel is instantiated for: every k=1 block of
 #: the ttnet_imagenet variants and of the TT_FHE family (ci and co in
@@ -238,6 +239,7 @@ def _launch(x4: torch.Tensor, params: tuple, act: str,
     w1t = w1.transpose(1, 2).contiguous()
     b, _, h, w = x4.shape
     lib = _library()
+    check_device(x4.device)
     with torch.cuda.device(x4.device):
         stream = torch.cuda.current_stream(x4.device).cuda_stream
         err = lib.fused_pointwise_launch(

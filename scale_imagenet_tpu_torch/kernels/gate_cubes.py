@@ -40,6 +40,8 @@ import threading
 
 import torch
 
+from .build import check_device
+
 #: the kernel's widest pattern (the cubes are uint32 words)
 MAX_BITS = 32
 #: bytes of the plain version's (G, F, chunk, W) intermediate
@@ -166,6 +168,7 @@ def gate_cubes(planes: torch.Tensor, cubes: torch.Tensor,
     out = torch.empty((g, filters, w), dtype=torch.int32,
                       device=planes.device)
     lib = _library()
+    check_device(planes.device)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.gate_cubes_launch(planes.data_ptr(), cubes.data_ptr(),

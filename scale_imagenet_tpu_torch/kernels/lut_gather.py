@@ -47,6 +47,8 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from .build import check_device
+
 #: the widest window the kernels take (index bits), and the most windows
 #: a launch (the kernels index them in 32 bits)
 MAX_BITS = 24
@@ -281,6 +283,7 @@ def _library():
 def _launch(name: str, x: torch.Tensor, tab: torch.Tensor, out: torch.Tensor,
             geo: dict, stride: int, padding: int, *extra: int) -> None:
     lib = _library()
+    check_device(x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, f"{name}_launch")(

@@ -118,9 +118,10 @@ eval; every rank cut to the fewest full batches in training), the train
 step averages the gradients, the new BN statistics and the metrics over
 the ranks once a step, eval sums its metrics over them, and rank 0 alone
 prints, logs, writes checkpoints and the LUT archive.  ``--mesh_data``
--1 (``world / mesh_model``) or that; ``--platform`` and ``--cpu_devices`` (the
-JAX package's platform and virtual devices) are refused: the device is
-``--device``, the ranks ``--num_processes``.
+-1 (``world / mesh_model``) or that; ``--platform`` (the JAX package's
+platform) is refused, and so is ``--cpu_devices`` but in ``--mode serve
+--device cpu``: the device is ``--device``, the ranks
+``--num_processes``.
 
 ``--mesh_model M`` > 1 lays the ranks out as a (data, model) mesh, the
 model axis innermost: the ranks of one data index read the same rows and
@@ -141,11 +142,17 @@ families) ``--certify`` too, a stochastic model flipping the bits the
 unsharded run flips from the same ``--seed``, and every rank computes
 the whole logits; it refuses ``--tp``, ``--lut``, ``--gates``, a model
 axis of 1 and a height that the axis does not divide with the JAX CLI's
-texts, and training and compile as the JAX CLI does.  The server is one
-process on one card, so ``--mode serve --sp`` meets JAX's checks on a
-one-device mesh: ``make_mesh``'s refusal of ``--mesh_model`` > 1, else
-the model axis of 1.  The flags that the JAX CLI refuses in a mode
-raise with its messages.
+texts, and training and compile as the JAX CLI does.  ``--mode serve``
+spans one process's devices as the JAX server spans its host's
+(``parallel/mesh.py::make_local_mesh``, ``parallel/local.py``,
+``runtime/server.py``): every card, ``--device cuda:N``'s one, ``--device
+cpu --cpu_devices N`` CPU devices, or the list a caller hands ``main(...,
+devices=)``; ``--mesh_data`` splits each padded batch over them and
+``--mesh_model M --sp`` each image's rows, one replica a device in a
+thread of its own, ``--lut`` and ``--gates`` replicated on one device
+unless ``--mesh_data`` is given, with the JAX serve branch's checks and
+texts.  The flags that the JAX CLI refuses in a mode raise with its
+messages.
 """
 
 from __future__ import annotations
@@ -188,8 +195,9 @@ from .convert.fuse_quant import fuse_resnet
 from .convert.torch_import import IMPORTERS
 from .native.ttdata import NativeImageFolder
 from .parallel import backend, barrier, broadcast_module_, initialize, \
-    is_coordinator, local_batch_size, make_mesh, rank_key, rank_seed, \
-    requested_world
+    is_coordinator, local_batch_size, make_local_mesh, make_mesh, rank_key, \
+    rank_seed, requested_world
+from .parallel.local import replicate
 from .parallel.sp import SP_HEIGHT, row_shard
 from .parallel.sp_models import sp_forward
 from .parallel.tp import gather_train_payload, local_config, shard_luts, \
@@ -382,6 +390,7 @@ _PLATFORM = ("--platform/--cpu_devices pick the JAX package's platform and "
              "its virtual CPU devices; the port runs one process a device: "
              "pick the device with --device (cuda or cpu) and the ranks "
              "with --num_processes — drop the flag")
+_CPU_DEVICES = "--cpu_devices {}: a count >= 1 of CPU devices to serve over"
 # ``scale_imagenet_tpu/main.py:1003-1005,1076-1081``
 _GATES_WORLD = ("--gates is a single-host verification runtime; drop "
                 "--num_processes")
@@ -665,8 +674,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--platform", type=str, default=None,
                    help="the JAX CLI's platform: refused here (--device)")
     p.add_argument("--cpu_devices", type=int, default=None,
-                   help="the JAX CLI's virtual CPU devices: refused here "
-                        "(--num_processes)")
+                   help="--mode serve --device cpu: the CPU devices the "
+                        "mesh spans (the JAX CLI's virtual CPU devices); "
+                        "refused elsewhere (--num_processes)")
     p.add_argument("--ckpt", type=str, default=None,
                    help="reference-layout .pth state dict (loaded strict), "
                         "or a checkpoint dir (its model.pth; training "
@@ -679,8 +689,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"{', '.join(_MODES)}")
     if args.compile_cache:
         raise ValueError(_COMPILE_CACHE)
-    if args.platform or args.cpu_devices:
+    # --cpu_devices: the CPU devices of one process's serving mesh; elsewhere
+    # the devices are the ranks'
+    if args.platform or args.cpu_devices is not None and not (
+            args.mode == "serve" and args.device is not None
+            and torch.device(args.device).type == "cpu"):
         raise ValueError(_PLATFORM)
+    if args.cpu_devices is not None and args.cpu_devices < 1:
+        raise ValueError(_CPU_DEVICES.format(args.cpu_devices))
     # set by ``main`` once the process group is joined: the rank, the
     # world, the mesh and the rank's data index and data axis size
     args.rank, args.world = 0, 1
@@ -774,12 +790,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise ValueError(_GATES_WITH_BF16)
         if args.fold_bn:
             raise ValueError(_GATES_WITH_FOLD)
-    if args.mode == "serve" and args.sp:
-        # one process on one card: ``scale_imagenet_tpu/main.py:909-929``
-        # on a one-device mesh
-        make_mesh(args.mesh_data, args.mesh_model, 1)
-        raise ValueError(_SP_COMPILED if args.lut or args.gates
-                         else _SP_MODEL_AXIS)
     if args.fuse_quant:
         if args.fold_bn:
             raise ValueError(_FUSE_WITH_FOLD)
@@ -1109,7 +1119,7 @@ def _as_gate_model(model, form: str, gnets=None):
         return (lambda x: host_apply(gnets, model, x, form=form)), False
     print("gate circuit runs ON DEVICE (bit-sliced int32 cube evaluation, "
           "32 positions/lane)")
-    return (lambda x: device_apply(gdevs, model, x)), True
+    return functools.partial(device_apply, gdevs, model), True
 
 
 def _compile(cfg, md, model) -> dict:
@@ -1534,12 +1544,75 @@ def _tp_forward(cfg, model):
     return functools.partial(tp_lut_apply, luts, local)
 
 
-def main(argv=None, *, serve_ready=None, serve_stop=None):
+def _serve_mesh(cfg, md, devices=None):
+    """``--mode serve``'s mesh over this process's devices, with the JAX
+    serve branch's checks in its order (``scale_imagenet_tpu/main.py:
+    900-929``).  The devices: ``devices`` where the caller gives them,
+    else ``--cpu_devices`` CPU devices (1 by default) on the CPU, the card
+    named by ``--device cuda:N``, or every card.  ``--mesh_data -1`` spans
+    them all, but ``--lut``/``--gates`` take one device unless
+    ``--mesh_data`` is given.  Where there is no card, one stands in for
+    the checks that need no count, and ``resolve_device`` then asks for
+    the CPU."""
+    if devices is None:
+        device = torch.device(cfg.device or "cuda")
+        if device.type == "cpu":
+            devices = [device] * (cfg.cpu_devices or 1)
+        elif device.index is not None:
+            devices = [device]
+        else:
+            devices = [torch.device("cuda", i) for i in
+                       range(max(1, torch.cuda.device_count()))]
+    mesh_data = cfg.mesh_data
+    if (cfg.lut or cfg.gates) and mesh_data == -1 and cfg.mesh_model == 1:
+        mesh_data = 1
+    mesh = make_local_mesh(mesh_data, cfg.mesh_model, devices)
+    multi = mesh["data"] > 1 or mesh["model"] > 1
+    if cfg.sp and (cfg.lut or cfg.gates):
+        raise ValueError(_SP_COMPILED)
+    if (multi or cfg.sp) and cfg.serve_batch % mesh["data"]:
+        raise ValueError(f"--serve_batch {cfg.serve_batch} not divisible "
+                         f"by --mesh_data {mesh['data']}")
+    if cfg.sp:
+        if mesh["model"] == 1:
+            raise ValueError(_SP_MODEL_AXIS)
+        size = md.config.image_size
+        if size % mesh["model"]:
+            raise ValueError(SP_HEIGHT.format(size, mesh["model"]))
+    return mesh
+
+
+def _replicas(cfg, mesh, apply, model, stochastic: bool):
+    """``replica(d, m, shard)`` for ``runtime/server.py::make_forward``:
+    the served ``apply`` (a ``functools.partial`` of the family's forward
+    over the model, and its tables or circuit) on ``mesh.device(d, m)``.
+    The replica on the model's own device at (0, 0) takes the originals,
+    every other a copy on its device (``parallel/local.py::replicate``;
+    the tables and covers built once).  Under ``--sp`` (``shard`` given)
+    it is the model's row-sharded forward (``sp_forward``).  A stochastic
+    model's replicas key their flips from ``--seed`` as the DP eval does:
+    data index ``d`` its own (``rank_key``), each model rank of it the same
+    (``RowNoise``), one data index the flips of one device."""
+    home = next(model.parameters()).device
+
+    def replica(d: int, m: int, shard):
+        state = apply.args
+        if (d, m) != (0, 0) or mesh.device(0, 0) != home:
+            state = replicate(state, mesh.device(d, m))
+        forward = sp_forward(state[0], shard) if shard is not None \
+            else functools.partial(apply.func, *state, **apply.keywords)
+        return _keyed(forward, stochastic, cfg.seed, d, mesh["data"])
+    return replica
+
+
+def main(argv=None, *, serve_ready=None, serve_stop=None, devices=None):
     """CLI entry.  ``--mode eval`` returns ``(top1, top5, loss)``,
     ``--mode train`` its summary (``_train``), ``--mode compile`` its
     summary (``_compile``).  ``serve_ready``/
     ``serve_stop``: optional events for callers that run the server in a
-    thread."""
+    thread.  ``devices``: the devices ``--mode serve`` spans (a list of
+    ``torch.device``s, one of them given more than once where replicas
+    share it), in place of the ones ``--device`` names."""
     cfg = parse_args(argv)
     if cfg.list_models:
         names = list_models()
@@ -1553,13 +1626,17 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
                             num_workers=cfg.num_workers)
         print(f"wrote {meta['n']} images -> {cfg.write_shards}")
         return meta
+    md = get_model(cfg.model, **{
+        "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
+        **parse_model_args(cfg.model_arg)})
+    # --mode serve's mesh over this process's devices, with the JAX serve
+    # branch's checks, before the card is asked for
+    serve_mesh = _serve_mesh(cfg, md, devices) if cfg.mode == "serve" \
+        else None
     # the process group (and each rank's card) before any other CUDA call
     cfg.rank, cfg.world, device = initialize(
         cfg.coordinator_address, cfg.num_processes, cfg.process_id,
         resolve_device(cfg.device))
-    md = get_model(cfg.model, **{
-        "nfilter": cfg.nfilter, "tfilter": cfg.tfilter, "layers": cfg.layers,
-        **parse_model_args(cfg.model_arg)})
     if cfg.sp and cfg.mode == "eval":
         # ``scale_imagenet_tpu/main.py:1042-1045``, before a mesh that one
         # process cannot hold
@@ -1578,9 +1655,6 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
                      if cfg.world > 1 else ""))
         if cfg.mode == "eval":
             local_batch_size(cfg.eval_batch_size, cfg.mesh)
-    elif cfg.mode == "serve":
-        # one process, one card
-        make_mesh(cfg.mesh_data, cfg.mesh_model, 1)
     cfg.shard, cfg.shards = cfg.mesh.data_index, cfg.mesh["data"]
     model = md.init(seed=cfg.seed, device=device)
     if cfg.mode == "train":
@@ -1614,7 +1688,7 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
     # its own root (every model rank of one data index the same)
     noise = rank_key(NoiseKey(cfg.seed), cfg.shard, cfg.shards) \
         if md.stochastic else None
-    if cfg.sp:
+    if cfg.sp and cfg.mode == "eval":
         return _eval(cfg, sp_forward(model, row_shard(cfg.mesh)), device,
                      md, model, noise)
     if cfg.gates:
@@ -1623,21 +1697,18 @@ def main(argv=None, *, serve_ready=None, serve_stop=None):
         if cfg.mode == "serve" and not on_device:
             raise ValueError(_GATES_ON_HOST)
     elif cfg.lut:
-        luts = load_or_compile_luts(model, cfg.lut_path)
+        apply = functools.partial(lut_apply, load_or_compile_luts(
+            model, cfg.lut_path), model)
         name += "+lut"
-
-        def apply(x):
-            return lut_apply(luts, model, x)
     else:
-        def forward(x, **k):
-            return conv_apply(model, x, **k)
+        apply = functools.partial(conv_apply, model)
         if cfg.mode == "eval":
-            return _eval(cfg, forward, device, md, model, noise)
-        apply = _keyed(forward, md.stochastic, cfg.seed)
+            return _eval(cfg, apply, device, md, model, noise)
     size = md.config.image_size
     if cfg.mode == "eval":
         return _eval(cfg, apply, device, md, model)
-    return serve(apply, name, (size, size, 3), device=device,
+    return serve(_replicas(cfg, serve_mesh, apply, model, md.stochastic),
+                 name, (size, size, 3), mesh=serve_mesh, spatial=cfg.sp,
                  host=cfg.serve_host, port=cfg.port,
                  batch_size=cfg.serve_batch, max_wait_ms=cfg.serve_wait_ms,
                  ready_event=serve_ready, stop_event=serve_stop,

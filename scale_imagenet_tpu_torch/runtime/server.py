@@ -1,13 +1,24 @@
 """Inference serving: an HTTP server with dynamic batching (counterpart of
 ``scale_imagenet_tpu/runtime/server.py:38,153,185``).
 
-A threaded HTTP front end feeds one device worker through a dynamic batcher:
+A threaded HTTP front end feeds the devices through a dynamic batcher:
 requests are coalesced (up to ``batch_size``, waiting at most
 ``max_wait_ms`` for stragglers) and run as ONE forward, padded to
 ``batch_size`` so the device always sees one shape.
 
+Over a mesh of several devices (``parallel/mesh.py::make_local_mesh``,
+JAX's ``make_forward(mesh, spatial)``) the padded batch is split over
+them (``parallel/local.py``): one persistent worker thread a replica, each
+on a CUDA stream of its own and in ``torch.inference_mode``, runs the
+replica's forward on its data slice, or under ``spatial`` (``--sp``) on
+its rows of it, the rows' exchanges going through a ``LocalGroup`` a data
+index.  The replicas run at the same time; the batcher waits for all of
+them, then gathers the probabilities.  A 1x1 mesh runs the forward in the
+batcher's own thread, as one device always did.
+
 Endpoints:
-  GET  /healthz  -> {"model", "device", "batch_size", "served", ...}
+  GET  /healthz  -> {"model", "device", "mesh", "devices", "batch_size",
+                    "served", ...}
   POST /predict  -> body = JPEG/PNG bytes (``image/*``, decoded with
                     Pillow through the model's PIL-exact eval transform,
                     ``data/transforms.py``) or a raw float32 NHWC tensor
@@ -18,6 +29,7 @@ Endpoints:
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import queue
@@ -29,6 +41,8 @@ import numpy as np
 import torch
 
 from ..data.transforms import imagenet_eval_transform
+from ..parallel.local import LocalGroup, gather_probs, split_batch
+from ..parallel.sp import RowShard
 
 
 class DynamicBatcher:
@@ -144,14 +158,115 @@ class DynamicBatcher:
                     done.set()
 
 
-def make_forward(apply, device: torch.device):
-    """numpy NHWC batch -> numpy class probabilities, through ``apply``
-    (NHWC tensor -> logits) on ``device``."""
+def _probs(apply, x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(apply(x).float(), dim=-1)
+
+
+class _Replica:
+    """One replica's worker thread: ``run(piece)`` hands it a host piece
+    of the batch, ``wait()`` returns its probabilities on its device."""
+
+    def __init__(self, apply, device: torch.device, name: str, group=None):
+        self.apply, self.device, self.group = apply, device, group
+        self._jobs: queue.Queue = queue.Queue()
+        self._out: dict = {}
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._work, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        with torch.inference_mode(), (torch.cuda.stream(stream) if cuda
+                                      else contextlib.nullcontext()):
+            while True:
+                piece = self._jobs.get()
+                if piece is None:
+                    return
+                try:
+                    out = _probs(self.apply, piece.to(self.device))
+                    if cuda:
+                        stream.synchronize()
+                    self._out = {"probs": out}
+                except BaseException as e:   # noqa: BLE001: to the batcher
+                    self._out = {"error": e}
+                    if self.group is not None:
+                        self.group.abort()   # its peers raise, not wait
+                self._done.set()
+
+    def run(self, piece: torch.Tensor) -> None:
+        self._done.clear()
+        self._jobs.put(piece)
+
+    def wait(self) -> dict:
+        self._done.wait()
+        return self._out
+
+    def close(self) -> None:
+        self._jobs.put(None)
+        self._thread.join(timeout=5)
+
+
+class MeshForward:
+    """numpy NHWC batch -> numpy class probabilities over a ``LocalMesh``:
+    ``replica(d, m, shard)`` (``shard`` a ``RowShard`` joined by its data
+    index's ``LocalGroup`` under ``spatial``, else None) gives the forward
+    of data index ``d``'s replica on model rank ``m``'s device; without
+    ``spatial`` model rank 0 alone serves a data index (the others would
+    repeat its work)."""
+
+    def __init__(self, replica, mesh, spatial: bool = False):
+        self.mesh, self.spatial = mesh, spatial
+        ranks = range(mesh["model"]) if spatial else (0,)
+        self._groups, self._replicas = [], {}
+        for d in range(mesh["data"]):
+            group = LocalGroup([mesh.device(d, m) for m in ranks]) \
+                if spatial else None
+            self._groups.append(group)
+            for m in ranks:
+                shard = RowShard(mesh["model"], m, group.member(m)) \
+                    if spatial else None
+                self._replicas[d, m] = _Replica(
+                    replica(d, m, shard), mesh.device(d, m),
+                    f"replica-d{d}-m{m}", group)
+
+    def __call__(self, xs: np.ndarray) -> np.ndarray:
+        pieces = split_batch(xs, self.mesh, self.spatial)
+        for key, piece in pieces.items():
+            self._replicas[key].run(piece)
+        outs = {key: self._replicas[key].wait() for key in pieces}
+        errors = [o["error"] for o in outs.values() if "error" in o]
+        if errors:
+            for group in self._groups:
+                if group is not None:
+                    group.reset()            # every replica has returned
+            # a replica's own fault before its peers' broken barriers
+            errors.sort(key=lambda e: isinstance(e,
+                                                 threading.BrokenBarrierError))
+            raise errors[0]
+        return gather_probs({k: o["probs"] for k, o in outs.items()},
+                            self.mesh)
+
+    def close(self) -> None:
+        for rep in self._replicas.values():
+            rep.close()
+
+
+def make_forward(replica, mesh, spatial: bool = False):
+    """numpy NHWC batch -> numpy class probabilities, with a ``close()``
+    that stops its threads.  ``replica(d, m, shard)`` gives a replica's
+    ``x -> logits`` (``MeshForward``); on a 1x1 mesh ``replica(0, 0,
+    None)`` runs on ``mesh.device(0, 0)`` in the caller's thread."""
+    if mesh["data"] * mesh["model"] > 1:
+        return MeshForward(replica, mesh, spatial)
+    apply, device = replica(0, 0, None), mesh.device(0, 0)
+
     def forward(xs: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            logits = apply(torch.from_numpy(xs).to(device))
-            probs = torch.softmax(logits.float(), dim=-1)
-            return probs.cpu().numpy()
+            return _probs(apply, torch.from_numpy(xs).to(device)).cpu() \
+                .numpy()
+    forward.close = lambda: None
     return forward
 
 
@@ -163,25 +278,33 @@ def _decode_image(body: bytes, transform) -> np.ndarray:
         return transform(img.convert("RGB"))
 
 
-def serve(apply, name: str, input_shape, *, device: torch.device,
+def serve(replica, name: str, input_shape, *, mesh, spatial: bool = False,
           host: str = "127.0.0.1", port: int = 8000, batch_size: int = 8,
           max_wait_ms: float = 2.0, ready_event=None, stop_event=None,
           verbose: bool = True, transform=imagenet_eval_transform) -> int:
     """Run the HTTP server until ``stop_event`` is set (or forever).
 
-    ``apply``: NHWC float32 tensor -> logits.  ``input_shape``: the
-    per-sample HWC shape posts must match.  ``transform``: the eval
-    transform of image uploads (the 32x32 models' is the CIFAR one).
-    ``ready_event`` is set (with a ``port`` attribute) once the socket is
-    bound.  Returns the bound port.
+    ``replica(d, m, shard)``: the forward (NHWC float32 tensor -> logits)
+    of a replica over ``mesh`` (``make_forward``); ``spatial``: each image's
+    rows over the mesh's model axis.  ``input_shape``: the per-sample HWC
+    shape posts must match.  ``transform``: the eval transform of image
+    uploads (the 32x32 models' is the CIFAR one).  ``ready_event`` is set
+    (with a ``port`` attribute) once the socket is bound.  Returns the
+    bound port.
     """
-    forward = make_forward(apply, device)
+    forward = make_forward(replica, mesh, spatial)
     example = np.zeros(input_shape, np.float32)
     batcher = DynamicBatcher(forward, example, batch_size=batch_size,
                              max_wait_ms=max_wait_ms)
-    # first call builds the kernels and warms the device; keep it out of
+    devices = [str(d) for d in mesh.devices]
+    # first call builds the kernels and warms the devices; keep it out of
     # the stats
-    batcher.submit(example, timeout=600.0)
+    try:
+        batcher.submit(example, timeout=600.0)
+    except BaseException:
+        batcher.close()
+        forward.close()
+        raise
     batcher.reset_stats()
 
     class Handler(BaseHTTPRequestHandler):
@@ -200,8 +323,10 @@ def serve(apply, name: str, input_shape, *, device: torch.device,
         def do_GET(self):
             if self.path != "/healthz":
                 return self._json(404, {"error": "unknown path"})
-            self._json(200, {"model": name, "device": str(device),
-                             "batch_size": batch_size, **batcher.stats()})
+            self._json(200, {"model": name, "device": devices[0],
+                             "mesh": dict(mesh), "spatial": spatial,
+                             "devices": devices, "batch_size": batch_size,
+                             **batcher.stats()})
 
         def do_POST(self):
             if self.path != "/predict":
@@ -231,7 +356,8 @@ def serve(apply, name: str, input_shape, *, device: torch.device,
     bound_port = httpd.server_address[1]
     if verbose:
         print(f"serving {name} on http://{host}:{bound_port} "
-              f"(batch {batch_size}, wait {max_wait_ms} ms, {device})")
+              f"(batch {batch_size}, wait {max_wait_ms} ms, mesh "
+              f"{dict(mesh)}{' --sp' if spatial else ''} over {devices})")
     if ready_event is not None:
         ready_event.port = bound_port
         ready_event.set()
@@ -248,4 +374,5 @@ def serve(apply, name: str, input_shape, *, device: torch.device,
         httpd.shutdown()
         httpd.server_close()
         batcher.close()
+        forward.close()
     return bound_port

@@ -528,6 +528,48 @@ def test_gate_cubes_matches_plain_on_long_flagship_covers(cuda, case):
     _gate_case(cuda, *case, t_max=4200, seed=sum(case))
 
 
+def test_gate_cubes_wide_on_every_card(cuda):
+    """n = 20 and 24 (shared memory above 48 KB: each card's kernel
+    attribute set on that card) on every visible card in turn, the last
+    card first, so that no card rides on another's setup."""
+    for index in reversed(range(torch.cuda.device_count())):
+        card = torch.device("cuda", index)
+        for g, f, n, w in ((1, 2, 20, 300), (2, 1, 24, 64)):
+            _gate_case(card, g, f, n, w, t_max=300, seed=n + index)
+
+
+def test_gate_cubes_launches_counted_from_threads(cuda):
+    """Four threads, each on a stream of its own, launch on the one card:
+    every launch equals the plain version and every one is counted."""
+    import threading
+
+    gen = torch.Generator().manual_seed(11)
+    planes = torch.randint(-2 ** 31, 2 ** 31, (2, 20, 300), generator=gen,
+                           dtype=torch.int64).to(torch.int32).to(cuda)
+    cubes, offsets = _cubes(4, 20, 200, 12)
+    cubes, offsets = cubes.to(cuda), offsets.to(cuda)
+    want = GC.gate_cubes_plain(planes, cubes, offsets, 2)
+    before, errors = GC.gate_cubes.launches, []
+
+    def launch():
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                for _ in range(25):
+                    got = GC.gate_cubes(planes, cubes, offsets, 2)
+                    stream.synchronize()
+                    assert torch.equal(got, want)
+        except BaseException as e:        # noqa: BLE001: asserted below
+            errors.append(e)
+    threads = [threading.Thread(target=launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert GC.gate_cubes.launches == before + 100
+
+
 def _cover_of(counts, n, seed):
     """Seeded covers with the given cube counts a filter: about a quarter
     of the bits don't care, and the first cube of every cover has every
