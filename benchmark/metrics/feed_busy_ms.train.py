@@ -1,0 +1,12 @@
+"""Host milliseconds the feed's producer thread worked a staged batch in
+the traced stretch of the train window: the program's ``feed.read``
+(shard read, stack, pad) and ``feed.stage`` (pinned copy, the copy's
+enqueue) spans over its staged batches."""
+from harness import program
+
+UNIT, LAYER, MOVES = "ms", "feed: data/shards.py -> data/loader.py", \
+    "train_img_s"
+
+
+def read(run):
+    return program.feed_busy(run, "train")

@@ -10,6 +10,7 @@ overlaps the forward of batch k.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from collections import deque
@@ -17,6 +18,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from ..utils.tracing import span
 
 
 class DataLoader:
@@ -138,6 +141,13 @@ def device_prefetch(iterator, device, size: int = 2):
     the CPU the batches become tensors and nothing else.  An exception in
     the producer reaches the consumer; closing the generator stops the
     producer.
+
+    Spans (``utils/tracing.py``, recorded under a profiler): the
+    producer's ``feed.read`` (``next`` of ``iterator``: the shard read,
+    stack and pad) and ``feed.stage`` (the pinned copy and the copy's
+    enqueue), the consumer's ``feed.wait`` (its wait for a staged batch,
+    with the device's time: how long the consumer's stream sat idle
+    for it), each with ``batch``, the batch's index in this generator.
     """
     device = torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=size)
@@ -174,8 +184,15 @@ def device_prefetch(iterator, device, size: int = 2):
 
     def producer():
         try:
-            for images, labels in iterator:
-                if not put(stage(images, labels)):
+            source = iter(iterator)
+            for k in itertools.count():
+                with span("feed.read", batch=k):
+                    batch = next(source, end)
+                if batch is end:
+                    break
+                with span("feed.stage", batch=k):
+                    staged = stage(*batch)
+                if not put(staged):
                     return
         except BaseException as e:  # noqa: BLE001 -- re-raised by consumer
             put(e)
@@ -185,8 +202,9 @@ def device_prefetch(iterator, device, size: int = 2):
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     try:
-        while True:
-            item = q.get()
+        for k in itertools.count():
+            with span("feed.wait", device, batch=k):
+                item = q.get()
             if item is end:
                 break
             if isinstance(item, BaseException):

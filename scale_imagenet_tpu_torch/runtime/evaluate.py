@@ -35,9 +35,11 @@ def evaluate(eval_step, loader, logger=None, epoch: int = 0,
     the epoch, and then come to the host in one copy: a ``.item()`` per
     batch would make the host wait for the card every batch, so nothing
     queued would overlap.  The drain at each log point is the loop's
-    back-pressure: it bounds the batches in flight.
+    back-pressure: it bounds the batches in flight.  Its copy waits for
+    the card, so the printed ms/batch, the wall time from the end of one
+    drain to the end of the next over the batches between, is the batches'
+    real time in steady state.
     """
-    batch_time = AverageMeter("Time", ":6.3f")
     losses = AverageMeter("Loss", ":.4e")
     top1 = AverageMeter("Acc@1", ":6.2f")
     top5 = AverageMeter("Acc@5", ":6.2f")
@@ -60,17 +62,19 @@ def evaluate(eval_step, loader, logger=None, epoch: int = 0,
                 extras[k].update(v, n)
         pending.clear()
 
-    end = time.time()
+    drained = time.perf_counter()
     for batch_idx, (images, labels) in enumerate(loader):
         pending.append(eval_step(images, labels))
-        batch_time.update(time.time() - end)
-        end = time.time()
         if batch_idx % log_interval == 0:
+            batches = len(pending)
             drain()
+            now = time.perf_counter()
+            ms = (now - drained) * 1e3 / batches
+            drained = now
             if verbose:
                 print(f"eval [{batch_idx}] loss {losses.avg:.3f} "
                       f"acc1 {top1.avg:.3f}% acc5 {top5.avg:.3f}% "
-                      f"({batch_time.avg * 1000:.0f} ms/batch)")
+                      f"({ms:.0f} ms/batch)")
             if logger is not None:
                 step = epoch * 10**6 + batch_idx
                 logger.add_scalar("Loss/test", losses.avg, step)

@@ -18,7 +18,11 @@ batcher's own thread, as one device always did.
 
 Endpoints:
   GET  /healthz  -> {"model", "device", "mesh", "devices", "batch_size",
-                    "served", ...}
+                    "served", "batches", "avg_batch_fill", "batch_ms_p50",
+                    "batch_ms_p95", "queue_ms_p50", "queue_ms_p95"}: the
+                    batch ms are the device calls' times, the queue ms
+                    each request's wait from its arrival at the batcher
+                    to the start of its batch's forward (recent ones)
   POST /predict  -> body = JPEG/PNG bytes (``image/*``, decoded with
                     Pillow through the model's PIL-exact eval transform,
                     ``data/transforms.py``) or a raw float32 NHWC tensor
@@ -54,7 +58,7 @@ class DynamicBatcher:
     through per-request events.
     """
 
-    _LAT_WINDOW = 512                   # recent-batch latency ring size
+    _LAT_WINDOW = 512       # recent batches' and requests' ring size
 
     def __init__(self, forward, example_input: np.ndarray,
                  batch_size: int = 8, max_wait_ms: float = 2.0):
@@ -75,7 +79,7 @@ class DynamicBatcher:
                              f"{self._shape}")
         done = threading.Event()
         slot: dict = {}
-        self._q.put((x, done, slot))
+        self._q.put((x, done, slot, time.perf_counter()))
         if not done.wait(timeout):
             raise TimeoutError("inference timed out")
         if "error" in slot:
@@ -88,19 +92,25 @@ class DynamicBatcher:
             self.batches = 0                 # device calls run
             self._lat_ring = [0.0] * self._LAT_WINDOW
             self._lat_n = 0
+            self._queue_ring = [0.0] * self._LAT_WINDOW
+            self._queue_n = 0
 
     def stats(self) -> dict:
-        """Throughput counters, batch fill, recent device-batch latency."""
+        """Throughput counters, batch fill, recent device-batch latency
+        and recent requests' queue wait."""
         with self._stats_lock:
             served, batches = self.served, self.batches
             lat = sorted(self._lat_ring[:min(self._lat_n, self._LAT_WINDOW)])
+            wait = sorted(self._queue_ring[:min(self._queue_n,
+                                                self._LAT_WINDOW)])
         return {
             "served": served,
             "batches": batches,
             "avg_batch_fill": round(served / batches, 2) if batches else 0.0,
-            "batch_ms_p50": round(lat[len(lat) // 2], 2) if lat else None,
-            "batch_ms_p95": round(lat[int(len(lat) * 0.95)], 2)
-            if lat else None,
+            "batch_ms_p50": _quantile(lat, 0.5),
+            "batch_ms_p95": _quantile(lat, 0.95),
+            "queue_ms_p50": _quantile(wait, 0.5),
+            "queue_ms_p95": _quantile(wait, 0.95),
         }
 
     def close(self):
@@ -110,7 +120,7 @@ class DynamicBatcher:
         # threads sit out the submit timeout
         while True:
             try:
-                _, done, slot = self._q.get_nowait()
+                _, done, slot, _ = self._q.get_nowait()
             except queue.Empty:
                 break
             slot["error"] = "server shutting down"
@@ -140,6 +150,11 @@ class DynamicBatcher:
                 xs = np.concatenate([xs, pad])
             try:
                 t0 = time.perf_counter()
+                with self._stats_lock:
+                    for *_, arrived in batch:
+                        self._queue_ring[self._queue_n % self._LAT_WINDOW] \
+                            = (t0 - arrived) * 1e3
+                        self._queue_n += 1
                 out = self._forward(xs)[:n]
                 ms = (time.perf_counter() - t0) * 1e3
                 # stats before done.set(): a caller may read or reset the
@@ -149,13 +164,19 @@ class DynamicBatcher:
                     self.batches += 1
                     self._lat_ring[self._lat_n % self._LAT_WINDOW] = ms
                     self._lat_n += 1
-                for i, (_, done, slot) in enumerate(batch):
+                for i, (_, done, slot, _) in enumerate(batch):
                     slot["out"] = out[i]
                     done.set()
             except Exception as e:      # propagate, don't hang clients
-                for _, done, slot in batch:
+                for _, done, slot, _ in batch:
                     slot["error"] = repr(e)
                     done.set()
+
+
+def _quantile(values: list, q: float):
+    """The ``q`` quantile of sorted ``values``, rounded to 0.01 (None for
+    none)."""
+    return round(values[int(len(values) * q)], 2) if values else None
 
 
 def _probs(apply, x: torch.Tensor) -> torch.Tensor:

@@ -70,6 +70,7 @@ from ..robust.collect import multi_sample_forward
 from ..robust.interval import certified_mask
 from ..robust.regularizer import bias_regularizer_loss, \
     bn_internals_collector
+from ..utils.tracing import span
 from .augment import make_rrc_flip_jitter
 from .losses import accuracy_topk, cross_entropy, masked_metric_sums
 
@@ -251,6 +252,30 @@ def _bn_buffers(written: dict) -> list:
     return [t for bn in written for t in (bn.running_mean, bn.running_var)]
 
 
+def _traced(train_step):
+    """``train_step`` inside the ``train.step`` span (``utils/tracing.py``;
+    ids: ``step``, the step's index), with the device's events: one
+    helper for both steps' factories."""
+
+    @functools.wraps(train_step)
+    def step(ts: TrainState, images, labels, generator=None, noise=None):
+        with span("train.step", images.device, step=ts.step):
+            return train_step(ts, images, labels, generator, noise)
+
+    return step
+
+
+def _reduce_and_update(ts: TrainState, opt, params: dict, grads: dict,
+                       reduced: list, group, device) -> None:
+    """The tail of both steps: the gradients and ``reduced`` (BN
+    statistics, metrics) averaged over the ranks of ``group``, the
+    optimizer's update (``train.optim``), then ``ts.step`` + 1."""
+    all_reduce_mean_([*grads.values(), *reduced], group)
+    with span("train.optim", device):
+        opt.update(params, grads, ts.opt_state, ts.step)
+    ts.step += 1
+
+
 def make_train_step(model: nn.Module, opt, amp: bool = False,
                     normalize=None, augment=False, accum: int = 1,
                     label_smooth: float = 0.0, group=None):
@@ -262,7 +287,12 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
     the images' device, ``noise`` (a ``NoiseKey``) keys the coin flips of a
     stochastic forward, which then needs it.  Metrics: ``loss``, ``top1``,
     ``top5`` as device scalars, averaged over the ranks of ``group`` (a
-    mesh's ``data_group``; None: every rank; module docstring)."""
+    mesh's ``data_group``; None: every rank; module docstring).
+
+    Spans (under a profiler; ``utils/tracing.py``): ``train.step``, and
+    inside it ``train.prepare`` (the input pipeline) and ``train.fwd_bwd``
+    (forward, loss, backward) once a microbatch, and ``train.optim``,
+    each with the device's time."""
     prepare = make_input_pipeline(
         normalize, augment, image_size=model.cfg.image_size,
         dtype=torch.bfloat16 if amp else torch.float32)
@@ -272,19 +302,22 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
         """Forward and backward of one microbatch; gradients accumulate
         into ``.grad``; the BN statistics are written after it, and their
         BNs noted in ``written``."""
-        images = prepare(images, generator)
+        device = images.device
+        with span("train.prepare", device):
+            images = prepare(images, generator)
         stats: dict = {}
         kwargs = {"stats": stats}
         if noise is not None:
             kwargs["noise"] = noise
-        if amp:
-            logits = torch.func.functional_call(
-                model, _bf16_values(model), (images.to(torch.bfloat16),),
-                kwargs).float()
-        else:
-            logits = model(images, **kwargs)
-        loss = cross_entropy(logits, labels, smoothing=label_smooth)
-        loss.backward()
+        with span("train.fwd_bwd", device):
+            if amp:
+                logits = torch.func.functional_call(
+                    model, _bf16_values(model),
+                    (images.to(torch.bfloat16),), kwargs).float()
+            else:
+                logits = model(images, **kwargs)
+            loss = cross_entropy(logits, labels, smoothing=label_smooth)
+            loss.backward()
         _write_bn_stats(stats)
         written.update(dict.fromkeys(stats))
         top1, top5 = accuracy_topk(logits.detach(), labels, topk=(1, 5))
@@ -312,13 +345,12 @@ def make_train_step(model: nn.Module, opt, amp: bool = False,
         if accum > 1:
             torch._foreach_mul_(list(grads.values()), 1.0 / accum)
             sums = tuple(s * (1.0 / accum) for s in sums)
-        all_reduce_mean_([*grads.values(), *_bn_buffers(written), *sums],
-                         group)
-        opt.update(params, grads, ts.opt_state, ts.step)
-        ts.step += 1
+        _reduce_and_update(ts, opt, params, grads,
+                           [*_bn_buffers(written), *sums], group,
+                           images.device)
         return ts, dict(zip(("loss", "top1", "top5"), sums))
 
-    return train_step
+    return _traced(train_step)
 
 
 def make_robust_train_step(md, model: nn.Module, opt, eps: float,
@@ -348,7 +380,7 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
     ``eps`` > 0 or the model draws coin flips) splits as the JAX key:
     ``child(0)`` the signs, ``child(1)`` the forward's flips.  Over
     several ranks the step averages as ``make_train_step``'s
-    (``stability_loss`` too)."""
+    (``stability_loss`` too), and records ``make_train_step``'s spans."""
     if abstract_coeff > 0 and md.interval_loss is None:
         raise ValueError(
             f"model {md.name} has no interval-arithmetic forward "
@@ -368,11 +400,9 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
     stochastic = getattr(model.cfg, "stochastic", False)
     params = dict(model.named_parameters())
 
-    def train_step(ts: TrainState, images, labels, generator=None,
-                   noise=None):
-        for p in params.values():
-            p.grad = None
-        images = prepare(images, generator)
+    def forward_backward(images, labels, noise):
+        """The forward with the robustness losses, and the backward:
+        ``(logits, loss, stability loss, BN statistics)``."""
         lo, hi = _on(bounds, images.device)
         with bn_internals_collector() as bn_c:
             if eps > 0:
@@ -402,15 +432,26 @@ def make_robust_train_step(md, model: nn.Module, opt, eps: float,
             loss = loss + bias_regularizer_loss(bn_c.pairs, bias_coeff,
                                                 bias_thresh)
         loss.backward()
+        return logits, loss, sloss, stats
+
+    def train_step(ts: TrainState, images, labels, generator=None,
+                   noise=None):
+        for p in params.values():
+            p.grad = None
+        device = images.device
+        with span("train.prepare", device):
+            images = prepare(images, generator)
+        with span("train.fwd_bwd", device):
+            logits, loss, sloss, stats = forward_backward(images, labels,
+                                                          noise)
         _write_bn_stats(stats)
         top1, top5 = accuracy_topk(logits.detach(), labels, topk=(1, 5))
         grads = {n: p.grad for n, p in params.items()}
         metrics = {"loss": loss.detach(), "top1": top1, "top5": top5,
                    "stability_loss": sloss.detach()}
-        all_reduce_mean_([*grads.values(), *_bn_buffers(stats),
-                          *metrics.values()], group)
-        opt.update(params, grads, ts.opt_state, ts.step)
-        ts.step += 1
+        _reduce_and_update(ts, opt, params, grads,
+                           [*_bn_buffers(stats), *metrics.values()], group,
+                           device)
         return ts, metrics
 
-    return train_step
+    return _traced(train_step)

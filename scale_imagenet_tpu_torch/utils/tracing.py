@@ -3,14 +3,29 @@
 region with a host read, a ``torch.profiler`` trace into a directory, a
 printer of a module's (or a dict's) tensor shapes and the ``PrintNorm``
 tap, forward and backward.
+
+Beside them, the port's own spans: ``span(name, device, **ids)`` around
+the feed's producer and consumer (``data/loader.py``) and the train
+step's phases (``train/steps.py``), kept in a bounded in-memory ring and
+read back by ``spans()``.  A span records only while a ``torch.profiler``
+session runs; with none, it costs one attribute read.  Its times are
+Unix ns (``time.time_ns``), the clock of the profiler's host events
+(``kineto_results.events()``' ``start_ns()``), so a span compares
+directly with the trace's operations.  A span is never a
+``record_function`` range: the profiler would project such a range onto
+the device's timeline as an operation of its own.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class StepTimer:
@@ -59,6 +74,112 @@ def profile_trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span: ``start_ns``/``end_ns`` on the host's Unix
+    clock, the recording ``thread`` (``threading.get_ident``), the
+    ``parent`` (the name of the span open around it on the same thread,
+    or None), the caller's ``ids`` (``step=...``), and where the span was
+    given a CUDA device, ``device_ms``: the time between its two CUDA
+    events on the stream that was current at its edges, from the stream
+    reaching the work queued before the span to its reaching the span's
+    end: the span's kernels and the stream's idle between them, or, for
+    a span that queues nothing, the time the stream sat idle waiting for
+    the host to leave it."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    parent: str | None
+    ids: dict
+    device_ms: float | None = None
+    events: tuple | None = dataclasses.field(default=None, repr=False)
+
+
+class _Open:
+    """A span being recorded: the context manager ``span`` returns while
+    a profiler session runs."""
+
+    __slots__ = ("recorder", "name", "device", "ids", "parent", "start",
+                 "events")
+
+    def __init__(self, recorder, name, device, ids):
+        self.recorder, self.name, self.device, self.ids = \
+            recorder, name, device, ids
+
+    def __enter__(self):
+        stack = self.recorder._stack()
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        self.start = time.time_ns()
+        self.events = None
+        if self.device is not None and self.device.type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record(torch.cuda.current_stream(self.device))
+        end = time.time_ns()
+        self.recorder._stack().pop()
+        self.recorder._ring.append(Span(
+            self.name, self.start, end, threading.get_ident(), self.parent,
+            self.ids, events=self.events))
+        return False
+
+
+_OFF = contextlib.nullcontext()
+RING = 65_536           # spans a recorder keeps, the newest
+
+
+class SpanRecorder:
+    """The program's spans, the newest ``RING`` of them (a ring: a long
+    profiled run does not grow memory).  ``span`` records only while a
+    ``torch.profiler`` session is active; the CUDA events of a span are
+    resolved to ``device_ms`` by ``spans()``, never inside the loop, so
+    recording adds no synchronisation."""
+
+    def __init__(self):
+        self._ring: collections.deque = collections.deque(maxlen=RING)
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span(self, name: str, device: torch.device | None = None, **ids):
+        """A context manager around one region of the program: ``name``,
+        the ``device`` whose current stream carries the region's work (a
+        CUDA device adds the span's device time), and ids such as
+        ``step=ts.step``.  With no profiler session running it records
+        nothing and reads no clock."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return _OFF
+        return _Open(self, name, device, ids)
+
+    def spans(self) -> list[Span]:
+        """The recorded spans, oldest first, each ``device_ms`` filled in
+        (waiting for the span's last CUDA event where it has one)."""
+        out = list(self._ring)
+        for s in out:
+            if s.events is not None:
+                s.events[1].synchronize()
+                s.device_ms = s.events[0].elapsed_time(s.events[1])
+                s.events = None
+        return out
+
+
+# the process's recorder: the feed and the train step record into it
+RECORDER = SpanRecorder()
+span = RECORDER.span
+spans = RECORDER.spans
 
 
 def _named_tensors(tree, prefix: str = ""):

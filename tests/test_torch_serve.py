@@ -4,6 +4,7 @@ default, and the flags of later slices refused by name."""
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -49,6 +50,45 @@ def _png(seed: int) -> bytes:
     Image.fromarray(rng.integers(0, 256, (260, 300, 3), dtype=np.uint8)) \
         .save(buf, format="PNG")
     return buf.getvalue()
+
+
+def test_batcher_queue_wait_counts_the_forward_ahead():
+    """Two back-to-back bursts of four through a batcher of four whose
+    forward sleeps: the requests behind the first forward wait in the
+    queue at least that forward's sleep, which ``stats()`` reports."""
+    from scale_imagenet_tpu_torch.runtime import DynamicBatcher
+
+    gate, entered = threading.Event(), []
+
+    def forward(xs):
+        entered.append(len(xs))
+        gate.wait(10)
+        time.sleep(0.2)
+        return xs
+
+    b = DynamicBatcher(forward, np.zeros(3, np.float32), batch_size=4,
+                       max_wait_ms=1.0)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            futures = [pool.submit(b.submit, np.full(3, i, np.float32), 30)
+                       for i in range(8)]
+            # the first forward is running (held at the gate) and every
+            # other request is queued behind it
+            deadline = time.monotonic() + 10
+            while (not entered or b._q.qsize() < 8 - entered[0]) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.005)
+            gate.set()
+            got = [f.result(30) for f in futures]
+        stats = b.stats()
+    finally:
+        b.close()
+    assert [float(g[0]) for g in got] == list(range(8))
+    assert stats["served"] == 8
+    # at most four rode the first forward; the rest waited out its sleep
+    assert stats["queue_ms_p50"] >= 200.0
+    assert stats["queue_ms_p95"] >= stats["queue_ms_p50"]
+    assert stats["batch_ms_p50"] >= 200.0
 
 
 @pytest.mark.parametrize("lut", [True, False])
@@ -105,6 +145,7 @@ def test_server_answers_concurrent_requests(lut):
     assert [a[0] for a in answers] == [200] * 6
     assert [a[1]["top5"] for a in answers] == direct[:6]
     assert health["served"] == 6 and health["batch_size"] == 4
+    assert 0 <= health["queue_ms_p50"] <= health["queue_ms_p95"]
     assert health["model"].endswith("+lut") == lut
     assert health["device"] == "cpu"
     assert bad_shape[0] == 400 and "shape" in bad_shape[1]["error"]
